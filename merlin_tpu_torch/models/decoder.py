@@ -1,0 +1,270 @@
+"""Unified causal-decoder LM (counterpart of ``merlin_tpu/models/decoder.py``).
+
+One decoder parameterized by :class:`DecoderConfig` covers the Llama/Vicuna,
+Baichuan, Phi-2 and OPT families. Attention without a cache goes through the
+dispatcher (:mod:`merlin_tpu_torch.ops.attention`, the flash kernel B2 on
+the card); attention on a dense KV cache uses :func:`mha_reference` for
+both prefill and the one-token step, exactly as the JAX package does
+(``decoder.py:491-543``), so the two packages agree.
+
+This slice ports the non-scanned stack and the dense cache. The paged-cache
+branches, ``scan_layers``, ``remat`` and int8 weights come with later
+slices; a config asking for them is refused.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from merlin_tpu_torch.models.layers import (
+    DenseGeneral, Embed, GatedMLP, LayerNorm, RMSNorm, SimpleMLP,
+    alibi_slopes, apply_rope, normal_param)
+from merlin_tpu_torch.ops.attention import attention as dispatch_attention
+from merlin_tpu_torch.ops.attention import mha_reference
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: Optional[int] = None     # None -> MHA
+    head_dim: Optional[int] = None         # None -> hidden/heads
+    max_position_embeddings: int = 2048
+
+    positional: str = "rope"               # rope | alibi | learned
+    rope_theta: float = 10000.0
+    rope_linear_scale: float = 1.0
+    partial_rotary_factor: float = 1.0     # phi-2: 0.4
+    attention_bias: bool = False           # phi-2/opt: True
+
+    norm: str = "rms"                      # rms | ln
+    norm_eps: float = 1e-6
+    mlp: str = "gated"                     # gated | gelu_new | relu
+    parallel_block: bool = False           # phi-2
+    final_norm: bool = True
+
+    tie_word_embeddings: bool = False
+    lm_head_bias: bool = False             # phi-2: True
+    normhead: bool = False                 # baichuan2: L2-normalized lm_head
+    z_loss_weight: float = 0.0
+
+    dtype: Any = torch.bfloat16
+    weight_dtype: str = "bf16"
+    paged_multi_query: bool = False
+    remat: bool = False
+    scan_layers: bool = False
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def head_size(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+    def norm_layer(self):
+        if self.norm == "rms":
+            return RMSNorm(self.hidden_size, eps=self.norm_eps)
+        return LayerNorm(self.hidden_size, eps=self.norm_eps)
+
+
+def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.bfloat16, *,
+                  device="cuda") -> Dict[str, Any]:
+    """Dense KV cache: per-layer (b, max_len, hkv, d) ``k``/``v`` buffers,
+    ``seg`` validity/segment ids per slot (0 = empty), ``pos`` the true
+    token position per slot (ragged prompts, ALiBi), and ``index`` the
+    shared write cursor (a Python int). The forward updates the buffers in
+    place and returns the same dict layout with the cursor advanced. The
+    paged layout waits for the serving slice.
+    """
+    shape = (batch, max_len, cfg.kv_heads, cfg.head_size)
+    layers = tuple(
+        {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for _ in range(cfg.num_layers))
+    return {
+        "layers": layers,
+        "seg": torch.zeros((batch, max_len), dtype=torch.int32, device=device),
+        "pos": torch.zeros((batch, max_len), dtype=torch.int32, device=device),
+        "index": 0,
+    }
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        h, hkv, d, e = cfg.num_heads, cfg.kv_heads, cfg.head_size, cfg.hidden_size
+        bias = cfg.attention_bias
+        self.q_proj = DenseGeneral(e, (h, d), use_bias=bias, dtype=cfg.dtype)
+        self.k_proj = DenseGeneral(e, (hkv, d), use_bias=bias, dtype=cfg.dtype)
+        self.v_proj = DenseGeneral(e, (hkv, d), use_bias=bias, dtype=cfg.dtype)
+        self.o_proj = DenseGeneral((h, d), e, use_bias=bias, dtype=cfg.dtype)
+
+    def forward(self, x, positions, segment_ids, layer_cache, cache_aux):
+        cfg = self.cfg
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        if cfg.positional == "rope":
+            rotary_dim = int(cfg.head_size * cfg.partial_rotary_factor)
+            rope = dict(theta=cfg.rope_theta,
+                        linear_scale=cfg.rope_linear_scale,
+                        rotary_dim=rotary_dim)
+            q = apply_rope(q, positions, **rope)
+            k = apply_rope(k, positions, **rope)
+        slopes = (alibi_slopes(cfg.num_heads, device=x.device)
+                  if cfg.positional == "alibi" else None)
+
+        if layer_cache is None:
+            out = dispatch_attention(
+                q, k, v, causal=True, segment_ids_q=segment_ids,
+                segment_ids_kv=segment_ids, alibi_slopes=slopes)
+        else:
+            # write this call's K/V at the shared cursor (in place); the
+            # caller has already written seg/pos for these slots
+            idx = cache_aux["index"]
+            s_q = q.shape[1]
+            kc, vc = layer_cache["k"], layer_cache["v"]
+            kc[:, idx:idx + s_q] = k.to(kc.dtype)
+            vc[:, idx:idx + s_q] = v.to(vc.dtype)
+            new_seg, new_pos = cache_aux["seg"], cache_aux["pos"]
+            if s_q == 1:
+                # every valid cached token is in the past: the validity
+                # mask alone masks; ALiBi reads true positions on both sides
+                out = mha_reference(
+                    q, kc, vc, causal=False,
+                    segment_ids_q=torch.ones((q.shape[0], 1), dtype=torch.int32,
+                                             device=q.device),
+                    segment_ids_kv=(new_seg > 0).to(torch.int32),
+                    alibi_slopes=slopes, q_offset=positions,
+                    k_positions=new_pos)
+            else:
+                seg_in = (segment_ids if segment_ids is not None else
+                          torch.ones(q.shape[:2], dtype=torch.int32,
+                                     device=q.device))
+                out = mha_reference(
+                    q, kc, vc, causal=True, segment_ids_q=seg_in,
+                    segment_ids_kv=new_seg, alibi_slopes=slopes,
+                    q_offset=idx)
+        return self.o_proj(out)
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.input_norm = cfg.norm_layer()
+        self.attn = Attention(cfg)
+        if cfg.mlp == "gated":
+            self.mlp = GatedMLP(cfg.hidden_size, cfg.intermediate_size,
+                                dtype=cfg.dtype)
+        else:
+            self.mlp = SimpleMLP(cfg.hidden_size, cfg.intermediate_size,
+                                 activation=cfg.mlp, dtype=cfg.dtype)
+        if not cfg.parallel_block:
+            self.post_attn_norm = cfg.norm_layer()
+
+    def forward(self, x, positions, segment_ids, layer_cache, cache_aux):
+        h = self.input_norm(x)
+        attn_out = self.attn(h, positions, segment_ids, layer_cache, cache_aux)
+        if self.cfg.parallel_block:
+            # Phi-2: attention and MLP read the same normed input
+            return x + attn_out + self.mlp(h)
+        x = x + attn_out
+        return x + self.mlp(self.post_attn_norm(x))
+
+
+class CausalLM(nn.Module):
+    """Token ids (or pre-spliced embeddings) -> logits (+ updated cache)."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        unported = [f for f in ("scan_layers", "remat", "paged_multi_query")
+                    if getattr(cfg, f)]
+        if unported or cfg.weight_dtype != "bf16":
+            raise NotImplementedError(
+                f"not ported yet: {unported or ['weight_dtype=int8']}")
+        self.cfg = cfg
+        self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size,
+                                  dtype=cfg.dtype)
+        if cfg.positional == "learned":
+            self.embed_positions = Embed(cfg.max_position_embeddings + 2,
+                                         cfg.hidden_size, dtype=cfg.dtype)
+        for i in range(cfg.num_layers):
+            self.add_module(f"layers_{i}", DecoderBlock(cfg))
+        if cfg.final_norm:
+            self.final_norm = cfg.norm_layer()
+        if not cfg.tie_word_embeddings:
+            if cfg.normhead:
+                self.lm_head_kernel = normal_param(
+                    (cfg.hidden_size, cfg.vocab_size))
+            else:
+                self.lm_head = DenseGeneral(
+                    cfg.hidden_size, cfg.vocab_size,
+                    use_bias=cfg.lm_head_bias, dtype=cfg.dtype)
+
+    @property
+    def blocks(self):
+        return [getattr(self, f"layers_{i}") for i in range(self.cfg.num_layers)]
+
+    def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.embed_tokens(input_ids)
+
+    def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.tie_word_embeddings:
+            return self.embed_tokens.attend(hidden)
+        if cfg.normhead:
+            kernel = self.lm_head_kernel.float()
+            kernel = kernel / (torch.linalg.vector_norm(
+                kernel, dim=0, keepdim=True) + 1e-7)
+            # bf16 operands, f32 products and sums (preferred_element_type)
+            return hidden.to(cfg.dtype).float() @ kernel.to(cfg.dtype).float()
+        return self.lm_head(hidden)
+
+    def forward(self, input_ids=None, *, inputs_embeds=None, positions=None,
+                segment_ids=None, kv_cache=None, return_hidden=False):
+        cfg = self.cfg
+        if inputs_embeds is None:
+            inputs_embeds = self.embed_tokens(input_ids)
+        b, s = inputs_embeds.shape[:2]
+        dev = inputs_embeds.device
+        if positions is None:
+            start = kv_cache["index"] if kv_cache is not None else 0
+            positions = start + torch.arange(s, device=dev).expand(b, s)
+        x = inputs_embeds
+        if cfg.positional == "learned":
+            x = x + self.embed_positions(positions + 2)
+
+        cache_aux = None
+        if kv_cache is not None:
+            # validity/position bookkeeping is layer-independent: written
+            # once here (in place) before the layers read it
+            idx = kv_cache["index"]
+            seg_in = (segment_ids if segment_ids is not None
+                      else torch.ones((b, s), dtype=torch.int32, device=dev))
+            kv_cache["seg"][:, idx:idx + s] = seg_in.to(torch.int32)
+            kv_cache["pos"][:, idx:idx + s] = positions.to(torch.int32)
+            cache_aux = {"seg": kv_cache["seg"], "pos": kv_cache["pos"],
+                         "index": idx}
+
+        for i, blk in enumerate(self.blocks):
+            layer_cache = kv_cache["layers"][i] if kv_cache is not None else None
+            x = blk(x, positions, segment_ids, layer_cache, cache_aux)
+        if cfg.final_norm:
+            x = self.final_norm(x)
+        logits = self.compute_logits(x)
+
+        new_cache = None
+        if kv_cache is not None:
+            new_cache = dict(kv_cache, index=kv_cache["index"] + s)
+        if return_hidden:
+            return logits, new_cache, x
+        return logits, new_cache

@@ -1,0 +1,96 @@
+"""MMGPT: vision tower -> projector -> causal LM (counterpart of
+``merlin_tpu/models/mmgpt.py``).
+
+Image features are spliced into the token embeddings with one vectorized
+gather: the k-th ``<im_patch>`` position of row i takes feature k of row i.
+
+Batching contract: ``images`` is (b, max_images, H, W, C); rows with fewer
+images pad with zero images, which are encoded but never gathered because
+they have no ``<im_patch>`` tokens. The training loss (``labels``) comes
+with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from merlin_tpu_torch.models.decoder import CausalLM, DecoderConfig
+from merlin_tpu_torch.models.projectors import build_projector
+from merlin_tpu_torch.models.vision_builder import build_vision_tower
+
+
+@dataclasses.dataclass(frozen=True)
+class MMGPTConfig:
+    lm: DecoderConfig
+    vit: Any  # ViTConfig
+    projector: str = "conv"
+    conv_stride: int = 2
+    vision_kind: str = "clip"
+    select_layer: int = -2
+    select_feature: str = "patch"
+    use_im_start_end: bool = True
+    image_patch_id: int = -1
+    im_start_id: int = -1
+    im_end_id: int = -1
+
+    @property
+    def vision_grid(self) -> int:
+        return self.vit.grid_size
+
+    @property
+    def image_token_len(self) -> int:
+        """Tokens per image after projection."""
+        if self.projector == "conv":
+            side = self.vision_grid // self.conv_stride
+            return side * side
+        return self.vision_grid ** 2
+
+
+def splice_image_embeds(token_embeds: torch.Tensor, patch_mask: torch.Tensor,
+                        image_feats: torch.Tensor) -> torch.Tensor:
+    """token_embeds (b, s, d); patch_mask (b, s) bool; image_feats
+    (b, n_feats, d) in image order. The k-th True position of row i gets
+    image_feats[i, k]."""
+    idx = torch.cumsum(patch_mask.to(torch.int32), dim=1) - 1
+    idx = idx.clamp(0, image_feats.shape[1] - 1).long()
+    gathered = torch.gather(
+        image_feats, 1, idx[..., None].expand(-1, -1, image_feats.shape[2]))
+    return torch.where(patch_mask[..., None],
+                       gathered.to(token_embeds.dtype), token_embeds)
+
+
+class MMGPT(nn.Module):
+    """Vision tower + projector + causal LM with embedding-level splice."""
+
+    def __init__(self, cfg: MMGPTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vision_tower = build_vision_tower(
+            cfg.vision_kind, cfg.vit, select_layer=cfg.select_layer,
+            select_feature=cfg.select_feature)
+        self.projector = build_projector(
+            cfg.projector, cfg.vit.hidden_size, cfg.lm.hidden_size,
+            conv_stride=cfg.conv_stride, dtype=cfg.lm.dtype)
+        self.lm = CausalLM(cfg.lm)
+
+    def encode_images(self, images: torch.Tensor) -> torch.Tensor:
+        """(n, H, W, C) pixel values -> (n, image_token_len, d_lm)."""
+        return self.projector(self.vision_tower(images))
+
+    def forward(self, input_ids, *, images: Optional[torch.Tensor] = None,
+                positions=None, segment_ids=None, kv_cache=None):
+        """images: (b, n_img, H, W, C) or None (text-only / decode step).
+        Returns (logits, new_kv_cache)."""
+        embeds = self.lm.embed(input_ids)
+        if images is not None:
+            b, n = images.shape[:2]
+            feats = self.encode_images(images.reshape((b * n,) + images.shape[2:]))
+            feats = feats.reshape(b, n * feats.shape[1], feats.shape[2])
+            patch_mask = input_ids == self.cfg.image_patch_id
+            embeds = splice_image_embeds(embeds, patch_mask, feats)
+        return self.lm(inputs_embeds=embeds, positions=positions,
+                       segment_ids=segment_ids, kv_cache=kv_cache)

@@ -1,0 +1,125 @@
+"""Structural checks on the port (``merlin_tpu_torch`` and ``chip_smoke.py``):
+
+  * nothing imports jax, flax, optax or merlin_tpu;
+  * the entry points default to the card (``device="cuda"``);
+  * a kernel wrapper, or the attention dispatcher, given a tensor that is
+    not on the CPU never reaches the plain version: read from its code (the
+    CPU test has no card), and shown at run time with tensors on the meta
+    device, which the wrapper refuses before any launch;
+  * the tree carries the kernel sources the build compiles.
+"""
+
+import ast
+import inspect
+import pathlib
+
+import pytest
+import torch
+
+import merlin_tpu_torch
+from merlin_tpu_torch.generate.decode import Generator
+from merlin_tpu_torch.models.bridge import init_params
+from merlin_tpu_torch.models.decoder import init_kv_cache
+from merlin_tpu_torch.ops import _build
+from merlin_tpu_torch.ops import attention as attn_ops
+from merlin_tpu_torch.ops import flash_attention as fa
+from merlin_tpu_torch.ops import onepass_attention as oa
+from merlin_tpu_torch.ops.image_ops import preprocess_images
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = pathlib.Path(merlin_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "merlin_tpu")
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+@pytest.mark.parametrize("fn", [init_params, init_kv_cache,
+                                preprocess_images, Generator.__init__],
+                         ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("wrapper,plain", [
+    (oa.onepass_attention, "onepass_attention_plain"),
+    (fa.flash_attention, "flash_attention_plain")])
+def test_wrapper_reaches_plain_only_for_cpu_tensors(wrapper, plain):
+    """The plain version is called in exactly one place: the body of the
+    wrapper's first statement, ``if q.device.type == "cpu": return ...``.
+    No try/except anywhere in the wrapper can swap it in."""
+    fn = ast.parse(inspect.getsource(wrapper)).body[0]
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id == plain]
+    assert len(calls) == 1
+    body = [s for s in fn.body if not (isinstance(s, ast.Expr)
+                                       and isinstance(s.value, ast.Constant))]
+    guard = next(s for s in body if isinstance(s, ast.If))
+    assert ast.unparse(guard.test) == "q.device.type == 'cpu'"
+    assert len(guard.body) == 1 and isinstance(guard.body[0], ast.Return)
+    assert calls[0] in list(ast.walk(guard.body[0]))
+    assert not guard.orelse
+
+
+def test_dispatcher_sends_plain_only_cpu_or_short_or_wide_calls():
+    """``attention()`` calls ``mha_reference`` in one place, guarded by the
+    JAX shape rule and the CPU test alone: no dtype term, no flag."""
+    fn = ast.parse(inspect.getsource(attn_ops.attention)).body[0]
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    assert [a.arg for a in fn.args.kwonlyargs] == [
+        "causal", "segment_ids_q", "segment_ids_kv", "alibi_slopes", "scale"]
+    calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Name) and n.func.id == "mha_reference"]
+    assert len(calls) == 1
+    guard = next(s for s in fn.body if isinstance(s, ast.If))
+    assert ast.unparse(guard.test) == \
+        "q.device.type == 'cpu' or sq < 128 or d > 256"
+    assert len(guard.body) == 1 and isinstance(guard.body[0], ast.Return)
+    assert calls[0] in list(ast.walk(guard.body[0]))
+    assert not guard.orelse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_non_cpu_tensors_are_refused_not_computed_plain(dtype):
+    """Tensors on the meta device stand in for CUDA ones: the wrappers and
+    the dispatcher's kernel routes refuse them before any launch, whatever
+    the dtype, where the plain path would have computed a result."""
+    q = torch.empty((1, 130, 2, 64), dtype=dtype, device="meta")
+    for call in (lambda: oa.onepass_attention(q, q, q),
+                 lambda: fa.flash_attention(q, q, q),
+                 lambda: attn_ops.attention(q, q, q, causal=False),
+                 lambda: attn_ops.attention(q, q, q, causal=True)):
+        before = (oa.onepass_attention.launches, fa.flash_attention.launches)
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+        assert (oa.onepass_attention.launches,
+                fa.flash_attention.launches) == before
+
+
+def test_kernel_sources_are_in_the_tree():
+    names = {p.name for p in _build.sources()}
+    assert {"onepass_attention.cu", "flash_attention.cu",
+            "attention_core.cuh"} <= names
+    for name, argtypes in _build.SIGNATURES.items():
+        text = "".join(p.read_text() for p in _build.sources())
+        assert f'extern "C" int {name}(' in text
+        assert len(argtypes) > 0
