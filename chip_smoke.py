@@ -1,15 +1,17 @@
 """On-card smoke run of the PyTorch/CUDA port (``merlin_tpu_torch``).
 
-Drives the port's main path once on one NVIDIA GPU, through the entry points
+Drives the port's paths once on one NVIDIA GPU, through the entry points
 a user calls, at the full width of CLIP ViT-L/14-448 + Vicuna-7B (all 32
-decoder layers, random bf16 weights from a seed):
+decoder layers, random bf16 weights from a seed) and of Baichuan-13B:
 
   1. setup      - card name and power limit; build the CUDA kernels from
                   ``merlin_tpu_torch/csrc`` (nvcc, sm_90a);
-  2. kernels    - each kernel against its plain PyTorch version on the card
-                  at the main path's shapes (and edge cases), with times,
-                  the bound from the shapes, and one PyTorch library call as
-                  a yardstick; a planted fault (the last key tile dropped)
+  2. kernels    - each kernel (B1-B6) against its plain PyTorch version on
+                  the card at its path's shapes (and edge cases: GQA, ALiBi,
+                  ragged lengths over permuted page tables), with times, the
+                  bound from the shapes, and one PyTorch library call as a
+                  yardstick where one exists; a planted fault (the last key
+                  tile dropped; a live page redirected to the trash page)
                   must fail the same check;
   3. reference  - a narrow model on the card (through the kernels) against
                   the same weights on the CPU (plain path), both in bf16;
@@ -20,9 +22,21 @@ decoder layers, random bf16 weights from a seed):
                   (one with two image blocks) and one streamed request; the
                   logits each row's tokens were picked from, at the prefill
                   and at the last step, are held against one no-cache
-                  forward of that row alone.
+                  forward of that row alone;
+  6. serving    - the paged continuous-batching ``ServingEngine`` serves 6
+                  ragged text requests (32 tokens each) in three setups:
+                  E1 Vicuna-7B whole-prompt admission + decode (B2, B3);
+                  E2 Vicuna-7B chunked prefill + speculative windows (B6,
+                  B5); E3 Baichuan-13B cut to 4 layers, ALiBi, hybrid
+                  admission (B2, B6, B4). Each kernel's launches must equal
+                  the layers times the model calls of its kind and no other
+                  kernel may launch; every emitted token must hold against a
+                  no-cache forward of its request, and a request's tokens
+                  read after another request's prompt must fail that check.
+                  Prints tokens/s and per-request TTFT.
 
-Prints the kernel table as one JSON line before the last, and as the last
+Prints the serving readings and the kernel table as JSON lines before the
+last, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs a CUDA card; exits 2 without one.
 
@@ -31,7 +45,9 @@ that line. Needs a CUDA card; exits 2 without one.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -59,6 +75,11 @@ B1_SOURCE = "merlin_tpu_torch/csrc/onepass_attention.cu"
 B2_SOURCE = "merlin_tpu_torch/csrc/flash_attention.cu"
 B1_REPLACES = "merlin_tpu/ops/onepass_attention.py:254"
 B2_REPLACES = "merlin_tpu/ops/flash_attention.py:161"
+PAGED_SOURCE = "merlin_tpu_torch/csrc/paged_attention.cu"
+PAGED_REPLACES = {"B3": "merlin_tpu/ops/paged_attention.py:365",
+                  "B4": "merlin_tpu/ops/paged_attention.py:143",
+                  "B5": "merlin_tpu/ops/paged_attention.py:631",
+                  "B6": "merlin_tpu/ops/paged_attention.py:772"}
 
 
 def log(msg: str) -> None:
@@ -224,6 +245,146 @@ def check_b2(gen):
                 bound_by=by, library_ms=lib, shape=list(shape))
 
 
+def paged_inputs(gen, b, h, hkv, d, lengths, s_q=0, page=128, pps=16):
+    """q, a pool of b * pps + 1 random pages (page 0 is the trash page),
+    and tables whose live entries are a random permutation of pages 1..
+    (not contiguous), unused entries on page 0."""
+    total = b * pps + 1
+    pool = [torch.randn((total, page, hkv * d), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(2)]
+    perm = (torch.randperm(total - 1, generator=gen, device="cuda") + 1).to(
+        torch.int32).reshape(b, pps)
+    tables = torch.zeros((b, pps), dtype=torch.int32, device="cuda")
+    for i, n in enumerate(lengths):
+        used = -(-n // page)
+        tables[i, :used] = perm[i, :used]
+    qshape = (b, s_q, h, d) if s_q else (b, h, d)
+    q = torch.randn(qshape, generator=gen, device="cuda").to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, pool[0], pool[1], lens, tables
+
+
+def redirect_page(tables, lengths, page=128):
+    """The planted fault: one live page of the first sequence with two or
+    more pages, pointed at the trash page 0."""
+    bad = tables.clone()
+    i = next(i for i, n in enumerate(lengths) if n > page)
+    bad[i, 1] = 0
+    return bad
+
+
+def check_paged(gen):
+    """B3/B4 (paged decode) and B5/B6 (paged window) against their plain
+    versions at the serving path's widths, ragged lengths (1, page
+    multiples, >= 1900) over permuted tables; a redirected live page must
+    fail the check. Returns the four kernel rows."""
+    from merlin_tpu_torch.models.layers import alibi_slopes
+    from merlin_tpu_torch.ops import paged_attention as pa
+
+    errs = {k: [] for k in ("B3", "B4", "B5", "B6")}
+    fns = {"B3": pa.paged_attention_dma, "B4": pa.paged_attention,
+           "B5": pa.paged_attention_dma_multi,
+           "B6": pa.paged_attention_multi_blocked}
+
+    def compare(tag, name, inputs, slopes=None, tables=None):
+        q, kp, vp, lens, tabs = inputs
+        kw = {} if name == "B3" else {"alibi_slopes": slopes}
+        plain = (pa.paged_attention_plain if q.dim() == 3
+                 else pa.paged_attention_multi_plain)
+        got = fns[name](q, kp, vp, lens, tabs if tables is None else tables,
+                        **kw)
+        want = plain(q, kp, vp, lens, tabs, **kw)
+        torch.cuda.synchronize()
+        err, rel = out_err(got, want)
+        if tables is not None:
+            log(f"{name} planted fault ({tag}: a live page redirected to "
+                f"the trash page): row error {rel:.3e}, must exceed "
+                f"{OUT_RTOL:.3e}")
+            if not rel > OUT_RTOL:
+                raise AssertionError(f"{name}: the check cannot see a "
+                                     "redirected page")
+            return
+        log(f"{name} {tag}: max_abs_err {err:.3e}, row error {rel:.3e} "
+            f"(tol {OUT_RTOL:.3e})")
+        if not (rel <= OUT_RTOL and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{name} {tag} disagrees: {err} {rel}")
+        errs[name].append(err)
+
+    vicuna = [1, 256, 1937, 700]            # E1's 4 slots at 32/32 heads
+    baichuan = [1, 384, 1999, 901]
+    gqa = [1, 1024, 1900]
+    s40 = alibi_slopes(40, device="cuda")
+    s8 = alibi_slopes(8, device="cuda")
+    dec_mha = paged_inputs(gen, 4, 32, 32, 128, vicuna)
+    dec_gqa = paged_inputs(gen, 3, 8, 2, 128, gqa)
+    dec_bc = paged_inputs(gen, 4, 40, 40, 128, baichuan)
+    compare("decode vicuna (4 slots, 32/32 heads)", "B3", dec_mha)
+    compare("decode gqa (8/2 heads)", "B3", dec_gqa)
+    compare("decode baichuan-13b alibi (40 heads)", "B4", dec_bc, s40)
+    compare("decode gqa alibi (8/2 heads)", "B4", dec_gqa, s8)
+    compare("decode vicuna", "B3", dec_mha,
+            tables=redirect_page(dec_mha[4], vicuna))
+
+    win5 = paged_inputs(gen, 4, 32, 32, 128, [5, 256, 1937, 700], s_q=5)
+    win128 = paged_inputs(gen, 4, 32, 32, 128, [128, 256, 1990, 700],
+                          s_q=128)
+    win_gqa5 = paged_inputs(gen, 3, 8, 2, 128, [5, 1024, 1900], s_q=5)
+    win_gqa128 = paged_inputs(gen, 3, 8, 2, 128, [130, 1024, 1900],
+                              s_q=128)
+    compare("window s_q=5 vicuna", "B5", win5)
+    compare("window s_q=5 gqa alibi", "B5", win_gqa5, s8)
+    compare("window s_q=5 gqa alibi", "B6", win_gqa5, s8)
+    compare("window s_q=128 vicuna", "B6", win128)
+    compare("window s_q=128 gqa alibi", "B6", win_gqa128, s8)
+    compare("window s_q=128 vicuna", "B6", win128,
+            tables=redirect_page(win128[4], [128, 256, 1990, 700]))
+
+    def row(name, fn_name, inputs, slopes, plain, flops):
+        q, kp, vp, lens, tabs = inputs
+        fn = fns[name]
+        kw = {} if name == "B3" else {"alibi_slopes": slopes}
+        ms = time_ms(lambda: fn(q, kp, vp, lens, tabs, **kw))
+        plain_ms = time_ms(lambda: plain(q, kp, vp, lens, tabs, **kw),
+                           iters=5)
+        hkv_d = kp.shape[2]
+        kv_bytes = int(lens.sum()) * hkv_d * 2 * 2     # each live K/V once
+        bms, by = bound_ms(flops, kv_bytes + 2 * nbytes(q))
+        log(f"{name} {tuple(q.shape)} lengths {lens.tolist()} bf16: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"({by}), library none")
+        return dict(name=f"{name} {fn_name}", route="cuda",
+                    source=PAGED_SOURCE, replaces=PAGED_REPLACES[name],
+                    max_abs_err=max(errs[name]), ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    shape=list(q.shape))
+
+    def window_flops(q, lens):
+        b, s_q, h, d = q.shape
+        seen = sum(max(0, n - s_q + t + 1) for n in lens.tolist()
+                   for t in range(s_q))
+        return 4.0 * h * d * seen
+
+    # the route's reason: B6's 64-row tiles on the verify window's shape
+    q, kp, vp, lens, tabs = win5
+    b6_ms = time_ms(lambda: pa.paged_attention_multi_blocked(
+        q, kp, vp, lens, tabs))
+    log(f"B6 on B5's shape {tuple(q.shape)}: {b6_ms:.4f} ms")
+    return {
+        "B3": row("B3", "paged_attention_dma", dec_mha, None,
+                  pa.paged_attention_plain,
+                  4.0 * 32 * 128 * int(dec_mha[3].sum())),
+        "B4": row("B4", "paged_attention", dec_bc, s40,
+                  pa.paged_attention_plain,
+                  4.0 * 40 * 128 * int(dec_bc[3].sum())),
+        "B5": row("B5", "paged_attention_dma_multi", win5, None,
+                  pa.paged_attention_multi_plain,
+                  window_flops(win5[0], win5[3])),
+        "B6": row("B6", "paged_attention_multi_blocked", win128, None,
+                  pa.paged_attention_multi_plain,
+                  window_flops(win128[0], win128[3])),
+    }
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: the model
 # ---------------------------------------------------------------------------
@@ -251,19 +412,31 @@ def prompt(rng, n_text: int, n_images: int, tok_len: int):
     return np.asarray(ids, np.int64)
 
 
-def reset_counts():
+def kernel_wrappers():
+    """Every kernel wrapper of the port by its TPU kernel's number; each
+    counts its launches in ``.launches``."""
+    from merlin_tpu_torch.ops import paged_attention as pa
     from merlin_tpu_torch.ops.flash_attention import flash_attention
     from merlin_tpu_torch.ops.onepass_attention import onepass_attention
 
-    onepass_attention.launches = 0
-    flash_attention.launches = 0
+    return {"B1": onepass_attention, "B2": flash_attention,
+            "B3": pa.paged_attention_dma, "B4": pa.paged_attention,
+            "B5": pa.paged_attention_dma_multi,
+            "B6": pa.paged_attention_multi_blocked}
+
+
+def reset_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from merlin_tpu_torch.ops.flash_attention import flash_attention
-    from merlin_tpu_torch.ops.onepass_attention import onepass_attention
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
-    return {"B1": onepass_attention.launches, "B2": flash_attention.launches}
+
+def launches(**nonzero):
+    """A full launch-count dict: the given kernels, 0 for every other."""
+    return {name: nonzero.get(name, 0) for name in kernel_wrappers()}
 
 
 def check_reference(rng):
@@ -367,7 +540,7 @@ def run_forward(model, cfg, rng):
           and bool(torch.isfinite(logits.float()).all()))
     log(f"forward: logits {tuple(logits.shape)} {logits.dtype}, finite "
         f"{ok}, {wall:.1f} ms (host clock, warm), launches {counts}")
-    if not ok or counts != {"B1": 23, "B2": 32}:
+    if not ok or counts != launches(B1=23, B2=32):
         raise AssertionError(f"forward failed: ok={ok} counts={counts}")
     return counts, wall
 
@@ -465,8 +638,7 @@ def run_generation(model, cfg, rng):
         f"{ttft:.1f} ms, decode {decode_tps:.2f} tok/s; launches "
         f"{stream_counts}; tokens equal to batch row 2: "
         f"{toks == out[2].tolist()}")
-    if batch_counts != {"B1": 23, "B2": 0} or stream_counts != {"B1": 23,
-                                                                 "B2": 0}:
+    if batch_counts != launches(B1=23) or stream_counts != launches(B1=23):
         raise AssertionError(f"generation launches {batch_counts} "
                              f"{stream_counts}")
 
@@ -498,6 +670,171 @@ def run_generation(model, cfg, rng):
                 decode_tok_s=decode_tps, counts=batch_counts)
 
 
+# ---------------------------------------------------------------------------
+# phases 6-8: serving through the paged engine
+# ---------------------------------------------------------------------------
+
+def token_gap(model, prompt_ids, tokens) -> float:
+    """Largest (max logit - the emitted token's logit) over the positions
+    that emitted ``tokens`` after ``prompt_ids``, each as a share of that
+    position's max |logit|, from one no-cache forward (B2: every prompt
+    here has >= 128 tokens with its answer) of the prompt and the tokens
+    before the last."""
+    ids = np.concatenate([prompt_ids, tokens[:-1]]).astype(np.int64)
+    with torch.no_grad():
+        logits, _ = model(torch.from_numpy(ids).cuda()[None])
+    rows = logits[0, len(prompt_ids) - 1:].float()
+    picked = rows.gather(1, torch.tensor(tokens, device="cuda")[:, None])
+    gap = (rows.amax(-1) - picked[:, 0]) / rows.abs().amax(-1)
+    return gap.max().item()
+
+
+def run_engine(tag, model, prompts, reached, **engine_kw):
+    """Serve ``prompts`` (32 new tokens each, no early stop) through a
+    ``ServingEngine`` on the card. Each kernel's launches must equal the
+    layers times the model calls of its kind (counted by forward hooks),
+    the kernels in ``reached`` must launch and no other kernel may, every
+    emitted token must hold against a no-cache forward of its request, and
+    a planted prompt swap must fail that check. Returns (launch counts,
+    readings)."""
+    from merlin_tpu_torch.ops.paged_attention import WINDOW_SMALL_ROWS
+    from merlin_tpu_torch.serve.engine import ServingEngine
+
+    max_new = 32
+    engine = ServingEngine(model, eos_id=-1, device="cuda", **engine_kw)
+    cfg = engine.lm_cfg
+    group = cfg.num_heads // cfg.kv_heads
+    calls = collections.Counter()
+
+    def counter(window):
+        def hook(module, args, kwargs, output):
+            s = args[0].shape[1]
+            if window:
+                small = group * s <= WINDOW_SMALL_ROWS
+                calls["window_small" if small else "window_large"] += 1
+            else:
+                calls["prefill" if s > 1 else "decode"] += 1
+        return hook
+
+    hooks = [engine.model.register_forward_hook(counter(False),
+                                                with_kwargs=True)]
+    if engine.multi_model is not None:
+        hooks.append(engine.multi_model.register_forward_hook(
+            counter(True), with_kwargs=True))
+    first = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=max_new,
+                          emit=lambda t, d, _i=i: first.setdefault(
+                              _i, time.perf_counter()))
+            for i, p in enumerate(prompts)]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for h in hooks:
+        h.remove()
+    engine.close()
+    n = cfg.num_layers
+    alibi = cfg.positional == "alibi"
+    want = launches(B2=n * calls["prefill"],
+                    B3=0 if alibi else n * calls["decode"],
+                    B4=n * calls["decode"] if alibi else 0,
+                    B5=n * calls["window_small"],
+                    B6=n * calls["window_large"])
+    n_tok = sum(len(r.generated) for r in reqs)
+    ttft = [round((first[i] - t0) * 1e3, 1) for i in range(len(prompts))]
+    log(f"{tag}: {len(prompts)} requests, prompt lengths "
+        f"{[len(p) for p in prompts]}, {n_tok} tokens in {wall:.3f} s -> "
+        f"{n_tok / wall:.2f} tok/s aggregate; TTFT ms per request {ttft} "
+        f"(host clock, from the emit callback); model calls {dict(calls)}; "
+        f"launches {counts}")
+    if counts != want or any((n > 0) != (k in reached)
+                             for k, n in counts.items()):
+        raise AssertionError(f"{tag}: launches {counts}, expected {want} "
+                             f"with {reached} reached")
+    if any(r.error or len(r.generated) != max_new for r in reqs):
+        raise AssertionError(f"{tag}: a request failed or ended early")
+
+    gaps = [token_gap(model, p, r.generated) for p, r in zip(prompts, reqs)]
+    log(f"{tag} tokens vs a no-cache forward of each request: largest gap "
+        f"per request {[f'{g:.2e}' for g in gaps]} of max |logit| (tol "
+        f"{GEN_RTOL})")
+    if not max(gaps) <= GEN_RTOL:
+        raise AssertionError(f"{tag}: emitted tokens disagree with the "
+                             f"no-cache forward: {gaps}")
+    # planted fault: request 0's tokens read after another request's
+    # prompt, one whose first token differs (so the two contexts disagree)
+    j = next((j for j, r in enumerate(reqs)
+              if r.generated[0] != reqs[0].generated[0]), 1)
+    swapped = token_gap(model, prompts[j], reqs[0].generated)
+    log(f"{tag} planted fault (request 0's tokens after request {j}'s "
+        f"prompt): gap {swapped:.3e}, must exceed {GEN_RTOL}")
+    if not swapped > GEN_RTOL:
+        raise AssertionError(f"{tag}: the token check cannot see a "
+                             "swapped prompt")
+    return counts, dict(tok_s=n_tok / wall, ttft_ms=ttft, calls=dict(calls),
+                        wall_s=wall)
+
+
+def serving_prompts(rng, lengths, vocab, period=0):
+    """Random prompts of the given lengths; with ``period``, each repeats
+    one random segment of that length, so prompt lookup finds n-grams."""
+    out = []
+    for n in lengths:
+        if period:
+            seg = rng.integers(10, vocab - 1000, size=period)
+            out.append(np.resize(seg, n).astype(np.int32))
+        else:
+            out.append(rng.integers(10, vocab - 1000, size=n).astype(
+                np.int32))
+    return out
+
+
+def build_baichuan():
+    """Baichuan-13B at full width (5120 hidden, 40 heads, vocab 64000,
+    ALiBi), depth cut to 4 of 40 layers; random bf16 weights, seed 1."""
+    from merlin_tpu_torch.models.bridge import init_params
+    from merlin_tpu_torch.models.decoder import CausalLM
+    from merlin_tpu_torch.models.families import baichuan_13b
+
+    with torch.device("meta"):
+        model = CausalLM(dataclasses.replace(baichuan_13b(), num_layers=4))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    init_params(model, gen, dtype=torch.bfloat16, device="cuda")
+    return model.eval()
+
+
+SERVING = dict(num_slots=4, max_len=2048, page_size=128, prompt_bucket=128)
+SERVING_LENGTHS = [100, 300, 700, 1100, 130, 1500]
+
+
+def serve_vicuna(model, rng):
+    """E1 and E2 on the full-width Vicuna-7B MMGPT, text-only requests as
+    the worker's engine path serves them."""
+    e1 = run_engine("E1 vicuna-7b (whole-prompt admission, decode)", model,
+                    serving_prompts(rng, SERVING_LENGTHS, 32000),
+                    ["B2", "B3"], chunk_steps=8, pipeline=1, **SERVING)
+    e2 = run_engine("E2 vicuna-7b (chunked prefill C=128, spec k=4)", model,
+                    serving_prompts(rng, SERVING_LENGTHS, 32000, period=48),
+                    ["B5", "B6"], prefill_chunk=128,
+                    prefill_windows_per_step=4, spec_draft=4, chunk_steps=1,
+                    **SERVING)
+    return {"E1": e1, "E2": e2}
+
+
+def serve_baichuan(rng):
+    """E3: ALiBi decode, short prompts whole (<= 256 tokens), long ones in
+    128-token windows."""
+    return run_engine(
+        "E3 baichuan-13b 4 layers (alibi, hybrid C=128 min 256)",
+        build_baichuan(),
+        serving_prompts(rng, [100, 200, 700, 1300, 120, 900], 64000),
+        ["B2", "B4", "B6"], prefill_chunk=128, prefill_chunk_min=256,
+        **SERVING)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -518,14 +855,29 @@ def main() -> int:
     rng = np.random.default_rng(0)
     b1 = check_b1(gen)
     b2 = check_b2(gen)
+    paged = check_paged(gen)
     check_reference(rng)
     model, cfg = build_full_model()
     fwd_counts, _ = run_forward(model, cfg, rng)
     g = run_generation(model, cfg, rng)
+    served = serve_vicuna(model, rng)
+    del model                         # E3's model replaces the 7B one
+    gc.collect()
+    torch.cuda.empty_cache()
+    served["E3"] = serve_baichuan(rng)
     b1["launches"], b2["launches"] = fwd_counts["B1"], fwd_counts["B2"]
     b1["launches_generation"] = g["counts"]["B1"]
     b2["launches_generation"] = g["counts"]["B2"]
-    log(json.dumps({"kernels": [b1, b2]}))
+    # a paged kernel's launches come from the engine run of its path
+    for name, run in (("B3", "E1"), ("B4", "E3"), ("B5", "E2"),
+                      ("B6", "E2")):
+        paged[name]["launches"] = served[run][0][name]
+    rows = [b1, b2] + [paged[k] for k in ("B3", "B4", "B5", "B6")]
+    for row in rows:
+        key = row["name"].split()[0]
+        row["launches_serving"] = {e: served[e][0][key] for e in served}
+    log(json.dumps({"serving": {e: served[e][1] for e in served}}))
+    log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,27 +1,48 @@
-// Shared tile machinery of the port's two attention kernels
-// (onepass_attention.cu = B1, flash_attention.cu = B2).
+// Shared tile machinery of the port's attention kernels
+// (onepass_attention.cu = B1, flash_attention.cu = B2, and the paged
+// window kernel of paged_attention.cu = B5/B6).
 //
-// One thread block owns 64 query rows of one (batch, head): four warps of
-// 16 rows each. The block stages its Q tile in shared memory once, then
-// walks the KV sequence in 64-row tiles staged through shared memory.
-// Scores and P@V run on the tensor cores as mma.sync.m16n8k16 (bf16 in,
-// f32 accumulate); the softmax is online (running max m and sum l per
-// row, kept in registers of the quad of threads that owns the row).
+// A thread block of WARPS warps owns up to 16 * WARPS query rows: each warp
+// owns 16. The block stages its Q tile in shared memory once, then walks
+// the keys in 64-row tiles staged through shared memory. Scores and P@V run
+// on the tensor cores as mma.sync.m16n8k16 (bf16 in, f32 accumulate); the
+// softmax is online (running max m and sum l per row, kept in registers of
+// the quad of threads that owns the row). With SPLIT_KEYS the block owns
+// only 16 rows and its warps split the key tiles instead (tile w, w +
+// WARPS, ...; each warp stages its own tiles), then merge their (m, l, o)
+// through shared memory: a short window walks a long history WARPS times
+// faster than one warp would, with no idle rows.
 //
-// Numerics shared by both kernels:
+// What differs between the kernels is a "problem": where each query row,
+// key row and value row lies, which (row, key) pairs are visible with what
+// bias, and where a row's output goes. attention_tile<DP, WARPS, Problem>
+// takes it as a template argument (DenseProblem below for B1/B2,
+// PagedWindowProblem in paged_attention.cu), so the tile loop is written
+// once. A problem provides:
+//   Row row(int r)                  per-row state of block row r
+//   bool live(const Row&)           the row exists and writes an output
+//   int n_rows(), n_keys(), key_end()
+//                                   live rows; keys that exist; keys the
+//                                   block has to walk (a causal bound)
+//   const bf16* q_row(int r), k_row(int key), v_row(int key)
+//   float logit(const Row&, int key, float s)
+//                                   the raw dot s -> log2-domain score, or
+//                                   kNegInf where the key is not visible
+//   bf16* out_row(const Row&); void store_lse(const Row&, float lse)
+//
+// Numerics shared by every kernel:
 //   * scores are scaled in f32 after the bf16 matmul (never by scaling q in
 //     bf16) and exponentiated with exp2 in the log2 domain;
 //   * masked scores take the finite NEG_INF = -1e30 of the JAX package, and
 //     masked p is 0, so a row that sees no key ends with l = 0 and writes
 //     0 (not NaN; not the JAX reference's uniform average either);
-//   * the ragged sequence edge (rows or keys past sq/skv) is masked here,
-//     so callers pad nothing;
+//   * the ragged edge (rows or keys past the end) is masked here, so
+//     callers pad nothing;
 //   * p is rounded to bf16 for P@V while l sums the f32 p, as the TPU
 //     kernels do.
 //
-// q/k/v are read through their (b, s, h, d) strides: the head dim must be
-// contiguous, every other stride and the base pointers 16-byte aligned
-// (the wrappers check). The output is contiguous (b, sq, h, d).
+// Every row pointer must be 16-byte aligned with the head dim contiguous
+// (the wrappers check): rows are loaded 8 bf16 at a time.
 
 #pragma once
 
@@ -34,7 +55,7 @@ namespace merlin {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kBlockM = 64;   // query rows per block (4 warps x 16)
+constexpr int kBlockM = 64;   // query rows per block of B1/B2 (4 warps x 16)
 constexpr int kBlockN = 64;   // key rows per KV tile
 constexpr int kThreads = 128;
 constexpr int kPad = 8;       // bf16 per smem row, staggers banks
@@ -53,9 +74,18 @@ struct AttnArgs {
   float scale;
 };
 
+// Dynamic shared memory of a block: its Q tile and one K and one V tile
+// (one pair per warp with SPLIT_KEYS).
+template <int DP, int WARPS, bool SPLIT_KEYS = false>
+constexpr int tile_smem_bytes() {
+  return SPLIT_KEYS
+             ? (16 + WARPS * 2 * kBlockN) * (DP + kPad) * (int)sizeof(__nv_bfloat16)
+             : (16 * WARPS + 2 * kBlockN) * (DP + kPad) * (int)sizeof(__nv_bfloat16);
+}
+
 template <int DP>
 constexpr int smem_bytes() {
-  return 3 * kBlockM * (DP + kPad) * (int)sizeof(__nv_bfloat16);
+  return tile_smem_bytes<DP, kBlockM / 16>();
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -77,59 +107,49 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Stage a 64-row tile of one head into smem [64][DP + kPad], 16 bytes per
-// thread per step; rows past `rows` and columns past d are zero-filled.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* smem,
-                                          const __nv_bfloat16* base,
-                                          int64_t row_stride, int rows, int d) {
+// Stage NROWS rows (row r at row_ptr(r)) into smem [NROWS][DP + kPad] with
+// NTHREADS threads (this one is `tid`), 16 bytes per thread per step; rows
+// past `rows` and columns past d are zero-filled, and their pointers are
+// never formed.
+template <int DP, int NTHREADS, int NROWS, class RowPtr>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* smem, RowPtr row_ptr,
+                                          int rows, int d, int tid) {
   constexpr int kChunks = DP / 8;
-  for (int i = threadIdx.x; i < kBlockM * kChunks; i += kThreads) {
+  for (int i = tid; i < NROWS * kChunks; i += NTHREADS) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows && c < d) {
-      val = *reinterpret_cast<const uint4*>(base + r * row_stride + c);
+      val = *reinterpret_cast<const uint4*>(row_ptr(r) + c);
     }
     *reinterpret_cast<uint4*>(smem + r * (DP + kPad) + c) = val;
   }
 }
 
-// The whole forward for the block's 64 query rows. DP is the head dim
+// The whole forward for the block's query rows. DP is the head dim d
 // rounded up to a supported width (zero columns cost MMA work, not
 // results).
-template <int DP, bool CAUSAL>
-__device__ __forceinline__ void attention_block(const AttnArgs& a) {
+template <int DP, int WARPS, bool SPLIT_KEYS = false, class Problem>
+__device__ __forceinline__ void attention_tile(const Problem& pb, int d) {
+  constexpr int kRows = SPLIT_KEYS ? 16 : 16 * WARPS;
+  constexpr int kNThreads = 32 * WARPS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = DP + kPad;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBlockM * LD;
+  __nv_bfloat16* Ks = Qs + kRows * LD + (SPLIT_KEYS ? warp * 2 * kBlockN * LD : 0);
   __nv_bfloat16* Vs = Ks + kBlockN * LD;
   const uint16_t* Vbits = reinterpret_cast<const uint16_t*>(Vs);
 
-  const int bi = blockIdx.z;
-  const int hi = blockIdx.y;
-  const int hk = hi / (a.h / a.hkv);  // GQA: kv head of this query head
-  const int q0 = blockIdx.x * kBlockM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   const int g = lane >> 2;  // fragment row within the warp's 16
   const int t = lane & 3;   // thread within the quad that shares a row
-  const int r_lo = warp * 16 + g;
-  const int qi[2] = {q0 + r_lo, q0 + r_lo + 8};
+  const int r_lo = (SPLIT_KEYS ? 0 : warp * 16) + g;
 
-  load_tile<DP>(Qs, a.q + bi * a.q_sb + (int64_t)q0 * a.q_ss + hi * a.q_sh,
-                a.q_ss, min(kBlockM, a.sq - q0), a.d);
-
-  const bool alibi = a.slopes != nullptr;
-  const float slope = alibi ? a.slopes[hi] : 0.f;
-  const float log2_scale = a.scale * kLog2e;
-  int qs[2] = {0, 0};
-  if (a.qseg != nullptr) {
-    for (int r = 0; r < 2; ++r) {
-      qs[r] = qi[r] < a.sq ? a.qseg[(int64_t)bi * a.sq + qi[r]] : 0;
-    }
-  }
+  load_rows<DP, kNThreads, kRows>(
+      Qs, [&](int r) { return pb.q_row(r); }, pb.n_rows(), d, threadIdx.x);
+  if (SPLIT_KEYS) __syncthreads();  // every warp reads all 16 Q rows
+  const typename Problem::Row row[2] = {pb.row(r_lo), pb.row(r_lo + 8)};
 
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
@@ -139,22 +159,30 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
     o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
   }
 
-  int n_tiles = (a.skv + kBlockN - 1) / kBlockN;
-  if (CAUSAL) {
-    // tiles wholly above the diagonal hold no visible key for any row
-    n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
-  }
-  const int dk = (a.d + 15) / 16 * 16;
+  const int n_keys = pb.n_keys();
+  const int n_tiles = (pb.key_end() + kBlockN - 1) / kBlockN;
+  const int dk = (d + 15) / 16 * 16;
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
+  for (int tile = SPLIT_KEYS ? warp : 0; tile < n_tiles;
+       tile += SPLIT_KEYS ? WARPS : 1) {
     const int k0 = tile * kBlockN;
-    const int rows = min(kBlockN, a.skv - k0);
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<DP>(Ks, a.k + bi * a.k_sb + (int64_t)k0 * a.k_ss + hk * a.k_sh,
-                  a.k_ss, rows, a.d);
-    load_tile<DP>(Vs, a.v + bi * a.v_sb + (int64_t)k0 * a.v_ss + hk * a.v_sh,
-                  a.v_ss, rows, a.d);
-    __syncthreads();
+    const int rows = min(kBlockN, n_keys - k0);
+    if (SPLIT_KEYS) {
+      // this warp's own K/V tile
+      __syncwarp();
+      load_rows<DP, 32, kBlockN>(
+          Ks, [&](int r) { return pb.k_row(k0 + r); }, rows, d, lane);
+      load_rows<DP, 32, kBlockN>(
+          Vs, [&](int r) { return pb.v_row(k0 + r); }, rows, d, lane);
+      __syncwarp();
+    } else {
+      __syncthreads();  // every warp is done with the previous K/V tile
+      load_rows<DP, kNThreads, kBlockN>(
+          Ks, [&](int r) { return pb.k_row(k0 + r); }, rows, d, threadIdx.x);
+      load_rows<DP, kNThreads, kBlockN>(
+          Vs, [&](int r) { return pb.v_row(k0 + r); }, rows, d, threadIdx.x);
+      __syncthreads();
+    }
 
     // S = Q K^T for this warp's 16 rows x 64 keys: 8 n-tiles of 8 keys
     float s[8][4];
@@ -174,7 +202,7 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
       }
     }
 
-    // scale (+ ALiBi), mask, and the tile's row max, in the log2 domain
+    // scale (+ bias), mask, and the tile's row max, in the log2 domain
     float mt[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -182,14 +210,7 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const int ki = k0 + j * 8 + t * 2 + (e & 1);
-        float x = alibi ? (s[j][e] * a.scale + slope * (float)(ki - qi[r])) * kLog2e
-                        : s[j][e] * log2_scale;
-        bool ok = ki < a.skv;
-        if (CAUSAL) ok = ok && ki <= qi[r];
-        if (a.qseg != nullptr) {
-          ok = ok && qs[r] == a.kseg[(int64_t)bi * a.skv + ki];
-        }
-        x = ok ? x : kNegInf;
+        const float x = pb.logit(row[r], ki, s[j][e]);
         s[j][e] = x;
         mt[r] = fmaxf(mt[r], x);
       }
@@ -235,7 +256,7 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
       const uint16_t* vr = Vbits + (ks * 16 + t * 2) * LD + g;
 #pragma unroll
       for (int dn = 0; dn < DP / 8; ++dn) {
-        if (dn * 8 < a.d) {
+        if (dn * 8 < d) {
           const uint16_t* vc = vr + dn * 8;
           const uint32_t b0 = (uint32_t)vc[0] | ((uint32_t)vc[LD] << 16);
           const uint32_t b1 =
@@ -251,38 +272,148 @@ __device__ __forceinline__ void attention_block(const AttnArgs& a) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
+  if (SPLIT_KEYS) {
+    // merge the warps' partial (m, l, o) of the same 16 rows in warp 0,
+    // through the K/V tiles' shared memory (every warp is done with them)
+    __syncthreads();
+    float* ms = reinterpret_cast<float*>(Qs + kRows * LD);  // [WARPS][16]
+    float* ls = ms + WARPS * 16;                            // [WARPS][16]
+    float* os = ls + WARPS * 16;                            // [WARPS][16][DP]
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int wr = warp * 16 + g + 8 * r;
+      if (t == 0) {
+        ms[wr] = m[r];
+        ls[wr] = l[r];
+      }
+#pragma unroll
+      for (int dn = 0; dn < DP / 8; ++dn) {
+        os[wr * DP + dn * 8 + t * 2] = o[dn][2 * r];
+        os[wr * DP + dn * 8 + t * 2 + 1] = o[dn][2 * r + 1];
+      }
+    }
+    __syncthreads();
+    if (warp != 0) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int rr = g + 8 * r;
+      float mx = kNegInf;
+      for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, ms[w * 16 + rr]);
+      float lsum = 0.f;
+#pragma unroll
+      for (int dn = 0; dn < DP / 8; ++dn) o[dn][2 * r] = o[dn][2 * r + 1] = 0.f;
+      for (int w = 0; w < WARPS; ++w) {
+        const int wr = w * 16 + rr;
+        const float sc = exp2f(ms[wr] - mx);
+        lsum += ls[wr] * sc;
+#pragma unroll
+        for (int dn = 0; dn < DP / 8; ++dn) {
+          o[dn][2 * r] += os[wr * DP + dn * 8 + t * 2] * sc;
+          o[dn][2 * r + 1] += os[wr * DP + dn * 8 + t * 2 + 1] * sc;
+        }
+      }
+      m[r] = mx;
+      l[r] = lsum;
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (qi[r] >= a.sq) continue;
+    if (!pb.live(row[r])) continue;
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
-    __nv_bfloat16* orow =
-        a.out + (((int64_t)bi * a.sq + qi[r]) * a.h + hi) * a.d;
+    __nv_bfloat16* orow = pb.out_row(row[r]);
 #pragma unroll
     for (int dn = 0; dn < DP / 8; ++dn) {
       const int col = dn * 8 + t * 2;
-      if (col < a.d) {
+      if (col < d) {
         *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
             o[dn][2 * r] / l_safe, o[dn][2 * r + 1] / l_safe);
       }
     }
-    if (a.lse != nullptr && t == 0) {
-      a.lse[((int64_t)bi * a.h + hi) * a.sq + qi[r]] =
-          l[r] == 0.f ? kNegInf : m[r] * kLn2 + logf(l[r]);
+    if (t == 0) {
+      pb.store_lse(row[r], l[r] == 0.f ? kNegInf : m[r] * kLn2 + logf(l[r]));
     }
   }
 }
 
-// Raise the dynamic shared-memory limit and launch `kernel` over
-// (q blocks, heads, batch) on `stream`.
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, const AttnArgs& a,
-                   cudaStream_t stream) {
+// B1/B2: 64 query rows of one (batch, head) of strided (b, s, h, d) q/k/v,
+// with causal masking, segment ids and ALiBi; the block is
+// (blockIdx.x = q tile, blockIdx.y = head, blockIdx.z = batch).
+template <bool CAUSAL>
+struct DenseProblem {
+  struct Row {
+    int qi;   // query position
+    int seg;  // its segment id (0 without segments)
+  };
+  const AttnArgs a;  // by value: a reference would force a local copy
+  int bi, hi, hk, q0;
+  float slope;
+
+  __device__ explicit DenseProblem(const AttnArgs& args)
+      : a(args),
+        bi(blockIdx.z),
+        hi(blockIdx.y),
+        hk(blockIdx.y / (args.h / args.hkv)),  // GQA: kv head of this head
+        q0(blockIdx.x * kBlockM),
+        slope(args.slopes != nullptr ? args.slopes[blockIdx.y] : 0.f) {}
+
+  __device__ Row row(int r) const {
+    const int qi = q0 + r;
+    const int seg =
+        (a.qseg != nullptr && qi < a.sq) ? a.qseg[(int64_t)bi * a.sq + qi] : 0;
+    return Row{qi, seg};
+  }
+  __device__ bool live(const Row& rw) const { return rw.qi < a.sq; }
+  __device__ int n_rows() const { return min(kBlockM, a.sq - q0); }
+  __device__ int n_keys() const { return a.skv; }
+  // tiles wholly above the diagonal hold no visible key for any row
+  __device__ int key_end() const {
+    return CAUSAL ? min(a.skv, q0 + kBlockM) : a.skv;
+  }
+  __device__ const __nv_bfloat16* q_row(int r) const {
+    return a.q + bi * a.q_sb + (int64_t)(q0 + r) * a.q_ss + hi * a.q_sh;
+  }
+  __device__ const __nv_bfloat16* k_row(int key) const {
+    return a.k + bi * a.k_sb + (int64_t)key * a.k_ss + hk * a.k_sh;
+  }
+  __device__ const __nv_bfloat16* v_row(int key) const {
+    return a.v + bi * a.v_sb + (int64_t)key * a.v_ss + hk * a.v_sh;
+  }
+  __device__ float logit(const Row& rw, int ki, float s) const {
+    const float x = a.slopes != nullptr
+                        ? (s * a.scale + slope * (float)(ki - rw.qi)) * kLog2e
+                        : s * (a.scale * kLog2e);
+    bool ok = ki < a.skv;
+    if (CAUSAL) ok = ok && ki <= rw.qi;
+    if (a.qseg != nullptr) {
+      ok = ok && rw.seg == a.kseg[(int64_t)bi * a.skv + ki];
+    }
+    return ok ? x : kNegInf;
+  }
+  __device__ __nv_bfloat16* out_row(const Row& rw) const {
+    return a.out + (((int64_t)bi * a.sq + rw.qi) * a.h + hi) * a.d;
+  }
+  __device__ void store_lse(const Row& rw, float lse) const {
+    if (a.lse != nullptr) a.lse[((int64_t)bi * a.h + hi) * a.sq + rw.qi] = lse;
+  }
+};
+
+// Raise the dynamic shared-memory limit and launch `kernel` on `stream`.
+template <typename Kernel, typename Args>
+cudaError_t launch_grid(Kernel kernel, dim3 grid, int threads, int smem,
+                        const Args& args, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.h, a.b);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(args);
   return cudaGetLastError();
+}
+
+// B1/B2: launch over (q tiles, heads, batch).
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, int smem, const AttnArgs& a,
+                   cudaStream_t stream) {
+  const dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.h, a.b);
+  return launch_grid(kernel, grid, kThreads, smem, a, stream);
 }
 
 }  // namespace merlin

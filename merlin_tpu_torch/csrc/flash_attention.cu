@@ -32,7 +32,7 @@ namespace merlin {
 template <int DP, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_fwd_kernel(const AttnArgs a) {
-  attention_block<DP, CAUSAL>(a);
+  attention_tile<DP, kBlockM / 16>(DenseProblem<CAUSAL>(a), a.d);
 }
 
 template <int DP>

@@ -27,7 +27,7 @@ namespace merlin {
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
     onepass_attention_kernel(const AttnArgs a) {
-  attention_block<DP, false>(a);
+  attention_tile<DP, kBlockM / 16>(DenseProblem<false>(a), a.d);
 }
 
 }  // namespace merlin

@@ -1,4 +1,4 @@
-"""Autoregressive generation over a dense KV cache (counterpart of
+"""Autoregressive generation over a dense or paged KV cache (counterpart of
 ``merlin_tpu/generate/decode.py``).
 
   * One prefill over the right-padded, bucketed prompt batch (images are
@@ -41,6 +41,9 @@ class GenerateConfig:
     cache_dtype: torch.dtype = torch.bfloat16
     # pad prompts up to a multiple of this (0 = exact length)
     prompt_bucket: int = 128
+    # 'dense' contiguous KV buffers, or 'paged' fixed-size pages read by
+    # the paged decode kernel (ops/paged_attention)
+    kv_layout: str = "dense"
 
 
 def keyword_hit(text: str, keywords: Sequence[str]) -> bool:
@@ -85,7 +88,8 @@ class Generator:
         model_cfg = self.model.cfg
         lm_cfg = model_cfg.lm if hasattr(model_cfg, "lm") else model_cfg
         cache = init_kv_cache(lm_cfg, b, s + cfg.max_new_tokens,
-                              dtype=cfg.cache_dtype, device=self.device)
+                              dtype=cfg.cache_dtype, layout=cfg.kv_layout,
+                              device=self.device)
         kwargs = {}
         if images is not None:
             kwargs["images"] = self._as_tensor(images)

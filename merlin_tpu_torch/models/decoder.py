@@ -7,9 +7,18 @@ the card); attention on a dense KV cache uses :func:`mha_reference` for
 both prefill and the one-token step, exactly as the JAX package does
 (``decoder.py:491-543``), so the two packages agree.
 
-This slice ports the non-scanned stack and the dense cache. The paged-cache
-branches, ``scan_layers``, ``remat`` and int8 weights come with later
-slices; a config asking for them is refused.
+On a paged cache (``init_kv_cache(layout="paged")``, the serving engine's
+pool) there are three branches, as in ``decoder.py:228-490``: the one-token
+step writes its K/V into the pages and attends through the paged decode
+kernel (B3, or B4 with ALiBi); with ``cfg.paged_multi_query`` an s-token
+window appends at each sequence's length and attends causally from true
+positions (B5/B6); otherwise a prompt is bulk-written into the
+identity-mapped pages and attends through the dispatcher (B2). Page writes
+are in place.
+
+The non-scanned stack is ported; ``scan_layers`` (with its flat paged pool,
+``layer_index``), ``remat``, int8 weights and int8 pages come with later
+slices and are refused.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from torch import nn
 from merlin_tpu_torch.models.layers import (
     DenseGeneral, Embed, GatedMLP, LayerNorm, RMSNorm, SimpleMLP,
     alibi_slopes, apply_rope, normal_param)
+from merlin_tpu_torch.ops import paged_attention as paged
 from merlin_tpu_torch.ops.attention import attention as dispatch_attention
 from merlin_tpu_torch.ops.attention import mha_reference
 
@@ -76,15 +86,41 @@ class DecoderConfig:
 
 
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
-                  dtype: torch.dtype = torch.bfloat16, *,
-                  device="cuda") -> Dict[str, Any]:
-    """Dense KV cache: per-layer (b, max_len, hkv, d) ``k``/``v`` buffers,
+                  dtype: torch.dtype = torch.bfloat16, *, layout: str = "dense",
+                  page_size: int = 128, device="cuda") -> Dict[str, Any]:
+    """KV cache dict. The forward updates its buffers in place and returns
+    the same layout with the bookkeeping advanced.
+
+    ``layout="dense"``: per-layer (b, max_len, hkv, d) ``k``/``v`` buffers,
     ``seg`` validity/segment ids per slot (0 = empty), ``pos`` the true
     token position per slot (ragged prompts, ALiBi), and ``index`` the
-    shared write cursor (a Python int). The forward updates the buffers in
-    place and returns the same dict layout with the cursor advanced. The
-    paged layout waits for the serving slice.
+    shared write cursor (a Python int).
+
+    ``layout="paged"``: per-layer head-packed ``k_pages``/``v_pages``
+    (batch * pps, page_size, hkv * d) with pps = ceil(max_len / page_size);
+    ``page_tables`` (batch, pps) int32 start as the identity mapping
+    (sequence b owns pages [b * pps, (b + 1) * pps)), and the serving
+    engine hands in its own; ``lengths`` (batch,) int32 valid tokens per
+    sequence; ``index`` as above.
     """
+    if layout == "paged":
+        if dtype == torch.int8:
+            raise NotImplementedError("not ported yet: int8 pages")
+        pps = -(-max_len // page_size)
+        total = batch * pps
+        shape = (total, page_size, cfg.kv_heads * cfg.head_size)
+        layers = tuple(
+            {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(cfg.num_layers))
+        return {
+            "layers": layers,
+            "page_tables": torch.arange(total, dtype=torch.int32,
+                                        device=device).reshape(batch, pps),
+            "lengths": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device),
+            "index": 0,
+        }
     shape = (batch, max_len, cfg.kv_heads, cfg.head_size)
     layers = tuple(
         {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -126,6 +162,9 @@ class Attention(nn.Module):
             out = dispatch_attention(
                 q, k, v, causal=True, segment_ids_q=segment_ids,
                 segment_ids_kv=segment_ids, alibi_slopes=slopes)
+        elif "k_pages" in layer_cache:
+            out = self._paged(q, k, v, segment_ids, slopes, layer_cache,
+                              cache_aux)
         else:
             # write this call's K/V at the shared cursor (in place); the
             # caller has already written seg/pos for these slots
@@ -154,6 +193,40 @@ class Attention(nn.Module):
                     segment_ids_kv=new_seg, alibi_slopes=slopes,
                     q_offset=idx)
         return self.o_proj(out)
+
+    def _paged(self, q, k, v, segment_ids, slopes, layer_cache, cache_aux):
+        """Attention on a paged cache; writes this call's K/V into the
+        layer's pages in place (``decoder.py:228-490``)."""
+        tables, lengths = cache_aux["page_tables"], cache_aux["lengths"]
+        kp, vp = layer_cache["k_pages"], layer_cache["v_pages"]
+        s_q = q.shape[1]
+        if s_q == 1:
+            paged.write_token_to_pages(kp, vp, k[:, 0], v[:, 0],
+                                       positions=lengths, page_tables=tables)
+            if slopes is None:
+                out = paged.paged_attention_dma(q[:, 0], kp, vp, lengths + 1,
+                                                tables)
+            else:
+                out = paged.paged_attention(q[:, 0], kp, vp, lengths + 1,
+                                            tables, alibi_slopes=slopes)
+            return out[:, None]
+        if self.cfg.paged_multi_query:
+            # a window against arbitrary tables (verify window / chunked
+            # prefill): append at each sequence's length, attend causally
+            # from the true positions over the whole paged history
+            paged.write_tokens_to_pages(kp, vp, k, v, start_positions=lengths,
+                                        page_tables=tables)
+            return paged.paged_window_attention(
+                q, kp, vp, lengths + s_q, tables, alibi_slopes=slopes)
+        # prefill: bulk-write the prompt into the identity-mapped pages;
+        # attention is plain self-attention over the prompt
+        b, s = k.shape[:2]
+        rows = tables.shape[1] * kp.shape[1]
+        kp.view(b, rows, kp.shape[2])[:, :s] = k.reshape(b, s, -1).to(kp.dtype)
+        vp.view(b, rows, vp.shape[2])[:, :s] = v.reshape(b, s, -1).to(vp.dtype)
+        return dispatch_attention(
+            q, k, v, causal=True, segment_ids_q=segment_ids,
+            segment_ids_kv=segment_ids, alibi_slopes=slopes)
 
 
 class DecoderBlock(nn.Module):
@@ -186,8 +259,7 @@ class CausalLM(nn.Module):
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        unported = [f for f in ("scan_layers", "remat", "paged_multi_query")
-                    if getattr(cfg, f)]
+        unported = [f for f in ("scan_layers", "remat") if getattr(cfg, f)]
         if unported or cfg.weight_dtype != "bf16":
             raise NotImplementedError(
                 f"not ported yet: {unported or ['weight_dtype=int8']}")
@@ -244,7 +316,11 @@ class CausalLM(nn.Module):
             x = x + self.embed_positions(positions + 2)
 
         cache_aux = None
-        if kv_cache is not None:
+        paged_cache = kv_cache is not None and "page_tables" in kv_cache
+        if paged_cache:
+            cache_aux = {"page_tables": kv_cache["page_tables"],
+                         "lengths": kv_cache["lengths"]}
+        elif kv_cache is not None:
             # validity/position bookkeeping is layer-independent: written
             # once here (in place) before the layers read it
             idx = kv_cache["index"]
@@ -265,6 +341,20 @@ class CausalLM(nn.Module):
         new_cache = None
         if kv_cache is not None:
             new_cache = dict(kv_cache, index=kv_cache["index"] + s)
+        if paged_cache:
+            lengths = kv_cache["lengths"]
+            if s == 1:
+                new_cache["lengths"] = lengths + 1
+            elif cfg.paged_multi_query:
+                # a verify window appends s tokens; callers roll back
+                # rejected drafts by overwriting lengths afterwards
+                new_cache["lengths"] = lengths + s
+            elif segment_ids is not None:
+                new_cache["lengths"] = (segment_ids > 0).sum(
+                    dim=1, dtype=torch.int32)
+            else:
+                new_cache["lengths"] = torch.full((b,), s, dtype=torch.int32,
+                                                  device=dev)
         if return_hidden:
             return logits, new_cache, x
         return logits, new_cache

@@ -43,6 +43,12 @@ SIGNATURES = {
     # q/k/v strides (b, s, h), scale, causal, stream
     "merlin_flash_attention_fwd_bf16": (
         [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _I, _P]),
+    # q, k_pages, v_pages, lengths, tables, slopes, out, b, h, hkv, d,
+    # page_size, pages_per_seq, scale, stream
+    "merlin_paged_decode_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
+    # q, k_pages, v_pages, lengths, tables, slopes, out, b, s_q, h, hkv, d,
+    # page_size, pages_per_seq, scale, split_keys, stream
+    "merlin_paged_window_bf16": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,393 @@
+"""Paged KV cache: page allocator, page writes and paged attention
+(counterpart of ``merlin_tpu/ops/paged_attention.py``, bf16/f32 pages).
+
+Each sequence's K/V lives in fixed-size pages of one shared pool; a page
+table maps its logical blocks to physical pages. Pages are HEAD-PACKED,
+``(total_pages, page_size, hkv * d)``: one token of every kv head is one
+contiguous row, so a token's write is one row and a head's keys are a
+``d``-wide column slice of each row.
+
+Four TPU kernels sit on the serving path; two CUDA kernels
+(``csrc/paged_attention.cu``) stand in for them:
+
+  * paged decode, one query token per sequence: :func:`paged_attention_dma`
+    (B3, no ALiBi) and :func:`paged_attention` (B4, ALiBi);
+  * paged window, ``s_q`` queries per sequence, causal from their true
+    positions: :func:`paged_attention_dma_multi` (B5, one 16-row tile per
+    kv head whose warps split the keys, for speculative verify windows) and
+    :func:`paged_attention_multi_blocked` (B6, 64-row tiles, for
+    chunked-prefill windows). :func:`paged_window_attention` picks one from
+    the window's shape.
+
+Each wrapper computes its plain version (:func:`paged_attention_plain`,
+:func:`paged_attention_multi_plain`, copies of the JAX references) for CPU
+tensors, and for CUDA tensors launches its kernel or raises. The TPU
+wrappers' ``pages_per_block`` and VMEM routing are layout, not contract,
+and have no counterpart. Each wrapper counts its launches in
+``.launches``.
+
+A row that sees no key (a sequence length of 0, or below the window) gets
+the uniform average of V from the plain versions, as in JAX, and 0 from
+the kernels (trap C2); the decoder never produces one.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from merlin_tpu_torch.ops import _build
+
+NEG_INF = -1e30
+# query rows per kv head up to which a window takes B5's split-key tile
+WINDOW_SMALL_ROWS = 16
+
+
+# ---------------------------------------------------------------------------
+# Page allocator (host side)
+# ---------------------------------------------------------------------------
+
+class PagePool:
+    """Fixed pool of KV pages + per-sequence page tables (vLLM-style,
+    host-side bookkeeping). The free list hands out physical page 0 first."""
+
+    def __init__(self, total_pages: int, page_size: int,
+                 pages_per_seq: int):
+        self.page_size = page_size
+        self.pages_per_seq = pages_per_seq
+        self._free = list(range(total_pages - 1, -1, -1))
+        self.tables = {}   # seq id -> list of physical pages
+        self.lengths = {}  # seq id -> tokens written
+
+    def allocate(self, seq_id, num_tokens: int):
+        """Reserve pages for `num_tokens`; returns the page table list.
+
+        Atomic on failure: a MemoryError returns any newly-grabbed pages
+        to the pool (and removes an empty table entry), so a failed
+        reservation never leaves pages parked on a queued request."""
+        needed = -(-num_tokens // self.page_size)
+        if needed > self.pages_per_seq:
+            raise ValueError("sequence exceeds pages_per_seq")
+        table = self.tables.setdefault(seq_id, [])
+        start = len(table)
+        while len(table) < needed:
+            if not self._free:
+                self._free.extend(reversed(table[start:]))
+                del table[start:]
+                if not table:
+                    self.tables.pop(seq_id, None)
+                raise MemoryError("page pool exhausted")
+            table.append(self._free.pop())
+        self.lengths[seq_id] = num_tokens
+        return table
+
+    def extend(self, seq_id, new_tokens: int = 1):
+        return self.allocate(seq_id, self.lengths[seq_id] + new_tokens)
+
+    def release(self, seq_id):
+        for page in self.tables.pop(seq_id, []):
+            self._free.append(page)
+        self.lengths.pop(seq_id, None)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def table_array(self, seq_ids) -> np.ndarray:
+        """Padded (n, pages_per_seq) int32 table for the kernels; unused
+        entries point at page 0 (masked out by lengths)."""
+        out = np.zeros((len(seq_ids), self.pages_per_seq), np.int32)
+        for i, sid in enumerate(seq_ids):
+            t = self.tables.get(sid, [])
+            out[i, : len(t)] = t
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Page writes
+# ---------------------------------------------------------------------------
+
+def _page_slots(positions: torch.Tensor, page_tables: torch.Tensor,
+                page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(physical page, offset) of each position (b, n) through its row of
+    the tables. A position past the table takes the row's last entry (the
+    JAX scatter drops it): only an idle engine slot, whose row is all
+    trash page, has one."""
+    pos = positions.long()
+    logical = (pos // page_size).clamp(max=page_tables.shape[1] - 1)
+    phys = torch.gather(page_tables.long(), 1, logical)
+    return phys.reshape(-1), (pos % page_size).reshape(-1)
+
+
+def write_token_to_pages(k_pages, v_pages, k_new, v_new, *, positions,
+                         page_tables):
+    """Scatter one decode step's K/V into the paged cache, IN PLACE (the
+    JAX function returns new arrays).
+
+    k_new/v_new: (b, hkv, d); positions: (b,) token index per sequence;
+    page_tables: (b, pages_per_seq). Each token is one head-packed
+    (hkv*d,) row; duplicate targets only occur on the trash page, where
+    any write order is acceptable. Returns (k_pages, v_pages)."""
+    phys, offset = _page_slots(positions[:, None], page_tables,
+                               k_pages.shape[1])
+    b = k_new.shape[0]
+    k_pages[phys, offset] = k_new.reshape(b, -1).to(k_pages.dtype)
+    v_pages[phys, offset] = v_new.reshape(b, -1).to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def write_tokens_to_pages(k_pages, v_pages, k_new, v_new, *,
+                          start_positions, page_tables):
+    """Scatter an s_q-token window's K/V into the paged cache, IN PLACE.
+
+    k_new/v_new: (b, s_q, hkv, d); start_positions: (b,) first token
+    index per sequence (token j lands at start+j); page_tables:
+    (b, pages_per_seq). One batched scatter of b*s_q head-packed rows.
+    Returns (k_pages, v_pages)."""
+    b, s_q = k_new.shape[:2]
+    positions = start_positions.long()[:, None] + torch.arange(
+        s_q, device=start_positions.device)[None]
+    phys, offset = _page_slots(positions, page_tables, k_pages.shape[1])
+    k_pages[phys, offset] = k_new.reshape(b * s_q, -1).to(k_pages.dtype)
+    v_pages[phys, offset] = v_new.reshape(b * s_q, -1).to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (copies of the JAX references)
+# ---------------------------------------------------------------------------
+
+def _gather_seq(pages, page_tables, hkv, d):
+    """(P, page, hkv*d) through (b, pps) tables -> (b, pps*page, hkv, d)."""
+    b, pps = page_tables.shape
+    seq = pages[page_tables.long()]
+    return seq.reshape(b, pps * pages.shape[1], hkv, d)
+
+
+def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, *,
+                          alibi_slopes=None, scale=None):
+    """One query token per sequence over its pages. q (b, h, d); keys at
+    positions < lengths[b] are visible; ALiBi adds slope * (k - (len-1)).
+    f32 softmax with NEG_INF masking. Returns (b, h, d) in q's dtype."""
+    b, h, d = q.shape
+    hkv = k_pages.shape[2] // d
+    group = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    k_seq = _gather_seq(k_pages, page_tables, hkv, d).float()
+    v_seq = _gather_seq(v_pages, page_tables, hkv, d).float()
+    max_len = k_seq.shape[1]
+    qg = q.reshape(b, hkv, group, d).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_seq) * scale
+    k_pos = torch.arange(max_len, device=q.device)
+    lengths = lengths.long()
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.float().reshape(hkv, group)
+        dist = (k_pos[None, :] - (lengths - 1)[:, None]).float()
+        s = s + slopes[None, :, :, None] * dist[:, None, None, :]
+    mask = k_pos[None, :] < lengths[:, None]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_seq)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def paged_attention_multi_plain(q, k_pages, v_pages, lengths, page_tables,
+                                *, alibi_slopes=None, scale=None):
+    """An s_q-token window per sequence over its pages. q (b, s_q, h, d);
+    ``lengths`` INCLUDE the window (its K/V already written); query t sits
+    at lengths-s_q+t and sees keys at positions <= its own. ALiBi adds
+    slope * (k - q_pos). Returns (b, s_q, h, d) in q's dtype."""
+    b, s_q, h, d = q.shape
+    hkv = k_pages.shape[2] // d
+    group = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    k_seq = _gather_seq(k_pages, page_tables, hkv, d).float()
+    v_seq = _gather_seq(v_pages, page_tables, hkv, d).float()
+    max_len = k_seq.shape[1]
+    qg = q.reshape(b, s_q, hkv, group, d).float()
+    s = torch.einsum("bthgd,bkhd->bhgtk", qg, k_seq) * scale
+    k_pos = torch.arange(max_len, device=q.device)
+    q_pos = (lengths.long()[:, None] - s_q) + torch.arange(
+        s_q, device=q.device)[None]                              # (b, s_q)
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.float().reshape(hkv, group)
+        dist = (k_pos[None, None, :] - q_pos[:, :, None]).float()
+        s = s + slopes[None, :, :, None, None] * dist[:, None, None]
+    mask = k_pos[None, None, :] <= q_pos[:, :, None]             # causal
+    s = torch.where(mask[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgtk,bkhd->bthgd", p, v_seq)
+    return out.reshape(b, s_q, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
+                 alibi_slopes) -> int:
+    """Raise unless the inputs are what the paged kernels read; returns
+    hkv. q (b, [s_q,] h, d) and the (P, page, hkv*d) pages are contiguous
+    bf16 on one CUDA device with d % 8 == 0 and d <= 128; lengths (b,) and
+    page_tables (b, pps) contiguous int32; slopes (h,) contiguous f32."""
+    for t, tn in ((q, "q"), (k_pages, "k_pages"), (v_pages, "v_pages")):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name}: {tn} must be on q's CUDA device, "
+                             f"got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name}: {tn} must be bfloat16, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {tn} must be contiguous and 16-byte "
+                             "aligned")
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    if d % 8 or d > 128:
+        raise ValueError(f"{name}: head dim {d} must be a multiple of 8 "
+                         "and at most 128")
+    if k_pages.dim() != 3 or k_pages.shape != v_pages.shape \
+            or k_pages.shape[2] % d or h % (k_pages.shape[2] // d):
+        raise ValueError(f"{name}: pages {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not hold kv heads of "
+                         f"q {tuple(q.shape)}")
+    for t, shape, tn in ((lengths, (b,), "lengths"),
+                         (page_tables, (b, page_tables.shape[-1]),
+                          "page_tables")):
+        if (t.device != q.device or t.dtype != torch.int32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name}: {tn} must be contiguous int32 "
+                             f"{shape} on {q.device}")
+    if alibi_slopes is not None and (
+            alibi_slopes.device != q.device
+            or alibi_slopes.dtype != torch.float32
+            or tuple(alibi_slopes.shape) != (h,)
+            or not alibi_slopes.is_contiguous()):
+        raise ValueError(f"{name}: alibi_slopes must be contiguous float32 "
+                         f"({h},) on {q.device}")
+    return k_pages.shape[2] // d
+
+
+def _launch_decode(name, q, k_pages, v_pages, lengths, page_tables,
+                   alibi_slopes, scale):
+    if q.dim() != 3:
+        raise ValueError(f"{name}: q must be (b, h, d), got {tuple(q.shape)}")
+    hkv = _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
+                       alibi_slopes)
+    b, h, d = q.shape
+    if h // hkv > 8:
+        raise ValueError(f"{name}: at most 8 query heads per kv head, got "
+                         f"{h // hkv}")
+    out = torch.empty_like(q)
+    code = _build.lib().merlin_paged_decode_bf16(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        lengths.data_ptr(), page_tables.data_ptr(),
+        alibi_slopes.data_ptr() if alibi_slopes is not None else None,
+        out.data_ptr(), b, h, hkv, d, k_pages.shape[1],
+        page_tables.shape[1], float(scale if scale is not None
+                                    else d ** -0.5),
+        _build.stream_handle(q.device))
+    _build.check(code, name)
+    return out
+
+
+def _launch_window(name, q, k_pages, v_pages, lengths, page_tables,
+                   alibi_slopes, scale, split_keys):
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be (b, s_q, h, d), got "
+                         f"{tuple(q.shape)}")
+    hkv = _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
+                       alibi_slopes)
+    b, s_q, h, d = q.shape
+    out = torch.empty_like(q)
+    code = _build.lib().merlin_paged_window_bf16(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        lengths.data_ptr(), page_tables.data_ptr(),
+        alibi_slopes.data_ptr() if alibi_slopes is not None else None,
+        out.data_ptr(), b, s_q, h, hkv, d, k_pages.shape[1],
+        page_tables.shape[1], float(scale if scale is not None
+                                    else d ** -0.5), int(split_keys),
+        _build.stream_handle(q.device))
+    _build.check(code, name)
+    return out
+
+
+def paged_attention_dma(q, k_pages, v_pages, lengths, page_tables, *,
+                        scale: Optional[float] = None):
+    """B3: decode-step attention over a paged cache, no ALiBi. q (b, h, d),
+    lengths (b,) >= 1 tokens per sequence. Returns (b, h, d)."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, lengths,
+                                     page_tables, scale=scale)
+    out = _launch_decode("paged_attention_dma", q, k_pages, v_pages, lengths,
+                         page_tables, None, scale)
+    paged_attention_dma.launches += 1
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, lengths, page_tables, *,
+                    alibi_slopes=None, scale: Optional[float] = None):
+    """B4: decode-step attention over a paged cache with per-query-head
+    ALiBi relative to the token at lengths-1. Returns (b, h, d)."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, lengths,
+                                     page_tables, alibi_slopes=alibi_slopes,
+                                     scale=scale)
+    out = _launch_decode("paged_attention", q, k_pages, v_pages, lengths,
+                         page_tables, alibi_slopes, scale)
+    paged_attention.launches += 1
+    return out
+
+
+def paged_attention_dma_multi(q, k_pages, v_pages, lengths, page_tables, *,
+                              alibi_slopes=None,
+                              scale: Optional[float] = None):
+    """B5: an s_q-token window per sequence over arbitrary page tables
+    (see :func:`paged_attention_multi_plain`), any s_q, in tiles of 16
+    query rows of a kv head whose four warps split the keys. Returns
+    (b, s_q, h, d)."""
+    if q.device.type == "cpu":
+        return paged_attention_multi_plain(
+            q, k_pages, v_pages, lengths, page_tables,
+            alibi_slopes=alibi_slopes, scale=scale)
+    out = _launch_window("paged_attention_dma_multi", q, k_pages, v_pages,
+                         lengths, page_tables, alibi_slopes, scale, True)
+    paged_attention_dma_multi.launches += 1
+    return out
+
+
+def paged_attention_multi_blocked(q, k_pages, v_pages, lengths, page_tables,
+                                  *, alibi_slopes=None,
+                                  scale: Optional[float] = None):
+    """B6: B5's contract in tiles of 64 query rows of a kv head, a warp
+    each 16, for large windows (chunked prefill). Returns
+    (b, s_q, h, d)."""
+    if q.device.type == "cpu":
+        return paged_attention_multi_plain(
+            q, k_pages, v_pages, lengths, page_tables,
+            alibi_slopes=alibi_slopes, scale=scale)
+    out = _launch_window("paged_attention_multi_blocked", q, k_pages,
+                         v_pages, lengths, page_tables, alibi_slopes, scale,
+                         False)
+    paged_attention_multi_blocked.launches += 1
+    return out
+
+
+paged_attention_dma.launches = 0
+paged_attention.launches = 0
+paged_attention_dma_multi.launches = 0
+paged_attention_multi_blocked.launches = 0
+
+
+def paged_window_attention(q, k_pages, v_pages, lengths, page_tables, *,
+                           alibi_slopes=None):
+    """A window's attention, routed by its query rows per kv head
+    (group * s_q): up to :data:`WINDOW_SMALL_ROWS` (a verify window) to
+    B5, whose warps split a long history between them; more (a prefill
+    window) to B6, whose 64-row tiles read each K/V tile once for 64
+    rows."""
+    group = q.shape[2] // (k_pages.shape[2] // q.shape[3])
+    fn = (paged_attention_dma_multi
+          if group * q.shape[1] <= WINDOW_SMALL_ROWS
+          else paged_attention_multi_blocked)
+    return fn(q, k_pages, v_pages, lengths, page_tables,
+              alibi_slopes=alibi_slopes)

@@ -2,6 +2,7 @@
 
   * nothing imports jax, flax, optax or merlin_tpu;
   * the entry points default to the card (``device="cuda"``);
+  * the decoder refuses only the options still to be ported;
   * a kernel wrapper, or the attention dispatcher, given a tensor that is
     not on the CPU never reaches the plain version: read from its code (the
     CPU test has no card), and shown at run time with tensors on the meta
@@ -19,12 +20,15 @@ import torch
 import merlin_tpu_torch
 from merlin_tpu_torch.generate.decode import Generator
 from merlin_tpu_torch.models.bridge import init_params
-from merlin_tpu_torch.models.decoder import init_kv_cache
+from merlin_tpu_torch.models.decoder import CausalLM, init_kv_cache
+from merlin_tpu_torch.models.families import tiny
 from merlin_tpu_torch.ops import _build
 from merlin_tpu_torch.ops import attention as attn_ops
 from merlin_tpu_torch.ops import flash_attention as fa
 from merlin_tpu_torch.ops import onepass_attention as oa
+from merlin_tpu_torch.ops import paged_attention as pa
 from merlin_tpu_torch.ops.image_ops import preprocess_images
+from merlin_tpu_torch.serve.engine import ServingEngine
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = pathlib.Path(merlin_tpu_torch.__file__).resolve().parent
@@ -52,7 +56,8 @@ def test_port_imports_nothing_of_jax(path):
 
 
 @pytest.mark.parametrize("fn", [init_params, init_kv_cache,
-                                preprocess_images, Generator.__init__],
+                                preprocess_images, Generator.__init__,
+                                ServingEngine.__init__],
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -60,7 +65,11 @@ def test_entry_points_default_to_the_card(fn):
 
 @pytest.mark.parametrize("wrapper,plain", [
     (oa.onepass_attention, "onepass_attention_plain"),
-    (fa.flash_attention, "flash_attention_plain")])
+    (fa.flash_attention, "flash_attention_plain"),
+    (pa.paged_attention_dma, "paged_attention_plain"),
+    (pa.paged_attention, "paged_attention_plain"),
+    (pa.paged_attention_dma_multi, "paged_attention_multi_plain"),
+    (pa.paged_attention_multi_blocked, "paged_attention_multi_plain")])
 def test_wrapper_reaches_plain_only_for_cpu_tensors(wrapper, plain):
     """The plain version is called in exactly one place: the body of the
     wrapper's first statement, ``if q.device.type == "cpu": return ...``.
@@ -118,8 +127,54 @@ def test_non_cpu_tensors_are_refused_not_computed_plain(dtype):
 def test_kernel_sources_are_in_the_tree():
     names = {p.name for p in _build.sources()}
     assert {"onepass_attention.cu", "flash_attention.cu",
-            "attention_core.cuh"} <= names
+            "paged_attention.cu", "attention_core.cuh"} <= names
     for name, argtypes in _build.SIGNATURES.items():
         text = "".join(p.read_text() for p in _build.sources())
         assert f'extern "C" int {name}(' in text
         assert len(argtypes) > 0
+
+
+PAGED_WRAPPERS = (pa.paged_attention_dma, pa.paged_attention,
+                  pa.paged_attention_dma_multi,
+                  pa.paged_attention_multi_blocked)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_paged_wrappers_refuse_non_cpu_tensors(dtype):
+    """Meta tensors stand in for CUDA ones: each paged wrapper, and the
+    window router, refuses them before any launch, whatever the dtype."""
+    pages = torch.empty((9, 16, 4 * 64), dtype=dtype, device="meta")
+    lengths = torch.empty((2,), dtype=torch.int32, device="meta")
+    tables = torch.empty((2, 4), dtype=torch.int32, device="meta")
+    q1 = torch.empty((2, 4, 64), dtype=dtype, device="meta")
+    qw = torch.empty((2, 5, 4, 64), dtype=dtype, device="meta")
+    calls = [lambda: pa.paged_attention_dma(q1, pages, pages, lengths,
+                                            tables),
+             lambda: pa.paged_attention(q1, pages, pages, lengths, tables),
+             lambda: pa.paged_attention_dma_multi(qw, pages, pages, lengths,
+                                                  tables),
+             lambda: pa.paged_attention_multi_blocked(qw, pages, pages,
+                                                      lengths, tables),
+             lambda: pa.paged_window_attention(qw, pages, pages, lengths,
+                                               tables)]
+    for call in calls:
+        before = [w.launches for w in PAGED_WRAPPERS]
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+        assert [w.launches for w in PAGED_WRAPPERS] == before
+
+
+@pytest.mark.parametrize("option,refused", [
+    (dict(paged_multi_query=True), False),
+    (dict(scan_layers=True), True),
+    (dict(remat=True), True),
+    (dict(weight_dtype="int8"), True)],
+    ids=["paged_multi_query", "scan_layers", "remat", "int8_weights"])
+def test_decoder_refuses_only_unported_options(option, refused):
+    cfg = tiny(**option)
+    if refused:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            CausalLM(cfg)
+    else:
+        assert CausalLM(cfg).cfg.paged_multi_query

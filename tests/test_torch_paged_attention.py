@@ -1,0 +1,285 @@
+"""The port's paged-attention ops against the JAX package on the CPU.
+
+  * ``paged_attention_plain`` (B3/B4's plain version) and
+    ``paged_attention_multi_plain`` (B5/B6's) against the JAX references
+    (``paged_attention_reference``, ``paged_attention_multi_reference``),
+    and, for B4 and B6, against the Pallas kernels run in TPU interpret
+    mode. B3 and B5 are held to the references only: in interpret mode their
+    last grid step reads ``lengths[b]`` one past the end (trap C8).
+  * each wrapper takes its plain version for CPU tensors and counts no
+    launch;
+  * ``write_token(s)_to_pages`` and ``PagePool`` against JAX's.
+
+Inputs come from numpy with a seed: GQA, ALiBi, ragged lengths (1, a page
+multiple, a ragged last page), permuted page tables with unused entries on
+page 0, s_q in {1, 3, 8}. f32 holds to 1e-5 (summation order only), bf16 to
+2e-2 (half an ulp of values of magnitude ~1, rounded at other places).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from merlin_tpu.models.layers import alibi_slopes as j_alibi_slopes
+from merlin_tpu.ops import paged_attention as jpa
+
+from merlin_tpu_torch.ops import paged_attention as pa
+
+F32_TOL = 1e-5
+BF16_TOL = 2e-2
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _inputs(seed, lengths, h, hkv, d, s_q=0, page=8, pps=4):
+    """q, a pool of b * pps + 1 pages, tables: each sequence's pages are a
+    random permutation of pages 1.. (page 0 holds the unused entries)."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    total = b * pps + 1
+    kp = rng.normal(size=(total, page, hkv * d)).astype(np.float32)
+    vp = rng.normal(size=(total, page, hkv * d)).astype(np.float32)
+    perm = (rng.permutation(total - 1) + 1).reshape(b, pps)
+    tables = np.zeros((b, pps), np.int32)
+    for i, n in enumerate(lengths):
+        used = -(-n // page)
+        tables[i, :used] = perm[i, :used]
+    qshape = (b, s_q, h, d) if s_q else (b, h, d)
+    q = rng.normal(size=qshape).astype(np.float32)
+    return q, kp, vp, np.asarray(lengths, np.int32), tables
+
+
+def _t(x, dtype=None):
+    t = torch.from_numpy(np.array(x, copy=True))
+    return t.to(dtype) if dtype is not None else t
+
+
+def _j(x, dtype=None):
+    return jnp.asarray(x, dtype) if dtype is not None else jnp.asarray(x)
+
+
+DECODE_CASES = {
+    # name: (lengths, h, hkv, alibi)
+    "mha": ([1, 8, 29, 17], 4, 4, False),
+    "gqa": ([5, 32, 16], 8, 2, False),
+    "mha_alibi": ([1, 8, 29, 17], 4, 4, True),
+    "gqa_alibi": ([5, 32, 16], 8, 2, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_plain_matches_jax_reference_f32(case):
+    lengths, h, hkv, alibi = DECODE_CASES[case]
+    q, kp, vp, lens, tables = _inputs(0, lengths, h, hkv, 16)
+    slopes = np.asarray(j_alibi_slopes(h)) if alibi else None
+    want = np.asarray(jpa.paged_attention_reference(
+        _j(q), _j(kp), _j(vp), _j(lens), _j(tables),
+        alibi_slopes=None if slopes is None else _j(slopes)))
+    args = (_t(q), _t(kp), _t(vp), _t(lens), _t(tables))
+    got = pa.paged_attention_plain(
+        *args, alibi_slopes=None if slopes is None else _t(slopes))
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+    # the wrapper of each route takes the plain path and counts no launch
+    wrapper = pa.paged_attention if alibi else pa.paged_attention_dma
+    kw = {"alibi_slopes": _t(slopes)} if alibi else {}
+    before = wrapper.launches
+    np.testing.assert_array_equal(wrapper(*args, **kw).numpy(), got.numpy())
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("case", ["mha_alibi", "gqa_alibi", "gqa"])
+def test_decode_plain_matches_b4_pallas_interpret(case):
+    """B4's Pallas kernel (``_paged_kernel``) runs in interpret mode; with
+    no slopes its contract is B3's."""
+    lengths, h, hkv, alibi = DECODE_CASES[case]
+    q, kp, vp, lens, tables = _inputs(1, lengths, h, hkv, 16)
+    slopes = np.asarray(j_alibi_slopes(h)) if alibi else None
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpa.paged_attention(
+            _j(q), _j(kp), _j(vp), _j(lens), _j(tables),
+            alibi_slopes=None if slopes is None else _j(slopes)))
+    got = pa.paged_attention_plain(
+        _t(q), _t(kp), _t(vp), _t(lens), _t(tables),
+        alibi_slopes=None if slopes is None else _t(slopes))
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_decode_plain_matches_jax_reference_bf16():
+    q, kp, vp, lens, tables = _inputs(2, [3, 24, 31], 8, 2, 16)
+    slopes = np.asarray(j_alibi_slopes(8))
+    bf = jnp.bfloat16
+    want = np.asarray(jpa.paged_attention_reference(
+        _j(q, bf), _j(kp, bf), _j(vp, bf), _j(lens), _j(tables),
+        alibi_slopes=_j(slopes)).astype(jnp.float32))
+    got = pa.paged_attention_plain(
+        _t(q, torch.bfloat16), _t(kp, torch.bfloat16),
+        _t(vp, torch.bfloat16), _t(lens), _t(tables),
+        alibi_slopes=_t(slopes))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_TOL,
+                               rtol=BF16_TOL)
+
+
+WINDOW_CASES = {
+    # name: (lengths, s_q, h, hkv, alibi); lengths include the window
+    "sq1_mha": ([1, 8, 29, 17], 1, 4, 4, False),
+    "sq3_gqa": ([3, 16, 30], 3, 8, 2, False),
+    "sq3_gqa_alibi": ([3, 16, 30], 3, 8, 2, True),
+    "sq8_mha_alibi": ([8, 16, 27, 9], 8, 4, 4, True),
+    "sq8_gqa": ([8, 24, 32], 8, 8, 2, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_window_plain_matches_jax_reference_f32(case):
+    lengths, s_q, h, hkv, alibi = WINDOW_CASES[case]
+    q, kp, vp, lens, tables = _inputs(3, lengths, h, hkv, 16, s_q=s_q)
+    slopes = np.asarray(j_alibi_slopes(h)) if alibi else None
+    want = np.asarray(jpa.paged_attention_multi_reference(
+        _j(q), _j(kp), _j(vp), _j(lens), _j(tables),
+        alibi_slopes=None if slopes is None else _j(slopes)))
+    args = (_t(q), _t(kp), _t(vp), _t(lens), _t(tables))
+    sl = None if slopes is None else _t(slopes)
+    got = pa.paged_attention_multi_plain(*args, alibi_slopes=sl)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+    for wrapper in (pa.paged_attention_dma_multi,
+                    pa.paged_attention_multi_blocked,
+                    pa.paged_window_attention):
+        np.testing.assert_array_equal(
+            wrapper(*args, alibi_slopes=sl).numpy(), got.numpy())
+    assert pa.paged_attention_dma_multi.launches == 0
+    assert pa.paged_attention_multi_blocked.launches == 0
+
+
+@pytest.mark.parametrize("case", ["sq8_mha_alibi", "sq8_gqa"])
+def test_window_plain_matches_b6_pallas_interpret(case):
+    """B6's Pallas kernel in interpret mode (it needs group * s_q to be a
+    multiple of 8 sublanes)."""
+    lengths, s_q, h, hkv, alibi = WINDOW_CASES[case]
+    q, kp, vp, lens, tables = _inputs(4, lengths, h, hkv, 16, s_q=s_q)
+    slopes = np.asarray(j_alibi_slopes(h)) if alibi else None
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jpa.paged_attention_multi_blocked(
+            _j(q), _j(kp), _j(vp), _j(lens), _j(tables),
+            alibi_slopes=None if slopes is None else _j(slopes)))
+    got = pa.paged_attention_multi_plain(
+        _t(q), _t(kp), _t(vp), _t(lens), _t(tables),
+        alibi_slopes=None if slopes is None else _t(slopes))
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_window_plain_matches_jax_reference_bf16():
+    q, kp, vp, lens, tables = _inputs(5, [5, 20, 32], 8, 2, 16, s_q=5)
+    bf = jnp.bfloat16
+    want = np.asarray(jpa.paged_attention_multi_reference(
+        _j(q, bf), _j(kp, bf), _j(vp, bf), _j(lens), _j(tables)
+    ).astype(jnp.float32))
+    got = pa.paged_attention_multi_plain(
+        _t(q, torch.bfloat16), _t(kp, torch.bfloat16),
+        _t(vp, torch.bfloat16), _t(lens), _t(tables))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_TOL,
+                               rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("group,s_q,route", [
+    (1, 5, "paged_attention_dma_multi"), (4, 4, "paged_attention_dma_multi"),
+    (1, 17, "paged_attention_multi_blocked"),
+    (4, 128, "paged_attention_multi_blocked")])
+def test_window_route_by_rows_per_kv_head(monkeypatch, group, s_q, route):
+    """Verify windows (<= 16 query rows per kv head) go to B5, prefill
+    windows to B6."""
+    called = []
+    for name in ("paged_attention_dma_multi",
+                 "paged_attention_multi_blocked"):
+        monkeypatch.setattr(pa, name, lambda *a, _n=name, **k: called.append(
+            _n))
+    q = torch.zeros((1, s_q, 2 * group, 8))
+    pages = torch.zeros((1, 8, 16))
+    pa.paged_window_attention(q, pages, pages, None, None)
+    assert called == [route]
+
+
+def test_write_token_to_pages_matches_jax():
+    rng = np.random.default_rng(6)
+    hkv, d, page, pps = 2, 8, 4, 3
+    kp = rng.normal(size=(7, page, hkv * d)).astype(np.float32)
+    vp = rng.normal(size=(7, page, hkv * d)).astype(np.float32)
+    tables = np.asarray([[3, 1, 0], [5, 6, 2]], np.int32)
+    k_new = rng.normal(size=(2, hkv, d)).astype(np.float32)
+    v_new = rng.normal(size=(2, hkv, d)).astype(np.float32)
+    pos = np.asarray([6, 9], np.int32)
+    jk, jv = jpa.write_token_to_pages(
+        _j(kp), _j(vp), _j(k_new), _j(v_new), positions=_j(pos),
+        page_tables=_j(tables))
+    tk, tv = _t(kp.copy()), _t(vp.copy())
+    out = pa.write_token_to_pages(tk, tv, _t(k_new), _t(v_new),
+                                  positions=_t(pos), page_tables=_t(tables))
+    assert out[0] is tk and out[1] is tv       # in place
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_write_tokens_to_pages_matches_jax():
+    """A window crossing a page boundary, through permuted tables."""
+    rng = np.random.default_rng(7)
+    hkv, d, page, s_q = 2, 8, 4, 5
+    kp = rng.normal(size=(9, page, hkv * d)).astype(np.float32)
+    vp = rng.normal(size=(9, page, hkv * d)).astype(np.float32)
+    tables = np.asarray([[4, 7, 2, 0], [1, 8, 3, 6]], np.int32)
+    k_new = rng.normal(size=(2, s_q, hkv, d)).astype(np.float32)
+    v_new = rng.normal(size=(2, s_q, hkv, d)).astype(np.float32)
+    start = np.asarray([2, 9], np.int32)
+    jk, jv = jpa.write_tokens_to_pages(
+        _j(kp), _j(vp), _j(k_new), _j(v_new), start_positions=_j(start),
+        page_tables=_j(tables))
+    tk, tv = _t(kp.copy()), _t(vp.copy())
+    pa.write_tokens_to_pages(tk, tv, _t(k_new), _t(v_new),
+                             start_positions=_t(start),
+                             page_tables=_t(tables))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def _pool_trace(pool_cls):
+    """The same operations on a pool; returns what each step observed."""
+    pool = pool_cls(total_pages=6, page_size=4, pages_per_seq=4)
+    seen = [list(pool.allocate("trash", 1))]
+    seen.append(list(pool.allocate("a", 6)))            # 2 pages
+    seen.append(list(pool.extend("a", 3)))              # 9 tokens: 3 pages
+    seen.append(list(pool.allocate("b", 4)))
+    try:                                                # needs 3, 1 free
+        pool.allocate("c", 12)
+    except MemoryError as e:
+        seen.append(("MemoryError", str(e), pool.free_pages,
+                     "c" in pool.tables))
+    try:
+        pool.allocate("d", 17)                          # 5 > pages_per_seq
+    except ValueError as e:
+        seen.append(("ValueError", str(e)))
+    try:                                                # b grows atomically
+        pool.allocate("b", 16)
+    except MemoryError:
+        seen.append(("b after failed growth", list(pool.tables["b"]),
+                     pool.free_pages))
+    pool.release("a")
+    seen.append(pool.free_pages)
+    seen.append(list(pool.allocate("e", 13)))           # reuses a's pages
+    seen.append(pool.table_array(["e", "b", "gone"]).tolist())
+    return seen
+
+
+def test_page_pool_matches_jax():
+    """Free-list order (the first page handed out is physical page 0),
+    atomic failure, the pages_per_seq refusal, release and reuse."""
+    got, want = _pool_trace(pa.PagePool), _pool_trace(jpa.PagePool)
+    assert got == want
+    assert got[0] == [0]
