@@ -2,16 +2,18 @@
 
 Drives the port's paths once on one NVIDIA GPU, through the entry points
 a user calls, at the full width of CLIP ViT-L/14-448 + Vicuna-7B (all 32
-decoder layers, random bf16 weights from a seed) and of Baichuan-13B:
+decoder layers, random bf16 weights from a seed, and the same weights with
+the LM quantized to int8) and of Baichuan-13B:
 
   1. setup      - card name and power limit; build the CUDA kernels from
                   ``merlin_tpu_torch/csrc`` (nvcc, sm_90a);
-  2. kernels    - each kernel (B1-B6) against its plain PyTorch version on
+  2. kernels    - each kernel (B1-B9) against its plain PyTorch version on
                   the card at its path's shapes (and edge cases: GQA, ALiBi,
-                  ragged lengths over permuted page tables), with times, the
-                  bound from the shapes, and one PyTorch library call as a
-                  yardstick where one exists; a planted fault (the last key
-                  tile dropped; a live page redirected to the trash page)
+                  ragged lengths over permuted page tables, hkv = 40), with
+                  times, the bound from the shapes, and one PyTorch library
+                  call as a yardstick where one exists; a planted fault (the
+                  last key tile dropped; a live page redirected to the trash
+                  page; int8 scales read at lane hk instead of hk * stride)
                   must fail the same check;
   3. reference  - a narrow model on the card (through the kernels) against
                   the same weights on the CPU (plain path), both in bf16;
@@ -24,16 +26,20 @@ decoder layers, random bf16 weights from a seed) and of Baichuan-13B:
                   and at the last step, are held against one no-cache
                   forward of that row alone;
   6. serving    - the paged continuous-batching ``ServingEngine`` serves 6
-                  ragged text requests (32 tokens each) in three setups:
+                  ragged text requests (32 tokens each) in five setups:
                   E1 Vicuna-7B whole-prompt admission + decode (B2, B3);
                   E2 Vicuna-7B chunked prefill + speculative windows (B6,
-                  B5); E3 Baichuan-13B cut to 4 layers, ALiBi, hybrid
-                  admission (B2, B6, B4). Each kernel's launches must equal
-                  the layers times the model calls of its kind and no other
-                  kernel may launch; every emitted token must hold against a
-                  no-cache forward of its request, and a request's tokens
-                  read after another request's prompt must fail that check.
-                  Prints tokens/s and per-request TTFT.
+                  B5); E4 Vicuna-7B with int8 weights and int8 pages,
+                  hybrid admission (B2, B8, B7 at s_q = 1); E3 Baichuan-13B
+                  cut to 4 layers, ALiBi, hybrid admission (B2, B6, B4); E5
+                  the same Baichuan on int8 pages, chunked prefill +
+                  speculative windows (B8, B7). Each kernel's launches must
+                  equal the layers times the model calls of its kind and no
+                  other kernel may launch; every emitted token must hold
+                  against a no-cache forward of its request through the same
+                  model, and a request's tokens read after another
+                  request's prompt must fail that check. Prints tokens/s,
+                  per-request TTFT and the KV pool's bytes.
 
 Prints the serving readings and the kernel table as JSON lines before the
 last, and as the last
@@ -70,6 +76,14 @@ LOGIT_RTOL = 3e-2            # narrow model, card vs CPU, both bf16 compute:
 GEN_RTOL = 5e-2              # generation logits against a no-cache forward
                              # of the row alone, of max |logit| (< 1% seen;
                              # the cache's padding left visible gives 66%)
+Q8_GEN_RTOL = 1e-1           # the same over int8 pages: a key's int8 step
+                             # is up to absmax/254, a few bf16 ulps, so a
+                             # near tie flips more readily. Seen: 0 with
+                             # this serving phase run on the CPU on a
+                             # narrow Vicuna-shaped model (6.5e-3 over its
+                             # bf16 pages); <= 4.7e-3 in E4/E5 on an H100
+                             # 80GB HBM3 at 700 W; a swapped prompt gives
+                             # 0.53-1.32
 
 B1_SOURCE = "merlin_tpu_torch/csrc/onepass_attention.cu"
 B2_SOURCE = "merlin_tpu_torch/csrc/flash_attention.cu"
@@ -79,7 +93,14 @@ PAGED_SOURCE = "merlin_tpu_torch/csrc/paged_attention.cu"
 PAGED_REPLACES = {"B3": "merlin_tpu/ops/paged_attention.py:365",
                   "B4": "merlin_tpu/ops/paged_attention.py:143",
                   "B5": "merlin_tpu/ops/paged_attention.py:631",
-                  "B6": "merlin_tpu/ops/paged_attention.py:772"}
+                  "B6": "merlin_tpu/ops/paged_attention.py:772",
+                  # B7 is one pallas_call; the port serves its s_q = 1 case
+                  # (paged_attention_dma_q8, "B7") with the decode kernel
+                  # and its windows ("B7w") with the window kernel
+                  "B7": "merlin_tpu/ops/paged_attention.py:1172",
+                  "B7w": "merlin_tpu/ops/paged_attention.py:1172",
+                  "B8": "merlin_tpu/ops/paged_attention.py:916",
+                  "B9": "merlin_tpu/ops/paged_attention.py:1353"}
 
 
 def log(msg: str) -> None:
@@ -273,6 +294,15 @@ def redirect_page(tables, lengths, page=128):
     return bad
 
 
+def window_flops(q, lens):
+    """4 h d FLOP for each (query row, visible key) pair of a window whose
+    lengths include it: row t of s_q sees keys <= length - s_q + t."""
+    b, s_q, h, d = q.shape
+    seen = sum(max(0, n - s_q + t + 1) for n in lens.tolist()
+               for t in range(s_q))
+    return 4.0 * h * d * seen
+
+
 def check_paged(gen):
     """B3/B4 (paged decode) and B5/B6 (paged window) against their plain
     versions at the serving path's widths, ragged lengths (1, page
@@ -358,12 +388,6 @@ def check_paged(gen):
                     bound_ms=bms, bound_by=by, library_ms=None,
                     shape=list(q.shape))
 
-    def window_flops(q, lens):
-        b, s_q, h, d = q.shape
-        seen = sum(max(0, n - s_q + t + 1) for n in lens.tolist()
-                   for t in range(s_q))
-        return 4.0 * h * d * seen
-
     # the route's reason: B6's 64-row tiles on the verify window's shape
     q, kp, vp, lens, tabs = win5
     b6_ms = time_ms(lambda: pa.paged_attention_multi_blocked(
@@ -382,6 +406,148 @@ def check_paged(gen):
         "B6": row("B6", "paged_attention_multi_blocked", win128, None,
                   pa.paged_attention_multi_plain,
                   window_flops(win128[0], win128[3])),
+    }
+
+
+def paged_q8_inputs(gen, b, h, hkv, d, lengths, s_q=0):
+    """``paged_inputs`` with both pools quantized by the port's
+    ``quantize_pages``: q, k values, k scales, v values, v scales, lengths,
+    tables."""
+    from merlin_tpu_torch.ops.paged_attention import quantize_pages
+
+    q, kp, vp, lens, tables = paged_inputs(gen, b, h, hkv, d, lengths, s_q)
+    kv, ks = quantize_pages(kp, d)
+    vv, vs = quantize_pages(vp, d)
+    return q, kv, ks, vv, vs, lens, tables
+
+
+def head_lane_scales(scales, hkv):
+    """The planted layout fault: each head's scale at lane hk (head ==
+    lane) where the kernel reads lane hk * (128 // hkv)."""
+    stride = max(scales.shape[-1] // hkv, 1)
+    bad = torch.zeros_like(scales)
+    bad[..., :hkv] = scales[..., 0:hkv * stride:stride]
+    return bad
+
+
+def check_paged_q8(gen):
+    """B7 (decode at s_q = 1, and windows), B8 and B9 over int8 pages
+    against their plain versions at the int8 serving paths' widths: ragged
+    lengths (1, page multiples, >= 1900) over permuted tables, GQA, ALiBi
+    and hkv = 40 (scale stride 3). Two planted faults must fail the check:
+    a live page redirected to the trash page, and scales laid out head ==
+    lane. Returns the four kernel rows."""
+    from merlin_tpu_torch.models.layers import alibi_slopes
+    from merlin_tpu_torch.ops import paged_attention as pa
+
+    names = ("B7", "B7w", "B8", "B9")
+    errs = {k: [] for k in names}
+    fns = {"B7": pa.paged_attention_dma_q8,
+           "B7w": pa.paged_attention_dma_multi_q8,
+           "B8": pa.paged_attention_multi_blocked_q8,
+           "B9": pa.paged_attention_quantized}
+
+    def plain(q):
+        return (pa.paged_attention_q8_plain if q.dim() == 3
+                else pa.paged_attention_multi_q8_plain)
+
+    def compare(tag, name, inputs, slopes=None, fault=None):
+        q, kv, ks, vv, vs, lens, tabs = inputs
+        got_in = list(inputs)
+        if fault == "page":
+            lengths = lens.tolist()
+            got_in[6] = redirect_page(tabs, lengths)
+            what = "a live page redirected to the trash page"
+        elif fault == "lanes":
+            hkv = kv.shape[2] // q.shape[-1]
+            got_in[2] = head_lane_scales(ks, hkv)
+            got_in[4] = head_lane_scales(vs, hkv)
+            what = f"scales at lane hk, not hk * {128 // hkv}"
+        got = fns[name](*got_in, alibi_slopes=slopes)
+        want = plain(q)(*inputs, alibi_slopes=slopes)
+        torch.cuda.synchronize()
+        err, rel = out_err(got, want)
+        if fault is not None:
+            log(f"{name} planted fault ({tag}: {what}): row error "
+                f"{rel:.3e}, must exceed {OUT_RTOL:.3e}")
+            if not rel > OUT_RTOL:
+                raise AssertionError(f"{name}: the check cannot see {what}")
+            return
+        log(f"{name} {tag}: max_abs_err {err:.3e}, row error {rel:.3e} "
+            f"(tol {OUT_RTOL:.3e})")
+        if not (rel <= OUT_RTOL and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{name} {tag} disagrees: {err} {rel}")
+        errs[name].append(err)
+
+    vicuna = [1, 256, 1937, 700]
+    baichuan = [1, 384, 1999, 901]
+    gqa = [1, 1024, 1900]
+    s40 = alibi_slopes(40, device="cuda")
+    s8 = alibi_slopes(8, device="cuda")
+    dec_mha = paged_q8_inputs(gen, 4, 32, 32, 128, vicuna)
+    dec_gqa = paged_q8_inputs(gen, 3, 8, 2, 128, gqa)
+    dec_bc = paged_q8_inputs(gen, 4, 40, 40, 128, baichuan)
+    for name in ("B7", "B9"):
+        compare("decode vicuna (4 slots, 32/32 heads)", name, dec_mha)
+        compare("decode gqa alibi (8/2 heads)", name, dec_gqa, s8)
+        compare("decode baichuan-13b alibi (40 heads)", name, dec_bc, s40)
+    compare("decode gqa (8/2 heads)", "B7", dec_gqa)
+    compare("decode vicuna", "B7", dec_mha, fault="page")
+    compare("decode vicuna", "B7", dec_mha, fault="lanes")
+    compare("decode baichuan-13b", "B7", dec_bc, s40, fault="lanes")
+
+    win5 = paged_q8_inputs(gen, 4, 32, 32, 128, [5, 256, 1937, 700], s_q=5)
+    win5_bc = paged_q8_inputs(gen, 4, 40, 40, 128, [5, 384, 1999, 901],
+                              s_q=5)
+    win128 = paged_q8_inputs(gen, 4, 32, 32, 128, [128, 256, 1990, 700],
+                             s_q=128)
+    win128_bc = paged_q8_inputs(gen, 4, 40, 40, 128, [130, 384, 1999, 901],
+                                s_q=128)
+    win_gqa5 = paged_q8_inputs(gen, 3, 8, 2, 128, [5, 1024, 1900], s_q=5)
+    win_gqa128 = paged_q8_inputs(gen, 3, 8, 2, 128, [130, 1024, 1900],
+                                 s_q=128)
+    compare("window s_q=5 vicuna", "B7w", win5)
+    compare("window s_q=5 baichuan-13b alibi", "B7w", win5_bc, s40)
+    compare("window s_q=5 gqa alibi", "B7w", win_gqa5, s8)
+    compare("window s_q=5 gqa alibi", "B8", win_gqa5, s8)
+    compare("window s_q=128 vicuna", "B8", win128)
+    compare("window s_q=128 baichuan-13b alibi", "B8", win128_bc, s40)
+    compare("window s_q=128 gqa alibi", "B8", win_gqa128, s8)
+    compare("window s_q=5 baichuan-13b", "B7w", win5_bc, s40, fault="lanes")
+    compare("window s_q=128 vicuna", "B8", win128, fault="page")
+    compare("window s_q=128 vicuna", "B8", win128, fault="lanes")
+
+    def row(name, fn_name, inputs, slopes, flops):
+        q, kv, ks, vv, vs, lens, tabs = inputs
+        fn = fns[name]
+        ms = time_ms(lambda: fn(q, kv, ks, vv, vs, lens, tabs,
+                                alibi_slopes=slopes))
+        plain_ms = time_ms(lambda: plain(q)(q, kv, ks, vv, vs, lens, tabs,
+                                            alibi_slopes=slopes), iters=5)
+        hkv = kv.shape[2] // q.shape[-1]
+        live = int(lens.sum())
+        # each live int8 K/V row once, each live (token, head) scale of K
+        # and V once (4 bytes), q in, out
+        kv_bytes = live * kv.shape[2] * 2 + live * hkv * 4 * 2
+        bms, by = bound_ms(flops, kv_bytes + 2 * nbytes(q))
+        log(f"{name} {tuple(q.shape)} lengths {lens.tolist()} int8 pages: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} "
+            f"ms ({by}), library none")
+        return dict(name=f"{name} {fn_name}", route="cuda",
+                    source=PAGED_SOURCE, replaces=PAGED_REPLACES[name],
+                    max_abs_err=max(errs[name]), ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    shape=list(q.shape))
+
+    return {
+        "B7": row("B7", "paged_attention_dma_q8", dec_mha, None,
+                  4.0 * 32 * 128 * int(dec_mha[5].sum())),
+        "B7w": row("B7w", "paged_attention_dma_multi_q8", win5_bc, s40,
+                   window_flops(win5_bc[0], win5_bc[5])),
+        "B8": row("B8", "paged_attention_multi_blocked_q8", win128, None,
+                  window_flops(win128[0], win128[5])),
+        "B9": row("B9", "paged_attention_quantized", dec_mha, None,
+                  4.0 * 32 * 128 * int(dec_mha[5].sum())),
     }
 
 
@@ -422,7 +588,11 @@ def kernel_wrappers():
     return {"B1": onepass_attention, "B2": flash_attention,
             "B3": pa.paged_attention_dma, "B4": pa.paged_attention,
             "B5": pa.paged_attention_dma_multi,
-            "B6": pa.paged_attention_multi_blocked}
+            "B6": pa.paged_attention_multi_blocked,
+            "B7": pa.paged_attention_dma_q8,
+            "B7w": pa.paged_attention_dma_multi_q8,
+            "B8": pa.paged_attention_multi_blocked_q8,
+            "B9": pa.paged_attention_quantized}
 
 
 def reset_counts():
@@ -695,15 +865,24 @@ def run_engine(tag, model, prompts, reached, **engine_kw):
     layers times the model calls of its kind (counted by forward hooks),
     the kernels in ``reached`` must launch and no other kernel may, every
     emitted token must hold against a no-cache forward of its request, and
-    a planted prompt swap must fail that check. Returns (launch counts,
-    readings)."""
+    a planted prompt swap must fail that check. An int8 pool
+    (``cache_dtype=torch.int8``) routes decode to B7 at s_q = 1 and windows
+    to B7/B8, and its tokens are held to ``Q8_GEN_RTOL``. Returns (launch
+    counts, readings)."""
     from merlin_tpu_torch.ops.paged_attention import WINDOW_SMALL_ROWS
     from merlin_tpu_torch.serve.engine import ServingEngine
 
     max_new = 32
+    q8 = engine_kw.get("cache_dtype") == torch.int8
+    tol = Q8_GEN_RTOL if q8 else GEN_RTOL
     engine = ServingEngine(model, eos_id=-1, device="cuda", **engine_kw)
     cfg = engine.lm_cfg
     group = cfg.num_heads // cfg.kv_heads
+    pool = nbytes(*(t for layer in engine.cache["layers"]
+                    for t in layer.values()))
+    # the same pool as bf16 pages: K and V, 2 bytes a value, no scales
+    pool_bf16 = sum(2 * 2 * layer["k_pages"].numel()
+                    for layer in engine.cache["layers"])
     calls = collections.Counter()
 
     def counter(window):
@@ -738,17 +917,23 @@ def run_engine(tag, model, prompts, reached, **engine_kw):
     engine.close()
     n = cfg.num_layers
     alibi = cfg.positional == "alibi"
-    want = launches(B2=n * calls["prefill"],
-                    B3=0 if alibi else n * calls["decode"],
-                    B4=n * calls["decode"] if alibi else 0,
-                    B5=n * calls["window_small"],
-                    B6=n * calls["window_large"])
+    if q8:
+        want = launches(B2=n * calls["prefill"], B7=n * calls["decode"],
+                        B7w=n * calls["window_small"],
+                        B8=n * calls["window_large"])
+    else:
+        want = launches(B2=n * calls["prefill"],
+                        B3=0 if alibi else n * calls["decode"],
+                        B4=n * calls["decode"] if alibi else 0,
+                        B5=n * calls["window_small"],
+                        B6=n * calls["window_large"])
     n_tok = sum(len(r.generated) for r in reqs)
     ttft = [round((first[i] - t0) * 1e3, 1) for i in range(len(prompts))]
     log(f"{tag}: {len(prompts)} requests, prompt lengths "
         f"{[len(p) for p in prompts]}, {n_tok} tokens in {wall:.3f} s -> "
         f"{n_tok / wall:.2f} tok/s aggregate; TTFT ms per request {ttft} "
         f"(host clock, from the emit callback); model calls {dict(calls)}; "
+        f"KV pool {pool} bytes ({pool_bf16} as bf16 pages); "
         f"launches {counts}")
     if counts != want or any((n > 0) != (k in reached)
                              for k, n in counts.items()):
@@ -760,8 +945,8 @@ def run_engine(tag, model, prompts, reached, **engine_kw):
     gaps = [token_gap(model, p, r.generated) for p, r in zip(prompts, reqs)]
     log(f"{tag} tokens vs a no-cache forward of each request: largest gap "
         f"per request {[f'{g:.2e}' for g in gaps]} of max |logit| (tol "
-        f"{GEN_RTOL})")
-    if not max(gaps) <= GEN_RTOL:
+        f"{tol})")
+    if not max(gaps) <= tol:
         raise AssertionError(f"{tag}: emitted tokens disagree with the "
                              f"no-cache forward: {gaps}")
     # planted fault: request 0's tokens read after another request's
@@ -770,12 +955,13 @@ def run_engine(tag, model, prompts, reached, **engine_kw):
               if r.generated[0] != reqs[0].generated[0]), 1)
     swapped = token_gap(model, prompts[j], reqs[0].generated)
     log(f"{tag} planted fault (request 0's tokens after request {j}'s "
-        f"prompt): gap {swapped:.3e}, must exceed {GEN_RTOL}")
-    if not swapped > GEN_RTOL:
+        f"prompt): gap {swapped:.3e}, must exceed {tol}")
+    if not swapped > tol:
         raise AssertionError(f"{tag}: the token check cannot see a "
                              "swapped prompt")
     return counts, dict(tok_s=n_tok / wall, ttft_ms=ttft, calls=dict(calls),
-                        wall_s=wall)
+                        wall_s=wall, max_gap=max(gaps), pool_bytes=pool,
+                        pool_bytes_bf16=pool_bf16)
 
 
 def serving_prompts(rng, lengths, vocab, period=0):
@@ -824,15 +1010,56 @@ def serve_vicuna(model, rng):
     return {"E1": e1, "E2": e2}
 
 
+def build_int8_vicuna(model, cfg):
+    """The same MMGPT with its LM quantized to int8 weights on the card by
+    the port's ``quantize_decoder_params_int8`` (the vision tower and the
+    projector stay bf16, as the JAX worker's ``--int8-weights`` does). The
+    tower's tensors are shared with ``model``."""
+    from merlin_tpu_torch.models.convert import quantize_decoder_params_int8
+    from merlin_tpu_torch.models.mmgpt import MMGPT
+
+    t0 = time.perf_counter()
+    qcfg = dataclasses.replace(cfg, lm=dataclasses.replace(
+        cfg.lm, weight_dtype="int8"))
+    with torch.device("meta"):
+        qmodel = MMGPT(qcfg)
+    qmodel.load_state_dict(quantize_decoder_params_int8(
+        model.state_dict(), prefix="lm."), strict=True, assign=True)
+    torch.cuda.synchronize()
+    log(f"int8 LM: {nbytes(*qmodel.lm.parameters()) / 1e9:.3f} GB on the "
+        f"card (bf16: {nbytes(*model.lm.parameters()) / 1e9:.3f} GB), "
+        f"quantized in {time.perf_counter() - t0:.1f} s")
+    return qmodel.eval()
+
+
+def serve_vicuna_int8(model, rng):
+    """E4 on the int8-weight Vicuna-7B MMGPT over int8 pages: short prompts
+    whole (B2, quantized into the pages), long ones in 128-token windows
+    (B8), decode through B7 at s_q = 1."""
+    return run_engine(
+        "E4 vicuna-7b int8 weights + int8 pages (hybrid C=128 min 256)",
+        model, serving_prompts(rng, SERVING_LENGTHS, 32000),
+        ["B2", "B7", "B8"], cache_dtype=torch.int8, prefill_chunk=128,
+        prefill_chunk_min=256, chunk_steps=8, pipeline=1, **SERVING)
+
+
 def serve_baichuan(rng):
     """E3: ALiBi decode, short prompts whole (<= 256 tokens), long ones in
-    128-token windows."""
-    return run_engine(
-        "E3 baichuan-13b 4 layers (alibi, hybrid C=128 min 256)",
-        build_baichuan(),
-        serving_prompts(rng, [100, 200, 700, 1300, 120, 900], 64000),
-        ["B2", "B4", "B6"], prefill_chunk=128, prefill_chunk_min=256,
-        **SERVING)
+    128-token windows (bf16 pages). E5: the same model on int8 pages,
+    every prompt in 128-token windows (B8) and speculative verify windows
+    of 5 rows per kv head (B7), at hkv = 40 (scale stride 3)."""
+    model = build_baichuan()
+    lengths = [100, 200, 700, 1300, 120, 900]
+    e3 = run_engine(
+        "E3 baichuan-13b 4 layers (alibi, hybrid C=128 min 256)", model,
+        serving_prompts(rng, lengths, 64000), ["B2", "B4", "B6"],
+        prefill_chunk=128, prefill_chunk_min=256, **SERVING)
+    e5 = run_engine(
+        "E5 baichuan-13b 4 layers int8 pages (alibi, chunked C=128, spec "
+        "k=4)", model, serving_prompts(rng, lengths, 64000, period=48),
+        ["B7w", "B8"], cache_dtype=torch.int8, prefill_chunk=128,
+        prefill_windows_per_step=4, spec_draft=4, chunk_steps=1, **SERVING)
+    return {"E3": e3, "E5": e5}
 
 
 def main() -> int:
@@ -856,23 +1083,33 @@ def main() -> int:
     b1 = check_b1(gen)
     b2 = check_b2(gen)
     paged = check_paged(gen)
+    paged.update(check_paged_q8(gen))
     check_reference(rng)
     model, cfg = build_full_model()
     fwd_counts, _ = run_forward(model, cfg, rng)
     g = run_generation(model, cfg, rng)
     served = serve_vicuna(model, rng)
-    del model                         # E3's model replaces the 7B one
+    qmodel = build_int8_vicuna(model, cfg)
+    del model                         # the int8 LM replaces the bf16 one
     gc.collect()
     torch.cuda.empty_cache()
-    served["E3"] = serve_baichuan(rng)
+    served["E4"] = serve_vicuna_int8(qmodel, rng)
+    del qmodel                        # E3's model replaces the 7B one
+    gc.collect()
+    torch.cuda.empty_cache()
+    served.update(serve_baichuan(rng))
     b1["launches"], b2["launches"] = fwd_counts["B1"], fwd_counts["B2"]
     b1["launches_generation"] = g["counts"]["B1"]
     b2["launches_generation"] = g["counts"]["B2"]
-    # a paged kernel's launches come from the engine run of its path
+    # a paged kernel's launches come from the engine run of its path; B9
+    # is on no path (the decoder's int8 token step calls B7 at s_q = 1,
+    # the same CUDA kernel), so its count stays 0
     for name, run in (("B3", "E1"), ("B4", "E3"), ("B5", "E2"),
-                      ("B6", "E2")):
+                      ("B6", "E2"), ("B7", "E4"), ("B7w", "E5"),
+                      ("B8", "E4"), ("B9", "E4")):
         paged[name]["launches"] = served[run][0][name]
-    rows = [b1, b2] + [paged[k] for k in ("B3", "B4", "B5", "B6")]
+    rows = [b1, b2] + [paged[k] for k in ("B3", "B4", "B5", "B6", "B7",
+                                          "B7w", "B8", "B9")]
     for row in rows:
         key = row["name"].split()[0]
         row["launches_serving"] = {e: served[e][0][key] for e in served}

@@ -1,6 +1,6 @@
 // Shared tile machinery of the port's attention kernels
 // (onepass_attention.cu = B1, flash_attention.cu = B2, and the paged
-// window kernel of paged_attention.cu = B5/B6).
+// window kernel of paged_attention.cu = B5/B6, and B7/B8 over int8 pages).
 //
 // A thread block of WARPS warps owns up to 16 * WARPS query rows: each warp
 // owns 16. The block stages its Q tile in shared memory once, then walks
@@ -17,14 +17,18 @@
 // key row and value row lies, which (row, key) pairs are visible with what
 // bias, and where a row's output goes. attention_tile<DP, WARPS, Problem>
 // takes it as a template argument (DenseProblem below for B1/B2,
-// PagedWindowProblem in paged_attention.cu), so the tile loop is written
-// once. A problem provides:
+// PagedWindowProblem in paged_attention.cu, over bf16 or int8 pages), so
+// the tile loop is written once. A problem provides:
 //   Row row(int r)                  per-row state of block row r
 //   bool live(const Row&)           the row exists and writes an output
 //   int n_rows(), n_keys(), key_end()
 //                                   live rows; keys that exist; keys the
 //                                   block has to walk (a causal bound)
-//   const bf16* q_row(int r), k_row(int key), v_row(int key)
+//   const bf16* q_row(int r)        query row r
+//   uint4 k_chunk(int key, int c), v_chunk(int key, int c)
+//                                   the 8 bf16 of columns c..c+7 of a key
+//                                   or value row (a load, or int8 values
+//                                   dequantized on the way to smem)
 //   float logit(const Row&, int key, float s)
 //                                   the raw dot s -> log2-domain score, or
 //                                   kNegInf where the key is not visible
@@ -107,21 +111,23 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Stage NROWS rows (row r at row_ptr(r)) into smem [NROWS][DP + kPad] with
-// NTHREADS threads (this one is `tid`), 16 bytes per thread per step; rows
-// past `rows` and columns past d are zero-filled, and their pointers are
-// never formed.
-template <int DP, int NTHREADS, int NROWS, class RowPtr>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* smem, RowPtr row_ptr,
+__device__ __forceinline__ uint4 ld128(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// Stage NROWS rows into smem [NROWS][DP + kPad] with NTHREADS threads (this
+// one is `tid`), 8 bf16 (16 bytes) per thread per step, chunk(r, c) giving
+// columns c..c+7 of row r; rows past `rows` and columns past d are
+// zero-filled, and chunk is never asked for them.
+template <int DP, int NTHREADS, int NROWS, class Chunk>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* smem, Chunk chunk,
                                           int rows, int d, int tid) {
   constexpr int kChunks = DP / 8;
   for (int i = tid; i < NROWS * kChunks; i += NTHREADS) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows && c < d) {
-      val = *reinterpret_cast<const uint4*>(row_ptr(r) + c);
-    }
+    if (r < rows && c < d) val = chunk(r, c);
     *reinterpret_cast<uint4*>(smem + r * (DP + kPad) + c) = val;
   }
 }
@@ -147,7 +153,8 @@ __device__ __forceinline__ void attention_tile(const Problem& pb, int d) {
   const int r_lo = (SPLIT_KEYS ? 0 : warp * 16) + g;
 
   load_rows<DP, kNThreads, kRows>(
-      Qs, [&](int r) { return pb.q_row(r); }, pb.n_rows(), d, threadIdx.x);
+      Qs, [&](int r, int c) { return ld128(pb.q_row(r) + c); }, pb.n_rows(),
+      d, threadIdx.x);
   if (SPLIT_KEYS) __syncthreads();  // every warp reads all 16 Q rows
   const typename Problem::Row row[2] = {pb.row(r_lo), pb.row(r_lo + 8)};
 
@@ -171,16 +178,20 @@ __device__ __forceinline__ void attention_tile(const Problem& pb, int d) {
       // this warp's own K/V tile
       __syncwarp();
       load_rows<DP, 32, kBlockN>(
-          Ks, [&](int r) { return pb.k_row(k0 + r); }, rows, d, lane);
+          Ks, [&](int r, int c) { return pb.k_chunk(k0 + r, c); }, rows, d,
+          lane);
       load_rows<DP, 32, kBlockN>(
-          Vs, [&](int r) { return pb.v_row(k0 + r); }, rows, d, lane);
+          Vs, [&](int r, int c) { return pb.v_chunk(k0 + r, c); }, rows, d,
+          lane);
       __syncwarp();
     } else {
       __syncthreads();  // every warp is done with the previous K/V tile
       load_rows<DP, kNThreads, kBlockN>(
-          Ks, [&](int r) { return pb.k_row(k0 + r); }, rows, d, threadIdx.x);
+          Ks, [&](int r, int c) { return pb.k_chunk(k0 + r, c); }, rows, d,
+          threadIdx.x);
       load_rows<DP, kNThreads, kBlockN>(
-          Vs, [&](int r) { return pb.v_row(k0 + r); }, rows, d, threadIdx.x);
+          Vs, [&](int r, int c) { return pb.v_chunk(k0 + r, c); }, rows, d,
+          threadIdx.x);
       __syncthreads();
     }
 
@@ -372,11 +383,11 @@ struct DenseProblem {
   __device__ const __nv_bfloat16* q_row(int r) const {
     return a.q + bi * a.q_sb + (int64_t)(q0 + r) * a.q_ss + hi * a.q_sh;
   }
-  __device__ const __nv_bfloat16* k_row(int key) const {
-    return a.k + bi * a.k_sb + (int64_t)key * a.k_ss + hk * a.k_sh;
+  __device__ uint4 k_chunk(int key, int c) const {
+    return ld128(a.k + bi * a.k_sb + (int64_t)key * a.k_ss + hk * a.k_sh + c);
   }
-  __device__ const __nv_bfloat16* v_row(int key) const {
-    return a.v + bi * a.v_sb + (int64_t)key * a.v_ss + hk * a.v_sh;
+  __device__ uint4 v_chunk(int key, int c) const {
+    return ld128(a.v + bi * a.v_sb + (int64_t)key * a.v_ss + hk * a.v_sh + c);
   }
   __device__ float logit(const Row& rw, int ki, float s) const {
     const float x = a.slopes != nullptr

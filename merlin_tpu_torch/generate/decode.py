@@ -38,6 +38,8 @@ class GenerateConfig:
     pad_id: int = 0
     # extra single-token stop ids
     stop_token_ids: Tuple[int, ...] = ()
+    # torch.int8 takes int8 pages with per-(token, head) scales and needs
+    # kv_layout="paged"
     cache_dtype: torch.dtype = torch.bfloat16
     # pad prompts up to a multiple of this (0 = exact length)
     prompt_bucket: int = 128

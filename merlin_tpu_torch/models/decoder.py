@@ -14,11 +14,18 @@ kernel (B3, or B4 with ALiBi); with ``cfg.paged_multi_query`` an s-token
 window appends at each sequence's length and attends causally from true
 positions (B5/B6); otherwise a prompt is bulk-written into the
 identity-mapped pages and attends through the dispatcher (B2). Page writes
-are in place.
+are in place. An int8 pool (``dtype=torch.int8``) carries f32 scale pages
+beside the values: writes quantize per (token, kv head), the token step
+attends through B7 at s_q = 1, windows through B7/B8, and the bulk prefill
+quantizes the prompt into the pages while its attention stays on B2.
+
+``cfg.weight_dtype="int8"`` builds every attention and MLP projection and
+the LM head as an int8 kernel with per-output-channel scales
+(:class:`~merlin_tpu_torch.models.layers.DenseGeneral` ``weight_q8``);
+embeddings and norms stay full precision.
 
 The non-scanned stack is ported; ``scan_layers`` (with its flat paged pool,
-``layer_index``), ``remat``, int8 weights and int8 pages come with later
-slices and are refused.
+``layer_index``) and ``remat`` come with later slices and are refused.
 """
 
 from __future__ import annotations
@@ -98,21 +105,31 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
 
     ``layout="paged"``: per-layer head-packed ``k_pages``/``v_pages``
     (batch * pps, page_size, hkv * d) with pps = ceil(max_len / page_size);
-    ``page_tables`` (batch, pps) int32 start as the identity mapping
-    (sequence b owns pages [b * pps, (b + 1) * pps)), and the serving
-    engine hands in its own; ``lengths`` (batch,) int32 valid tokens per
-    sequence; ``index`` as above.
+    with ``dtype=torch.int8`` also ``k_scales``/``v_scales`` (batch * pps,
+    page_size, 128) f32, one scale per (token, kv head) at the strided lane
+    of ``paged_attention._scale_row``. ``page_tables`` (batch, pps) int32
+    start as the identity mapping (sequence b owns pages [b * pps,
+    (b + 1) * pps)), and the serving engine hands in its own; ``lengths``
+    (batch,) int32 valid tokens per sequence; ``index`` as above.
+
+    A dense int8 cache is refused: it has no scales (trap C10).
     """
     if layout == "paged":
-        if dtype == torch.int8:
-            raise NotImplementedError("not ported yet: int8 pages")
         pps = -(-max_len // page_size)
         total = batch * pps
         shape = (total, page_size, cfg.kv_heads * cfg.head_size)
-        layers = tuple(
-            {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(cfg.num_layers))
+
+        def layer():
+            out = {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+                   "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+            if dtype == torch.int8:
+                for key in ("k_scales", "v_scales"):
+                    out[key] = torch.zeros(
+                        (total, page_size, paged.LANES), dtype=torch.float32,
+                        device=device)
+            return out
+
+        layers = tuple(layer() for _ in range(cfg.num_layers))
         return {
             "layers": layers,
             "page_tables": torch.arange(total, dtype=torch.int32,
@@ -121,6 +138,10 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
                                    device=device),
             "index": 0,
         }
+    if dtype == torch.int8:
+        raise ValueError("an int8 KV cache needs layout='paged': the dense "
+                         "cache has no scales, and casting K/V to int8 "
+                         "without one loses them")
     shape = (batch, max_len, cfg.kv_heads, cfg.head_size)
     layers = tuple(
         {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -139,11 +160,12 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, hkv, d, e = cfg.num_heads, cfg.kv_heads, cfg.head_size, cfg.hidden_size
-        bias = cfg.attention_bias
-        self.q_proj = DenseGeneral(e, (h, d), use_bias=bias, dtype=cfg.dtype)
-        self.k_proj = DenseGeneral(e, (hkv, d), use_bias=bias, dtype=cfg.dtype)
-        self.v_proj = DenseGeneral(e, (hkv, d), use_bias=bias, dtype=cfg.dtype)
-        self.o_proj = DenseGeneral((h, d), e, use_bias=bias, dtype=cfg.dtype)
+        kw = dict(use_bias=cfg.attention_bias, dtype=cfg.dtype,
+                  weight_q8=cfg.weight_dtype == "int8")
+        self.q_proj = DenseGeneral(e, (h, d), **kw)
+        self.k_proj = DenseGeneral(e, (hkv, d), **kw)
+        self.v_proj = DenseGeneral(e, (hkv, d), **kw)
+        self.o_proj = DenseGeneral((h, d), e, **kw)
 
     def forward(self, x, positions, segment_ids, layer_cache, cache_aux):
         cfg = self.cfg
@@ -200,6 +222,9 @@ class Attention(nn.Module):
         tables, lengths = cache_aux["page_tables"], cache_aux["lengths"]
         kp, vp = layer_cache["k_pages"], layer_cache["v_pages"]
         s_q = q.shape[1]
+        if "k_scales" in layer_cache:
+            return self._paged_q8(q, k, v, segment_ids, slopes, layer_cache,
+                                  tables, lengths)
         if s_q == 1:
             paged.write_token_to_pages(kp, vp, k[:, 0], v[:, 0],
                                        positions=lengths, page_tables=tables)
@@ -228,6 +253,40 @@ class Attention(nn.Module):
             q, k, v, causal=True, segment_ids_q=segment_ids,
             segment_ids_kv=segment_ids, alibi_slopes=slopes)
 
+    def _paged_q8(self, q, k, v, segment_ids, slopes, layer_cache, tables,
+                  lengths):
+        """:meth:`_paged` over int8 pages and their scale pages
+        (``decoder.py:266-288``, ``:370-392``, ``:473-479``)."""
+        kp, ks = layer_cache["k_pages"], layer_cache["k_scales"]
+        vp, vs = layer_cache["v_pages"], layer_cache["v_scales"]
+        s_q = q.shape[1]
+        if s_q == 1:
+            paged.write_token_to_pages_q8(kp, ks, vp, vs, k[:, 0], v[:, 0],
+                                          positions=lengths,
+                                          page_tables=tables)
+            out = paged.paged_attention_dma_q8(q[:, 0], kp, ks, vp, vs,
+                                               lengths + 1, tables,
+                                               alibi_slopes=slopes)
+            return out[:, None]
+        if self.cfg.paged_multi_query:
+            paged.write_tokens_to_pages_q8(kp, ks, vp, vs, k, v,
+                                           start_positions=lengths,
+                                           page_tables=tables)
+            return paged.paged_window_attention_q8(
+                q, kp, ks, vp, vs, lengths + s_q, tables, alibi_slopes=slopes)
+        # prefill: quantize the prompt into the identity-mapped pages;
+        # attention is plain self-attention over the (unquantized) prompt
+        b, s = k.shape[:2]
+        rows = tables.shape[1] * kp.shape[1]
+        for pages, scales, new in ((kp, ks, k), (vp, vs, v)):
+            values, sc = paged.quantize_pages(new.reshape(b, s, -1),
+                                              self.cfg.head_size)
+            pages.view(b, rows, pages.shape[2])[:, :s] = values
+            scales.view(b, rows, scales.shape[2])[:, :s] = sc
+        return dispatch_attention(
+            q, k, v, causal=True, segment_ids_q=segment_ids,
+            segment_ids_kv=segment_ids, alibi_slopes=slopes)
+
 
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: DecoderConfig):
@@ -235,12 +294,14 @@ class DecoderBlock(nn.Module):
         self.cfg = cfg
         self.input_norm = cfg.norm_layer()
         self.attn = Attention(cfg)
+        q8 = cfg.weight_dtype == "int8"
         if cfg.mlp == "gated":
             self.mlp = GatedMLP(cfg.hidden_size, cfg.intermediate_size,
-                                dtype=cfg.dtype)
+                                dtype=cfg.dtype, weight_q8=q8)
         else:
             self.mlp = SimpleMLP(cfg.hidden_size, cfg.intermediate_size,
-                                 activation=cfg.mlp, dtype=cfg.dtype)
+                                 activation=cfg.mlp, dtype=cfg.dtype,
+                                 weight_q8=q8)
         if not cfg.parallel_block:
             self.post_attn_norm = cfg.norm_layer()
 
@@ -260,9 +321,12 @@ class CausalLM(nn.Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
         unported = [f for f in ("scan_layers", "remat") if getattr(cfg, f)]
-        if unported or cfg.weight_dtype != "bf16":
-            raise NotImplementedError(
-                f"not ported yet: {unported or ['weight_dtype=int8']}")
+        if unported:
+            raise NotImplementedError(f"not ported yet: {unported}")
+        if cfg.weight_dtype == "int8" and cfg.normhead:
+            # NormHead renormalizes its kernel every forward, which a static
+            # per-channel scale cannot represent (decoder.py:622-628)
+            raise ValueError("int8 weights: a NormHead stays full precision")
         self.cfg = cfg
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size,
                                   dtype=cfg.dtype)
@@ -280,7 +344,8 @@ class CausalLM(nn.Module):
             else:
                 self.lm_head = DenseGeneral(
                     cfg.hidden_size, cfg.vocab_size,
-                    use_bias=cfg.lm_head_bias, dtype=cfg.dtype)
+                    use_bias=cfg.lm_head_bias, dtype=cfg.dtype,
+                    weight_q8=cfg.weight_dtype == "int8")
 
     @property
     def blocks(self):

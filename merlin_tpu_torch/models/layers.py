@@ -4,8 +4,9 @@ Parameter names and layouts follow the flax modules exactly (``kernel`` in
 (in..., out...) order, ``scale``/``bias``/``embedding``), so a flax param
 tree maps onto a ``state_dict`` by joining its path with '.'
 (:mod:`merlin_tpu_torch.models.bridge`). Numerics: norms in float32,
-matmuls in the module's compute dtype with f32 accumulation, the result
-cast back to the compute dtype.
+matmuls in the module's compute dtype with an f32 result, to which the
+int8 scale and the bias are applied before ONE rounding to the compute
+dtype, as JAX's ``preferred_element_type=float32`` order does.
 
 Parameters start as N(0, 0.02) (norm scales 1, biases 0); real weights come
 from ``load_state_dict`` or :func:`~merlin_tpu_torch.models.bridge.init_params`.
@@ -63,17 +64,43 @@ class LayerNorm(nn.Module):
         return (norm * self.scale + self.bias).to(x.dtype)
 
 
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of 2-d operands in the compute dtype, with an f32 result
+    (products exact, f32 sums) and no rounding to the compute dtype."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.device.type == "cpu":
+        # the CPU build has no kernel for mm's out_dtype overload
+        return a.float() @ b.float()
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
 class DenseGeneral(nn.Module):
     """Dense layer contracting the trailing ``len(in_shape)`` axes of x with
-    a kernel of shape ``in_shape + features`` (the flax layout)."""
+    a kernel of shape ``in_shape + features`` (the flax layout).
+
+    ``weight_q8=True`` holds the kernel as int8 ``kernel_q8`` with a
+    per-output-channel f32 ``kernel_scale`` (weight-only quantization for
+    serving, ``merlin_tpu/models/layers.py:70-138``): y = (x @ q8) * scale
+    (+ bias), exactly x @ (q8 * scale), rounded once. Build the weights
+    with :func:`merlin_tpu_torch.models.convert.quantize_decoder_params_int8`.
+    """
 
     def __init__(self, in_shape: Shape, features: Shape, *,
-                 use_bias: bool = False, dtype: torch.dtype = torch.bfloat16):
+                 use_bias: bool = False, dtype: torch.dtype = torch.bfloat16,
+                 weight_q8: bool = False):
         super().__init__()
         self.in_shape = _tuple(in_shape)
         self.features = _tuple(features)
         self.dtype = dtype
-        self.kernel = normal_param(self.in_shape + self.features)
+        self.weight_q8 = weight_q8
+        if weight_q8:
+            self.kernel_q8 = nn.Parameter(
+                torch.zeros(self.in_shape + self.features, dtype=torch.int8),
+                requires_grad=False)
+            self.kernel_scale = nn.Parameter(torch.ones(self.features))
+        else:
+            self.kernel = normal_param(self.in_shape + self.features)
         self.bias = (nn.Parameter(torch.zeros(self.features))
                      if use_bias else None)
 
@@ -83,9 +110,12 @@ class DenseGeneral(nn.Module):
         k_in = math.prod(self.in_shape)
         k_out = math.prod(self.features)
         x2 = x.to(self.dtype).reshape(-1, k_in)
-        out = x2 @ self.kernel.to(self.dtype).reshape(k_in, k_out)
+        kernel = self.kernel_q8 if self.weight_q8 else self.kernel
+        out = _matmul_f32(x2, kernel.to(self.dtype).reshape(k_in, k_out))
+        if self.weight_q8:
+            out = out * self.kernel_scale.float().reshape(k_out)
         if self.bias is not None:
-            out = out.float() + self.bias.float().reshape(k_out)
+            out = out + self.bias.float().reshape(k_out)
         return out.to(self.dtype).reshape(batch + self.features)
 
 
@@ -189,11 +219,12 @@ class GatedMLP(nn.Module):
     """SiLU-gated MLP (Llama/Baichuan): down(silu(gate(x)) * up(x))."""
 
     def __init__(self, dim: int, intermediate: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, weight_q8: bool = False):
         super().__init__()
-        self.gate_proj = DenseGeneral(dim, intermediate, dtype=dtype)
-        self.up_proj = DenseGeneral(dim, intermediate, dtype=dtype)
-        self.down_proj = DenseGeneral(intermediate, dim, dtype=dtype)
+        kw = dict(dtype=dtype, weight_q8=weight_q8)
+        self.gate_proj = DenseGeneral(dim, intermediate, **kw)
+        self.up_proj = DenseGeneral(dim, intermediate, **kw)
+        self.down_proj = DenseGeneral(intermediate, dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -205,13 +236,14 @@ class SimpleMLP(nn.Module):
 
     def __init__(self, dim: int, intermediate: int,
                  activation: str = "gelu_new",
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, weight_q8: bool = False):
         super().__init__()
         if activation not in ("gelu_new", "gelu", "quick_gelu", "relu"):
             raise ValueError(f"unknown activation {activation}")
         self.activation = activation
-        self.fc1 = DenseGeneral(dim, intermediate, use_bias=True, dtype=dtype)
-        self.fc2 = DenseGeneral(intermediate, dim, use_bias=True, dtype=dtype)
+        kw = dict(use_bias=True, dtype=dtype, weight_q8=weight_q8)
+        self.fc1 = DenseGeneral(dim, intermediate, **kw)
+        self.fc2 = DenseGeneral(intermediate, dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x)

@@ -1,5 +1,6 @@
 """Paged KV cache: page allocator, page writes and paged attention
-(counterpart of ``merlin_tpu/ops/paged_attention.py``, bf16/f32 pages).
+(counterpart of ``merlin_tpu/ops/paged_attention.py``), over float pages
+and over int8 pages with per-(token, kv head) f32 scales.
 
 Each sequence's K/V lives in fixed-size pages of one shared pool; a page
 table maps its logical blocks to physical pages. Pages are HEAD-PACKED,
@@ -18,6 +19,21 @@ Four TPU kernels sit on the serving path; two CUDA kernels
     :func:`paged_attention_multi_blocked` (B6, 64-row tiles, for
     chunked-prefill windows). :func:`paged_window_attention` picks one from
     the window's shape.
+
+The same two CUDA kernels read int8 pages (their scale pages ``(P, page,
+128)`` f32 in the strided layout of :func:`_scale_row`) for the three int8
+TPU kernels:
+
+  * int8 paged decode: :func:`paged_attention_dma_q8` (B7 at s_q = 1, what
+    the decoder's token step calls) and :func:`paged_attention_quantized`
+    (B9);
+  * int8 paged window: :func:`paged_attention_dma_multi_q8` (B7 windows,
+    split-key 16-row tile) and :func:`paged_attention_multi_blocked_q8` (B8,
+    64-row tiles). :func:`paged_window_attention_q8` picks one.
+
+Their plain versions (:func:`paged_attention_q8_plain`,
+:func:`paged_attention_multi_q8_plain`) copy the JAX decoder's CPU route:
+:func:`dequantize_pages` to bf16, then the float plain version.
 
 Each wrapper computes its plain version (:func:`paged_attention_plain`,
 :func:`paged_attention_multi_plain`, copies of the JAX references) for CPU
@@ -109,6 +125,9 @@ class PagePool:
 # Page writes
 # ---------------------------------------------------------------------------
 
+LANES = 128   # scale-row width of int8 pages
+
+
 def _page_slots(positions: torch.Tensor, page_tables: torch.Tensor,
                 page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(physical page, offset) of each position (b, n) through its row of
@@ -153,6 +172,84 @@ def write_tokens_to_pages(k_pages, v_pages, k_new, v_new, *,
     k_pages[phys, offset] = k_new.reshape(b * s_q, -1).to(k_pages.dtype)
     v_pages[phys, offset] = v_new.reshape(b * s_q, -1).to(v_pages.dtype)
     return k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# int8 pages: quantization and page writes
+# ---------------------------------------------------------------------------
+
+def _scale_row(sc: torch.Tensor, lanes: int) -> torch.Tensor:
+    """(..., hkv) per-head scales -> (..., lanes) STRIDED scale row: head i's
+    scale at lane i * max(lanes // hkv, 1), zeros elsewhere (lane blocks
+    stay head blocks, so scale pages shard like the value pages)."""
+    hkv = sc.shape[-1]
+    stride = max(lanes // hkv, 1)
+    out = sc.new_zeros(sc.shape[:-1] + (lanes,))
+    out[..., 0:hkv * stride:stride] = sc
+    return out
+
+
+def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., d) -> (int8 values, (...) f32 scales): per-row absmax / 127,
+    floored at 1e-8, values rounded half to even and clipped to +-127."""
+    x = x.float()
+    sc = torch.clamp(x.abs().amax(-1) / 127.0, min=1e-8)
+    q8 = torch.clamp(torch.round(x / sc[..., None]), -127, 127)
+    return q8.to(torch.int8), sc
+
+
+def quantize_pages(pages: torch.Tensor, head_dim: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(P, page, hkv*d) float -> (int8 values of the same shape, scales
+    (P, page, 128) f32): one scale per (token, kv head), strided lanes."""
+    p_, page, packed = pages.shape
+    hkv = packed // head_dim
+    values, sc = _quantize_rows(pages.reshape(p_, page, hkv, head_dim))
+    return values.reshape(p_, page, packed), _scale_row(sc, LANES)
+
+
+def dequantize_pages(values: torch.Tensor, scales: torch.Tensor,
+                     head_dim: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 pages and their scale pages -> (P, page, hkv*d) in ``dtype``
+    (bf16 by default, whatever the model's dtype, as in JAX)."""
+    p_, page, packed = values.shape
+    hkv = packed // head_dim
+    stride = max(scales.shape[-1] // hkv, 1)
+    split = values.float().reshape(p_, page, hkv, head_dim)
+    sc = scales[..., 0:hkv * stride:stride]
+    return (split * sc[..., None]).to(dtype).reshape(p_, page, packed)
+
+
+def write_token_to_pages_q8(k_pages, k_scales, v_pages, v_scales, k_new,
+                            v_new, *, positions, page_tables):
+    """:func:`write_token_to_pages` over int8 pages, IN PLACE: each token's
+    per-head rows are quantized on write, their scales land in the strided
+    scale row. k/v_new: (b, hkv, d). Returns the four arrays."""
+    phys, offset = _page_slots(positions[:, None], page_tables,
+                               k_pages.shape[1])
+    for pages, scales, new in ((k_pages, k_scales, k_new),
+                               (v_pages, v_scales, v_new)):
+        q8, sc = _quantize_rows(new)
+        pages[phys, offset] = q8.reshape(q8.shape[0], -1)
+        scales[phys, offset] = _scale_row(sc, scales.shape[-1])
+    return k_pages, k_scales, v_pages, v_scales
+
+
+def write_tokens_to_pages_q8(k_pages, k_scales, v_pages, v_scales, k_new,
+                             v_new, *, start_positions, page_tables):
+    """:func:`write_tokens_to_pages` over int8 pages, IN PLACE. k/v_new:
+    (b, s_q, hkv, d). Returns the four arrays."""
+    b, s_q, hkv = k_new.shape[:3]
+    positions = start_positions.long()[:, None] + torch.arange(
+        s_q, device=start_positions.device)[None]
+    phys, offset = _page_slots(positions, page_tables, k_pages.shape[1])
+    for pages, scales, new in ((k_pages, k_scales, k_new),
+                               (v_pages, v_scales, v_new)):
+        q8, sc = _quantize_rows(new)
+        pages[phys, offset] = q8.reshape(b * s_q, -1)
+        scales[phys, offset] = _scale_row(sc.reshape(b * s_q, hkv),
+                                          scales.shape[-1])
+    return k_pages, k_scales, v_pages, v_scales
 
 
 # ---------------------------------------------------------------------------
@@ -222,22 +319,56 @@ def paged_attention_multi_plain(q, k_pages, v_pages, lengths, page_tables,
     return out.reshape(b, s_q, h, d).to(q.dtype)
 
 
+def paged_attention_q8_plain(q, k_values, k_scales, v_values, v_scales,
+                             lengths, page_tables, *, alibi_slopes=None,
+                             scale=None):
+    """:func:`paged_attention_plain` over int8 pages, as the JAX decoder's
+    CPU route computes it (``decoder.py:300-306``): both pools dequantized
+    to bf16 first."""
+    d = q.shape[-1]
+    return paged_attention_plain(
+        q, dequantize_pages(k_values, k_scales, d),
+        dequantize_pages(v_values, v_scales, d), lengths, page_tables,
+        alibi_slopes=alibi_slopes, scale=scale)
+
+
+def paged_attention_multi_q8_plain(q, k_values, k_scales, v_values,
+                                   v_scales, lengths, page_tables, *,
+                                   alibi_slopes=None, scale=None):
+    """:func:`paged_attention_multi_plain` over int8 pages, as the JAX
+    decoder's CPU route (``decoder.py:400-408``): dequantize to bf16 first."""
+    d = q.shape[-1]
+    return paged_attention_multi_plain(
+        q, dequantize_pages(k_values, k_scales, d),
+        dequantize_pages(v_values, v_scales, d), lengths, page_tables,
+        alibi_slopes=alibi_slopes, scale=scale)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
 def _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
-                 alibi_slopes) -> int:
+                 alibi_slopes, k_scales=None, v_scales=None) -> int:
     """Raise unless the inputs are what the paged kernels read; returns
-    hkv. q (b, [s_q,] h, d) and the (P, page, hkv*d) pages are contiguous
-    bf16 on one CUDA device with d % 8 == 0 and d <= 128; lengths (b,) and
-    page_tables (b, pps) contiguous int32; slopes (h,) contiguous f32."""
-    for t, tn in ((q, "q"), (k_pages, "k_pages"), (v_pages, "v_pages")):
+    hkv. q (b, [s_q,] h, d) bf16 and the (P, page, hkv*d) pages, bf16 or,
+    with scales, int8, contiguous and 16-byte aligned on one CUDA device,
+    with d % 8 == 0 and d <= 128; int8 pages' scales (P, page, S)
+    contiguous f32 with hkv <= S; lengths (b,) and page_tables (b, pps)
+    contiguous int32; slopes (h,) contiguous f32."""
+    q8 = k_scales is not None
+    page_dtype = torch.int8 if q8 else torch.bfloat16
+    tensors = [(q, "q", torch.bfloat16), (k_pages, "k_pages", page_dtype),
+               (v_pages, "v_pages", page_dtype)]
+    if q8:
+        tensors += [(k_scales, "k_scales", torch.float32),
+                    (v_scales, "v_scales", torch.float32)]
+    for t, tn, dtype in tensors:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name}: {tn} must be on q's CUDA device, "
                              f"got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: {tn} must be bfloat16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {tn} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {tn} must be contiguous and 16-byte "
                              "aligned")
@@ -264,49 +395,75 @@ def _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
             or not alibi_slopes.is_contiguous()):
         raise ValueError(f"{name}: alibi_slopes must be contiguous float32 "
                          f"({h},) on {q.device}")
-    return k_pages.shape[2] // d
+    hkv = k_pages.shape[2] // d
+    if q8 and (k_scales.dim() != 3 or k_scales.shape != v_scales.shape
+               or k_scales.shape[:2] != k_pages.shape[:2]
+               or hkv > k_scales.shape[2]):
+        raise ValueError(f"{name}: scales {tuple(k_scales.shape)} / "
+                         f"{tuple(v_scales.shape)} must be (P, page, S) with "
+                         f"S >= hkv = {hkv} for pages {tuple(k_pages.shape)}")
+    return hkv
 
 
 def _launch_decode(name, q, k_pages, v_pages, lengths, page_tables,
-                   alibi_slopes, scale):
+                   alibi_slopes, scale, k_scales=None, v_scales=None):
+    """One query token per sequence: bf16 pages, or int8 pages with their
+    scale pages."""
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (b, h, d), got {tuple(q.shape)}")
     hkv = _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
-                       alibi_slopes)
+                       alibi_slopes, k_scales, v_scales)
     b, h, d = q.shape
     if h // hkv > 8:
         raise ValueError(f"{name}: at most 8 query heads per kv head, got "
                          f"{h // hkv}")
     out = torch.empty_like(q)
-    code = _build.lib().merlin_paged_decode_bf16(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), page_tables.data_ptr(),
-        alibi_slopes.data_ptr() if alibi_slopes is not None else None,
-        out.data_ptr(), b, h, hkv, d, k_pages.shape[1],
-        page_tables.shape[1], float(scale if scale is not None
-                                    else d ** -0.5),
-        _build.stream_handle(q.device))
+    common = (lengths.data_ptr(), page_tables.data_ptr(),
+              alibi_slopes.data_ptr() if alibi_slopes is not None else None,
+              out.data_ptr(), b, h, hkv, d, k_pages.shape[1],
+              page_tables.shape[1])
+    scale = float(scale if scale is not None else d ** -0.5)
+    stream = _build.stream_handle(q.device)
+    if k_scales is None:
+        code = _build.lib().merlin_paged_decode_bf16(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *common,
+            scale, stream)
+    else:
+        code = _build.lib().merlin_paged_decode_q8(
+            q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
+            v_pages.data_ptr(), v_scales.data_ptr(), *common,
+            k_scales.shape[2], scale, stream)
     _build.check(code, name)
     return out
 
 
 def _launch_window(name, q, k_pages, v_pages, lengths, page_tables,
-                   alibi_slopes, scale, split_keys):
+                   alibi_slopes, scale, split_keys, k_scales=None,
+                   v_scales=None):
+    """An s_q-token window per sequence: bf16 pages, or int8 pages with
+    their scale pages."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (b, s_q, h, d), got "
                          f"{tuple(q.shape)}")
     hkv = _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
-                       alibi_slopes)
+                       alibi_slopes, k_scales, v_scales)
     b, s_q, h, d = q.shape
     out = torch.empty_like(q)
-    code = _build.lib().merlin_paged_window_bf16(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), page_tables.data_ptr(),
-        alibi_slopes.data_ptr() if alibi_slopes is not None else None,
-        out.data_ptr(), b, s_q, h, hkv, d, k_pages.shape[1],
-        page_tables.shape[1], float(scale if scale is not None
-                                    else d ** -0.5), int(split_keys),
-        _build.stream_handle(q.device))
+    common = (lengths.data_ptr(), page_tables.data_ptr(),
+              alibi_slopes.data_ptr() if alibi_slopes is not None else None,
+              out.data_ptr(), b, s_q, h, hkv, d, k_pages.shape[1],
+              page_tables.shape[1])
+    scale = float(scale if scale is not None else d ** -0.5)
+    stream = _build.stream_handle(q.device)
+    if k_scales is None:
+        code = _build.lib().merlin_paged_window_bf16(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *common,
+            scale, int(split_keys), stream)
+    else:
+        code = _build.lib().merlin_paged_window_q8(
+            q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
+            v_pages.data_ptr(), v_scales.data_ptr(), *common,
+            k_scales.shape[2], scale, int(split_keys), stream)
     _build.check(code, name)
     return out
 
@@ -391,3 +548,90 @@ def paged_window_attention(q, k_pages, v_pages, lengths, page_tables, *,
           else paged_attention_multi_blocked)
     return fn(q, k_pages, v_pages, lengths, page_tables,
               alibi_slopes=alibi_slopes)
+
+
+def paged_attention_dma_q8(q, k_values, k_scales, v_values, v_scales,
+                           lengths, page_tables, *, alibi_slopes=None,
+                           scale: Optional[float] = None):
+    """B7 at s_q = 1: decode-step attention over int8 pages (any grouping,
+    optional ALiBi), the decoder's token step. q (b, h, d); k/v_values
+    (P, page, hkv*d) int8; k/v_scales (P, page, S) f32, head i at lane
+    i * (S // hkv). Returns (b, h, d)."""
+    if q.device.type == "cpu":
+        return paged_attention_q8_plain(
+            q, k_values, k_scales, v_values, v_scales, lengths, page_tables,
+            alibi_slopes=alibi_slopes, scale=scale)
+    out = _launch_decode("paged_attention_dma_q8", q, k_values, v_values,
+                         lengths, page_tables, alibi_slopes, scale,
+                         k_scales, v_scales)
+    paged_attention_dma_q8.launches += 1
+    return out
+
+
+def paged_attention_quantized(q, k_values, k_scales, v_values, v_scales,
+                              lengths, page_tables, *, alibi_slopes=None,
+                              scale: Optional[float] = None):
+    """B9: single-token decode over int8 pages, the contract of
+    :func:`paged_attention_dma_q8` (the same CUDA kernel). Returns
+    (b, h, d)."""
+    if q.device.type == "cpu":
+        return paged_attention_q8_plain(
+            q, k_values, k_scales, v_values, v_scales, lengths, page_tables,
+            alibi_slopes=alibi_slopes, scale=scale)
+    out = _launch_decode("paged_attention_quantized", q, k_values, v_values,
+                         lengths, page_tables, alibi_slopes, scale,
+                         k_scales, v_scales)
+    paged_attention_quantized.launches += 1
+    return out
+
+
+def paged_attention_dma_multi_q8(q, k_values, k_scales, v_values, v_scales,
+                                 lengths, page_tables, *, alibi_slopes=None,
+                                 scale: Optional[float] = None):
+    """B7: an s_q-token window per sequence over int8 pages (the contract
+    of :func:`paged_attention_multi_q8_plain`), in B5's split-key 16-row
+    tiles. Returns (b, s_q, h, d)."""
+    if q.device.type == "cpu":
+        return paged_attention_multi_q8_plain(
+            q, k_values, k_scales, v_values, v_scales, lengths, page_tables,
+            alibi_slopes=alibi_slopes, scale=scale)
+    out = _launch_window("paged_attention_dma_multi_q8", q, k_values,
+                         v_values, lengths, page_tables, alibi_slopes, scale,
+                         True, k_scales, v_scales)
+    paged_attention_dma_multi_q8.launches += 1
+    return out
+
+
+def paged_attention_multi_blocked_q8(q, k_values, k_scales, v_values,
+                                     v_scales, lengths, page_tables, *,
+                                     alibi_slopes=None,
+                                     scale: Optional[float] = None):
+    """B8: B7's window contract in B6's 64-row tiles, for chunked-prefill
+    windows over int8 pages. Returns (b, s_q, h, d)."""
+    if q.device.type == "cpu":
+        return paged_attention_multi_q8_plain(
+            q, k_values, k_scales, v_values, v_scales, lengths, page_tables,
+            alibi_slopes=alibi_slopes, scale=scale)
+    out = _launch_window("paged_attention_multi_blocked_q8", q, k_values,
+                         v_values, lengths, page_tables, alibi_slopes, scale,
+                         False, k_scales, v_scales)
+    paged_attention_multi_blocked_q8.launches += 1
+    return out
+
+
+paged_attention_dma_q8.launches = 0
+paged_attention_quantized.launches = 0
+paged_attention_dma_multi_q8.launches = 0
+paged_attention_multi_blocked_q8.launches = 0
+
+
+def paged_window_attention_q8(q, k_values, k_scales, v_values, v_scales,
+                              lengths, page_tables, *, alibi_slopes=None):
+    """:func:`paged_window_attention` over int8 pages: up to
+    :data:`WINDOW_SMALL_ROWS` query rows per kv head to B7, more to B8."""
+    group = q.shape[2] // (k_values.shape[2] // q.shape[3])
+    fn = (paged_attention_dma_multi_q8
+          if group * q.shape[1] <= WINDOW_SMALL_ROWS
+          else paged_attention_multi_blocked_q8)
+    return fn(q, k_values, k_scales, v_values, v_scales, lengths,
+              page_tables, alibi_slopes=alibi_slopes)

@@ -23,6 +23,10 @@ B6), interleaved with decode under a per-step window budget.
 Decode steps attend through the paged decode kernel (B3, or B4 with
 ALiBi); ``spec_draft=k`` replaces them with prompt-lookup verify windows
 of k + 1 tokens (paged window kernel B5) that commit the accepted prefix.
+``cache_dtype=torch.int8`` keeps the pool as int8 pages with f32 scale
+pages (half the bytes of bf16 pages): decode then attends through B7 at
+s_q = 1, verify windows through B7 and prefill windows through B8, and the
+admission scatter moves the scale pages with the values.
 
 What differs from the JAX engine: the model holds its weights (there is no
 ``params`` argument); ``jax.jit`` and ``lax.scan`` become eager calls and
@@ -30,8 +34,7 @@ Python loops; page writes and the admission scatter update the pool in
 place; random sampling draws from one ``torch.Generator`` seeded from
 ``rng_seed`` (JAX folds the request id into a key), so sampled tokens
 differ from JAX's while greedy ones agree. Left out: ``mesh`` and
-``param_shardings`` (with the parallelism slice) and int8 pages
-(``cache_dtype=torch.int8`` raises).
+``param_shardings`` (with the parallelism slice).
 """
 
 from __future__ import annotations
@@ -113,8 +116,6 @@ class ServingEngine:
                  prefill_chunk: int = 0, prefill_windows_per_step: int = 4,
                  prefill_chunk_min: int = 0,
                  device: Union[str, torch.device] = "cuda"):
-        if cache_dtype == torch.int8:
-            raise NotImplementedError("not ported yet: int8 pages")
         self.device = torch.device(device)
         # speculative windows: each step, every active slot proposes k
         # draft tokens from its own history (n-gram continuation) and one
@@ -237,9 +238,9 @@ class ServingEngine:
         return next_logits, new_cache, length
 
     def _insert(self, small_layers, phys, slot, small_lengths):
-        """Scatter one prefilled sequence's pages into pool pages ``phys``
-        (arbitrary, not contiguous); each head-packed page is one row
-        block. In place."""
+        """Scatter one prefilled sequence's pages (and, for an int8 pool,
+        its scale pages) into pool pages ``phys`` (arbitrary, not
+        contiguous); each head-packed page is one row block. In place."""
         for big, small in zip(self.cache["layers"], small_layers):
             for key in big:
                 big[key][phys] = small[key].to(big[key].dtype)

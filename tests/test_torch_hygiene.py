@@ -2,7 +2,8 @@
 
   * nothing imports jax, flax, optax or merlin_tpu;
   * the entry points default to the card (``device="cuda"``);
-  * the decoder refuses only the options still to be ported;
+  * the decoder refuses only the options still to be ported, and builds
+    with int8 weights;
   * a kernel wrapper, or the attention dispatcher, given a tensor that is
     not on the CPU never reaches the plain version: read from its code (the
     CPU test has no card), and shown at run time with tensors on the meta
@@ -69,7 +70,11 @@ def test_entry_points_default_to_the_card(fn):
     (pa.paged_attention_dma, "paged_attention_plain"),
     (pa.paged_attention, "paged_attention_plain"),
     (pa.paged_attention_dma_multi, "paged_attention_multi_plain"),
-    (pa.paged_attention_multi_blocked, "paged_attention_multi_plain")])
+    (pa.paged_attention_multi_blocked, "paged_attention_multi_plain"),
+    (pa.paged_attention_dma_q8, "paged_attention_q8_plain"),
+    (pa.paged_attention_quantized, "paged_attention_q8_plain"),
+    (pa.paged_attention_dma_multi_q8, "paged_attention_multi_q8_plain"),
+    (pa.paged_attention_multi_blocked_q8, "paged_attention_multi_q8_plain")])
 def test_wrapper_reaches_plain_only_for_cpu_tensors(wrapper, plain):
     """The plain version is called in exactly one place: the body of the
     wrapper's first statement, ``if q.device.type == "cpu": return ...``.
@@ -136,14 +141,18 @@ def test_kernel_sources_are_in_the_tree():
 
 PAGED_WRAPPERS = (pa.paged_attention_dma, pa.paged_attention,
                   pa.paged_attention_dma_multi,
-                  pa.paged_attention_multi_blocked)
+                  pa.paged_attention_multi_blocked,
+                  pa.paged_attention_dma_q8, pa.paged_attention_quantized,
+                  pa.paged_attention_dma_multi_q8,
+                  pa.paged_attention_multi_blocked_q8)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_paged_wrappers_refuse_non_cpu_tensors(dtype):
-    """Meta tensors stand in for CUDA ones: each paged wrapper, and the
-    window router, refuses them before any launch, whatever the dtype."""
+    """Meta tensors stand in for CUDA ones: each paged wrapper, bf16 and
+    int8 pages alike, and the window routers, refuse them before any
+    launch, whatever q's dtype."""
     pages = torch.empty((9, 16, 4 * 64), dtype=dtype, device="meta")
     lengths = torch.empty((2,), dtype=torch.int32, device="meta")
     tables = torch.empty((2, 4), dtype=torch.int32, device="meta")
@@ -158,6 +167,14 @@ def test_paged_wrappers_refuse_non_cpu_tensors(dtype):
                                                       lengths, tables),
              lambda: pa.paged_window_attention(qw, pages, pages, lengths,
                                                tables)]
+    q8 = (torch.empty((9, 16, 4 * 64), dtype=torch.int8, device="meta"),
+          torch.empty((9, 16, 128), dtype=torch.float32, device="meta"))
+    q8_pages = (q8[0], q8[1], q8[0], q8[1], lengths, tables)
+    calls += [lambda: pa.paged_attention_dma_q8(q1, *q8_pages),
+              lambda: pa.paged_attention_quantized(q1, *q8_pages),
+              lambda: pa.paged_attention_dma_multi_q8(qw, *q8_pages),
+              lambda: pa.paged_attention_multi_blocked_q8(qw, *q8_pages),
+              lambda: pa.paged_window_attention_q8(qw, *q8_pages)]
     for call in calls:
         before = [w.launches for w in PAGED_WRAPPERS]
         with pytest.raises(ValueError, match="CUDA"):
@@ -169,7 +186,7 @@ def test_paged_wrappers_refuse_non_cpu_tensors(dtype):
     (dict(paged_multi_query=True), False),
     (dict(scan_layers=True), True),
     (dict(remat=True), True),
-    (dict(weight_dtype="int8"), True)],
+    (dict(weight_dtype="int8"), False)],
     ids=["paged_multi_query", "scan_layers", "remat", "int8_weights"])
 def test_decoder_refuses_only_unported_options(option, refused):
     cfg = tiny(**option)
@@ -177,4 +194,7 @@ def test_decoder_refuses_only_unported_options(option, refused):
         with pytest.raises(NotImplementedError, match="not ported"):
             CausalLM(cfg)
     else:
-        assert CausalLM(cfg).cfg.paged_multi_query
+        model = CausalLM(cfg)
+        assert model.cfg == cfg
+        if cfg.weight_dtype == "int8":
+            assert model.lm_head.kernel_q8.dtype == torch.int8

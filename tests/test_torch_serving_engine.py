@@ -9,8 +9,9 @@ pages left. Everything runs in f32 (trap C6: bf16 rounding flips near-tied
 argmaxes on random weights). The cases follow ``tests/test_serving_engine.py``
 for one device and a float cache: ``chunk_steps`` 1 and 8, chunked prefill,
 hybrid routing, preemption, more requests than slots, interleaving, an
-oversized prompt, ``fail_all``, ``close()`` and an ALiBi model; the
-speculative cases are in ``test_torch_engine_speculative.py``. Also here:
+oversized prompt, ``fail_all``, ``close()``, an ALiBi model and an int8
+pool; the speculative cases are in ``test_torch_engine_speculative.py``
+and more int8 ones in ``test_torch_int8_serving.py``. Also here:
 ``Generator(kv_layout="paged")`` against JAX's.
 """
 
@@ -236,9 +237,16 @@ def test_multi_query_model_shares_parameters(rope):
     assert all(a is b for a, b in pairs)
 
 
-def test_engine_refuses_int8_pages(rope):
-    with pytest.raises(NotImplementedError, match="int8"):
-        ServingEngine(rope[2], cache_dtype=torch.int8, device="cpu")
+def test_engine_int8_pages_match_jax(rope):
+    """An int8 pool (f32 scale pages beside the values) serves the JAX
+    engine's tokens; the other int8 cases are in test_torch_int8_serving.py."""
+    jmodel, params, tmodel = rope
+    want = _serve(JServingEngine(jmodel, params, cache_dtype=jnp.int8,
+                                 **BASE), PROMPTS, 6)
+    engine = ServingEngine(tmodel, cache_dtype=torch.int8, device="cpu",
+                           **BASE)
+    assert engine.cache["layers"][0]["k_scales"].dtype == torch.float32
+    assert _serve(engine, PROMPTS, 6) == want
 
 
 @pytest.mark.parametrize("models", ["rope", "alibi"])
