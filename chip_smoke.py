@@ -40,9 +40,35 @@ the LM quantized to int8) and of Baichuan-13B:
                   model, and a request's tokens read after another
                   request's prompt must fail that check. Prints tokens/s,
                   per-request TTFT and the KV pool's bytes.
+  7. backward   - the training kernels against their plain versions on the
+                  card, each fed its forward kernel's out and LSE as on the
+                  path: B2 then B10 (dq) and B11 (dk, dv) at the decoder's
+                  (1, 2048, 32, 128) causal with a padded tail, GQA 8/2 +
+                  ALiBi and non-causal; B12 (one-pass forward with its LSE)
+                  then B13 (its backward) at the tower's (8, 1025, 16, 64);
+                  the SDPA backward yardstick as the median of 5 runs; a
+                  dropped last key tile (dq) and last query tile (dk/dv)
+                  must fail;
+                  the gap of trap C13 (the bf16 cotangent of DenseGeneral's
+                  backward) at a Vicuna MLP projection;
+  8. T0         - a narrow MMGPT takes one training forward and backward on
+                  the card (B2, B10-B13) and on the CPU (plain path), both
+                  bf16 from the same f32 weights: loss, grad norm and every
+                  parameter's gradient must agree;
+  9. T1         - ``Trainer.train`` runs pretrain.sh's recipe (nothing
+                  frozen, LLRD, remat, cosine 5e-5, AdamW b2 0.95, wd 0.05,
+                  clip 1.0, ctx 2048) on CLIP ViT-L/14-448 + Vicuna-7B width
+                  with the LM cut to 8 layers (f32 AdamW over 32 needs ~108
+                  GB), accum 2, 4 steps: the first loss near ln(vocab), step
+                  2 equal to step 1 (lr 0 at count 0), step 4 below step 2,
+                  exact launch counts; then one more step under
+                  ``torch.profiler`` for the card's time per kernel family;
+ 10. T2         - the same at all 32 LM layers with the LM frozen but its
+                  new-token embedding rows (2 steps): the LM stays
+                  bit-identical but those rows, the tower and projector move.
 
-Prints the serving readings and the kernel table as JSON lines before the
-last, and as the last
+Prints the serving and training readings and the kernel table as JSON
+lines before the last, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs a CUDA card; exits 2 without one.
 
@@ -52,9 +78,11 @@ that line. Needs a CUDA card; exits 2 without one.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -101,6 +129,11 @@ PAGED_REPLACES = {"B3": "merlin_tpu/ops/paged_attention.py:365",
                   "B7w": "merlin_tpu/ops/paged_attention.py:1172",
                   "B8": "merlin_tpu/ops/paged_attention.py:916",
                   "B9": "merlin_tpu/ops/paged_attention.py:1353"}
+FLASH_BWD_SOURCE = "merlin_tpu_torch/csrc/flash_attention_bwd.cu"
+B10_REPLACES = "merlin_tpu/ops/flash_attention.py:365"
+B11_REPLACES = "merlin_tpu/ops/flash_attention.py:398"
+B12_REPLACES = "merlin_tpu/ops/onepass_attention.py:254"
+B13_REPLACES = "merlin_tpu/ops/onepass_attention.py:407"
 
 
 def log(msg: str) -> None:
@@ -145,6 +178,19 @@ def out_err(got, want):
     diff = (got.float() - want.float()).abs()
     rel = diff.amax(-1) / want.float().abs().amax(-1).clamp_min(1e-30)
     return diff.max().item(), rel.max().item()
+
+
+def grad_err(got, want):
+    """``out_err`` for a gradient: each row's error as a share of its max
+    |plain|, with that max floored at 2^-10 of the tensor's largest: a row
+    whose gradient cancels to ~0 (query 0 sees only key 0, so ds = p (dp -
+    di) is 0 up to the f32 summation order of dp and di) has no scale of
+    its own."""
+    diff = (got.float() - want.float()).abs()
+    row = want.float().abs().amax(-1)
+    floor = row.max().clamp_min(1e-30) * 2.0 ** -10
+    rel = (diff.amax(-1) / row.clamp_min(floor)).max()
+    return diff.max().item(), rel.item()
 
 
 def planted_fault(tag, rel):
@@ -264,6 +310,229 @@ def check_b2(gen):
                 source=B2_SOURCE, replaces=B2_REPLACES,
                 max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=lib, shape=list(shape))
+
+
+def time_grad_ms(out, inputs, do, runs: int = 5):
+    """Device time of one backward of ``out`` (a PyTorch library call's
+    graph, kept alive) into ``inputs``: the median over ``runs`` runs of
+    ``time_ms`` (20 calls each after 10 warm-up calls), and the runs'
+    sorted times. One run of 10 calls after 3 read 2-4x apart from one
+    process to the next."""
+    def grad():
+        return torch.autograd.grad(out, inputs, do, retain_graph=True)
+
+    times = sorted(time_ms(grad, iters=20, warmup=10) for _ in range(runs))
+    return times[len(times) // 2], times
+
+
+def visible_pairs(sq, skv, causal, seg_q=None, seg_kv=None) -> int:
+    """(query, key) pairs the mask lets through, over one batch row."""
+    qi = torch.arange(sq, device="cuda")[:, None]
+    ki = torch.arange(skv, device="cuda")[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= ki <= qi
+    if seg_q is not None:
+        mask &= seg_q[0][:, None] == seg_kv[0][None, :]
+    return int(mask.sum())
+
+
+def check_flash_bwd(gen, b2_row):
+    """B10 (dq) and B11 (dk, dv) against their plain versions, fed the out
+    and LSE of B2 run on the same inputs (B2 is held to its plain version
+    there too; its largest error joins ``b2_row``): the decoder's training
+    shape (1, 2048, 32, 128) causal with segment ids from an attention mask
+    whose last 300 positions are padding, a GQA 8/2 + ALiBi case with a
+    ragged length, and a non-causal case. Each is held
+    per row, as a share of the row's max |plain|, to ``OUT_RTOL``; a
+    dropped last key tile (dq) and a dropped last query tile (dk/dv) must
+    fail the check. Returns the B10 and B11 rows."""
+    from merlin_tpu_torch.ops import flash_attention as fa
+
+    errs = {"B2": [], "B10": [], "B11": []}
+
+    def inputs(b, s, h, hkv, d):
+        q = torch.randn((b, s, h, d), generator=gen, device="cuda")
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+                for _ in range(2))
+        do = torch.randn((b, s, h, d), generator=gen, device="cuda")
+        return [t.to(torch.bfloat16) for t in (q, k, v, do)]
+
+    def compare(tag, q, k, v, do, **kw):
+        # B2 first, held to its plain version; its out and LSE then feed
+        # B10, B11 and their plain versions, as in FlashAttentionFn
+        out, lse = fa.flash_attention(q, k, v, **kw)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, rel = out_err(out, want_out)
+        lerr = (lse - want_lse).abs().max().item()
+        log(f"B2 {tag}: max_abs_err {err:.3e}, row error {rel:.3e} (tol "
+            f"{OUT_RTOL:.3e}), lse {lerr:.3e} (tol {LSE_TOL})")
+        if not (rel <= OUT_RTOL and lerr <= LSE_TOL
+                and torch.isfinite(out.float()).all()):
+            raise AssertionError(f"B2 {tag} disagrees: {err} {rel} {lerr}")
+        errs["B2"].append(err)
+        di = fa.attention_di(out, do)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        for name, got, ref in (("B10 dq", dq, want[0]),
+                               ("B11 dk", dk, want[1]),
+                               ("B11 dv", dv, want[2])):
+            err, rel = grad_err(got, ref)
+            log(f"{name} {tag}: max_abs_err {err:.3e}, row error {rel:.3e} "
+                f"(tol {OUT_RTOL:.3e})")
+            if not (rel <= OUT_RTOL and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"{name} {tag} disagrees: {err} {rel}")
+            errs[name.split()[0]].append(err)
+        return lse, di, want
+
+    b, s, h, d = 1, 2048, 32, 128
+    q, k, v, do = inputs(b, s, h, h, d)
+    seg = torch.ones((b, s), dtype=torch.int32, device="cuda")
+    seg[:, s - 300:] = 0
+    kw = dict(causal=True, segment_ids_q=seg, segment_ids_kv=seg)
+    lse, di, want = compare("(1, 2048, 32, 128) causal, last 300 padding",
+                            q, k, v, do, **kw)
+    # planted faults: keys 1984.. left out of dq; queries 1984.. left out
+    # of dk/dv (the keys only they see lose everything)
+    cut = s - 64
+    dq_bad = fa.flash_attention_bwd_dq(
+        q, k[:, :cut], v[:, :cut], do, lse, di, causal=True,
+        segment_ids_q=seg, segment_ids_kv=seg[:, :cut].contiguous())
+    dkv_bad = fa.flash_attention_bwd_dkv(
+        q[:, :cut], k, v, do[:, :cut], lse[..., :cut].contiguous(),
+        di[..., :cut].contiguous(), causal=True,
+        segment_ids_q=seg[:, :cut].contiguous(), segment_ids_kv=seg)
+    torch.cuda.synchronize()
+    for name, got, ref, what in (
+            ("B10", dq_bad, want[0], "last key tile dropped from dq"),
+            ("B11", dkv_bad[0], want[1], "last query tile dropped from dk"),
+            ("B11", dkv_bad[1], want[2], "last query tile dropped from dv")):
+        rel = grad_err(got, ref)[1]
+        log(f"{name} planted fault ({what}): row error {rel:.3e}, must "
+            f"exceed {OUT_RTOL:.3e}")
+        if not rel > OUT_RTOL:
+            raise AssertionError(f"{name}: the check cannot see: {what}")
+
+    qg, kg, vg, dog = inputs(2, 200, 8, 2, 128)
+    slopes = torch.tensor([2.0 ** -(i + 1) for i in range(8)], device="cuda")
+    seg_g = torch.ones((2, 200), dtype=torch.int32, device="cuda")
+    seg_g[1, 150:] = 0
+    for causal in (True, False):
+        compare(f"(2, 200, 8/2 heads, 128) alibi, segments, causal={causal}",
+                qg, kg, vg, dog, causal=causal, alibi_slopes=slopes,
+                segment_ids_q=seg_g, segment_ids_kv=seg_g)
+    qn, kn, vn, don = inputs(2, 300, 4, 4, 64)
+    compare("(2, 300, 4, 64) non-causal", qn, kn, vn, don, causal=False)
+
+    # times at the training shape
+    ms10 = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, di,
+                                                     **kw))
+    ms11 = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, di,
+                                                      **kw))
+    plain10 = time_ms(lambda: fa.flash_attention_bwd_dq_plain(
+        q, k, v, do, lse, di, **kw), iters=3, warmup=1)
+    plain11 = time_ms(lambda: fa.flash_attention_bwd_dkv_plain(
+        q, k, v, do, lse, di, **kw), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib, lib_spread = time_grad_ms(lib_out, (qt, kt, vt), do.transpose(1, 2))
+    del lib_out
+    b2_row["max_abs_err"] = max([b2_row["max_abs_err"]] + errs["B2"])
+    pairs = visible_pairs(s, s, True, seg, seg)
+    io = nbytes(q, k, v, do, lse, di)
+    b10, by10 = bound_ms(3 * 2.0 * b * h * pairs * d, io + nbytes(q))
+    b11, by11 = bound_ms(4 * 2.0 * b * h * pairs * d, io + 2 * nbytes(k))
+    pair_ms, _ = bound_ms(5 * 2.0 * b * h * pairs * d, io + 3 * nbytes(q))
+    log(f"B10/B11 (1, 2048, 32, 128) causal + padding bf16: dq kernel "
+        f"{ms10:.4f} ms (plain {plain10:.4f}, bound {b10:.4f} {by10}), dk/dv "
+        f"kernel {ms11:.4f} ms (plain {plain11:.4f}, bound {b11:.4f} {by11}); "
+        f"together {ms10 + ms11:.4f} ms against a 5-matmul bound of "
+        f"{pair_ms:.4f} ms; sdpa backward (causal, no padding mask: dq, dk "
+        f"and dv) {lib:.4f} ms (median of {len(lib_spread)} runs: "
+        f"{', '.join(f'{t:.4f}' for t in lib_spread)})")
+    row = dict(route="cuda", source=FLASH_BWD_SOURCE, library_ms=lib,
+               shape=[b, s, h, d])
+    row["library_ms_runs"] = lib_spread
+    return {"B10": dict(row, name="B10 flash_attention_bwd_dq",
+                        replaces=B10_REPLACES, max_abs_err=max(errs["B10"]),
+                        ms=ms10, plain_ms=plain10, bound_ms=b10,
+                        bound_by=by10),
+            "B11": dict(row, name="B11 flash_attention_bwd_dkv",
+                        replaces=B11_REPLACES, max_abs_err=max(errs["B11"]),
+                        ms=ms11, plain_ms=plain11, bound_ms=b11,
+                        bound_by=by11)}
+
+
+def check_onepass_train(gen):
+    """B12 (the tower's forward with its LSE) and B13 (its backward) against
+    their plain versions at the training path's (8, 1025, 16, 64): 8 image
+    slots a sample. Returns the B12 and B13 rows."""
+    from merlin_tpu_torch.ops import onepass_attention as oa
+    from merlin_tpu_torch.ops.flash_attention import attention_di
+
+    shape = (8, 1025, 16, 64)
+    q, k, v = (layer_normed(shape, gen) for _ in range(3))
+    do = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = oa.onepass_attention_lse(q, k, v)
+    want, want_lse = oa.onepass_attention_lse_plain(q, k, v)
+    torch.cuda.synchronize()
+    err12, rel = out_err(out, want)
+    lerr = (lse - want_lse).abs().max().item()
+    log(f"B12 {shape}: max_abs_err {err12:.3e}, row error {rel:.3e} (tol "
+        f"{OUT_RTOL:.3e}), lse {lerr:.3e} (tol {LSE_TOL})")
+    if not (rel <= OUT_RTOL and lerr <= LSE_TOL):
+        raise AssertionError(f"B12 disagrees: {err12} {rel} {lerr}")
+    # B13 and its plain version from B12's out and LSE, as OnepassAttentionFn
+    di = attention_di(out, do)
+    got = oa.onepass_attention_bwd(q, k, v, do, lse, di)
+    ref = oa.onepass_attention_bwd_plain(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    err13 = 0.0
+    for name, g, r in zip(("dq", "dk", "dv"), got, ref):
+        err, rel = grad_err(g, r)
+        log(f"B13 {name} {shape}: max_abs_err {err:.3e}, row error "
+            f"{rel:.3e} (tol {OUT_RTOL:.3e})")
+        if not (rel <= OUT_RTOL and torch.isfinite(g.float()).all()):
+            raise AssertionError(f"B13 {name} disagrees: {err} {rel}")
+        err13 = max(err13, err)
+
+    b, s, h, d = shape
+    ms12 = time_ms(lambda: oa.onepass_attention_lse(q, k, v))
+    plain12 = time_ms(lambda: oa.onepass_attention_lse_plain(q, k, v),
+                      iters=3, warmup=1)
+    ms13 = time_ms(lambda: oa.onepass_attention_bwd(q, k, v, do, lse, di))
+    plain13 = time_ms(lambda: oa.onepass_attention_bwd_plain(
+        q, k, v, do, lse, di), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    lib12 = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt)
+    lib13, lib13_spread = time_grad_ms(lib_out, (qt, kt, vt),
+                                       do.transpose(1, 2))
+    del lib_out
+    mm = 2.0 * b * h * s * s * d
+    b12, by12 = bound_ms(2 * mm, nbytes(q, k, v, out, lse))
+    b13, by13 = bound_ms(5 * mm, nbytes(q, k, v, do, lse, di) + 3 * nbytes(q))
+    log(f"B12 {shape} bf16: kernel {ms12:.4f} ms, plain {plain12:.4f} ms, "
+        f"sdpa {lib12:.4f} ms, bound {b12:.4f} ms ({by12}); B13: kernel "
+        f"{ms13:.4f} ms, plain {plain13:.4f} ms, sdpa backward {lib13:.4f} "
+        f"ms (median of {len(lib13_spread)} runs: "
+        f"{', '.join(f'{t:.4f}' for t in lib13_spread)}), bound {b13:.4f} "
+        f"ms ({by13})")
+    return {"B12": dict(name="B12 onepass_attention_lse", route="cuda",
+                        source=B1_SOURCE, replaces=B12_REPLACES,
+                        max_abs_err=err12, ms=ms12, plain_ms=plain12,
+                        bound_ms=b12, bound_by=by12, library_ms=lib12,
+                        shape=list(shape)),
+            "B13": dict(name="B13 onepass_attention_bwd", route="cuda",
+                        source=FLASH_BWD_SOURCE, replaces=B13_REPLACES,
+                        max_abs_err=err13, ms=ms13, plain_ms=plain13,
+                        bound_ms=b13, bound_by=by13, library_ms=lib13,
+                        library_ms_runs=lib13_spread, shape=list(shape))}
 
 
 def paged_inputs(gen, b, h, hkv, d, lengths, s_q=0, page=128, pps=16):
@@ -581,18 +850,22 @@ def prompt(rng, n_text: int, n_images: int, tok_len: int):
 def kernel_wrappers():
     """Every kernel wrapper of the port by its TPU kernel's number; each
     counts its launches in ``.launches``."""
+    from merlin_tpu_torch.ops import flash_attention as fa
+    from merlin_tpu_torch.ops import onepass_attention as oa
     from merlin_tpu_torch.ops import paged_attention as pa
-    from merlin_tpu_torch.ops.flash_attention import flash_attention
-    from merlin_tpu_torch.ops.onepass_attention import onepass_attention
 
-    return {"B1": onepass_attention, "B2": flash_attention,
+    return {"B1": oa.onepass_attention, "B2": fa.flash_attention,
             "B3": pa.paged_attention_dma, "B4": pa.paged_attention,
             "B5": pa.paged_attention_dma_multi,
             "B6": pa.paged_attention_multi_blocked,
             "B7": pa.paged_attention_dma_q8,
             "B7w": pa.paged_attention_dma_multi_q8,
             "B8": pa.paged_attention_multi_blocked_q8,
-            "B9": pa.paged_attention_quantized}
+            "B9": pa.paged_attention_quantized,
+            "B10": fa.flash_attention_bwd_dq,
+            "B11": fa.flash_attention_bwd_dkv,
+            "B12": oa.onepass_attention_lse,
+            "B13": oa.onepass_attention_bwd}
 
 
 def reset_counts():
@@ -1062,6 +1335,368 @@ def serve_baichuan(rng):
     return {"E3": e3, "E5": e5}
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: training
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAD_RTOL = 1e-1       # T0, card vs CPU, both bf16: per parameter,
+                             # max |grad difference| of max |CPU grad|
+TRAIN_LOSS_RTOL = 1e-2       # T0 loss and grad_norm, card vs CPU
+N_PAD = 300                  # padded positions at the end of a T1/T2 row
+
+
+def train_batch(rng, tok_len, *, seq=2048, rows=2, slots=8, n_images=2,
+                n_text=80, n_pad=N_PAD):
+    """A host batch in the collator's format: ``rows`` samples (accum x
+    micro), each ``<s>``, text, ``n_images`` ``<im_start><im_patch>x256
+    <im_end>`` blocks with text after each (two: the tracking template) and
+    the answer, then ``n_pad`` padding positions; labels -100 over the
+    prompt and the padding; ``images`` uint8, ``n_images`` real frames and
+    ``slots - n_images`` zero slots per sample."""
+    valid = seq - n_pad
+    ids = np.zeros((rows, seq), np.int32)
+    labels = np.full((rows, seq), -100, np.int32)
+    for r in range(rows):
+        p = prompt(rng, n_text, n_images, tok_len)
+        answer = rng.integers(10, 31000, size=valid - len(p))
+        ids[r, :valid] = np.concatenate([p, answer])
+        labels[r, len(p):valid] = answer
+    mask = np.zeros((rows, seq), np.int32)
+    mask[:, :valid] = 1
+    images = np.zeros((rows, slots, 448, 448, 3), np.uint8)
+    images[:, :n_images] = rng.integers(
+        0, 256, size=(rows, n_images, 448, 448, 3), dtype=np.uint8)
+    return dict(input_ids=ids, labels=labels, attention_mask=mask,
+                segment_ids=mask.copy(), images=images)
+
+
+def check_train_reference(rng):
+    """T0: a narrow MMGPT (LM heads of d = 128, tower heads of d = 64, s =
+    384 with 32 padding positions, one image) takes one training step's
+    forward and backward on the card through the kernels (B2, B10, B11,
+    B12, B13), and the same weights and batch on the CPU through the plain
+    path, both computing in bf16 from f32 parameters. Loss, grad norm and
+    every parameter's gradient must agree."""
+    from merlin_tpu_torch.models.bridge import init_params
+    from merlin_tpu_torch.models.families import tiny
+    from merlin_tpu_torch.models.mmgpt import MMGPT
+    from merlin_tpu_torch.models.vit import tiny_vit
+    from merlin_tpu_torch.train.optimizer import global_norm
+    from merlin_tpu_torch.train.step import make_loss_fn
+
+    lm = tiny(vocab_size=32128, hidden_size=256, intermediate_size=512,
+              num_layers=2, num_heads=2, remat=True, dtype=torch.bfloat16)
+    vit = tiny_vit(hidden_size=128, num_heads=2, intermediate_size=256,
+                   num_layers=3, patch_size=14, image_size=448,
+                   dtype=torch.bfloat16)
+    cfg = mm_config(lm, vit)
+    with torch.device("meta"):
+        card = MMGPT(cfg)
+    init_params(card, torch.Generator(device="cuda").manual_seed(7),
+                std=0.05, dtype=torch.float32, device="cuda",
+                requires_grad=True)
+    with torch.no_grad():
+        # unit norm scales keep activations O(1), so the tolerances mean
+        # something
+        for name, p in card.named_parameters():
+            if name.endswith("norm.scale") or name.endswith("norm1.scale") \
+                    or name.endswith("norm2.scale"):
+                p.fill_(1.0)
+    models = {"card": (card, "cuda"),
+              "host": (copy.deepcopy(card).cpu(), "cpu")}
+    host = train_batch(rng, cfg.image_token_len, seq=384, rows=1, slots=1,
+                       n_images=1, n_text=40, n_pad=32)
+    grads, losses = {}, {}
+    for where, (model, device) in models.items():
+        batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+        reset_counts()
+        loss = make_loss_fn(model)(batch)
+        loss.backward()
+        if where == "card":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        losses[where] = loss.item()
+        grads[where] = {n: p.grad.float().cpu()
+                        for n, p in model.named_parameters()}
+    norms = {d: global_norm(g.values()).item() for d, g in grads.items()}
+    worst, worst_name, kbias = 0.0, "", 0.0
+    for name, want in grads["host"].items():
+        got = grads["card"][name]
+        if name.endswith("k_proj.bias"):
+            # zero in exact arithmetic (softmax ignores a per-query
+            # constant): both sides hold rounding noise, held below
+            # ``TRAIN_GRAD_RTOL`` of the key kernel's largest gradient
+            kernel = grads["host"][name[:-len("bias")] + "kernel"]
+            kbias = max(kbias, (got.abs().max() + want.abs().max()).item()
+                        / kernel.abs().max().item())
+            continue
+        rel = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+               ).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    loss_rel = abs(losses["card"] - losses["host"]) / abs(losses["host"])
+    norm_rel = abs(norms["card"] - norms["host"]) / norms["host"]
+    want_counts = launches(B2=4, B10=2, B11=2, B12=2, B13=2)
+    log(f"T0 narrow train step, card (kernels) vs CPU (plain), bf16: loss "
+        f"{losses['card']:.6f} vs {losses['host']:.6f} (rel {loss_rel:.3e}), "
+        f"grad norm {norms['card']:.6f} vs {norms['host']:.6f} (rel "
+        f"{norm_rel:.3e}), tol {TRAIN_LOSS_RTOL}; worst parameter gradient "
+        f"{worst:.3e} of its max |CPU grad| ({worst_name}, tol "
+        f"{TRAIN_GRAD_RTOL}); key biases (zero in exact arithmetic) "
+        f"{kbias:.3e} of the key kernels' max gradient; launches {counts}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and norm_rel <= TRAIN_LOSS_RTOL
+            and worst <= TRAIN_GRAD_RTOL and kbias <= TRAIN_GRAD_RTOL
+            and counts == want_counts):
+        raise AssertionError(f"T0 failed: {loss_rel} {norm_rel} {worst} "
+                             f"{counts}")
+    return dict(loss_rel=loss_rel, grad_norm_rel=norm_rel,
+                worst_grad_rel=worst, worst_grad=worst_name,
+                key_bias_rel=kbias)
+
+
+def build_train_model(n_layers):
+    """CLIP ViT-L/14-448 (23 of 24 layers run) + conv projector + Vicuna-7B
+    width cut to ``n_layers``, remat on, f32 trainable parameters N(0,
+    1)*0.02 from seed 0, bf16 compute."""
+    from merlin_tpu_torch.models.bridge import init_params
+    from merlin_tpu_torch.models.families import vicuna_7b
+    from merlin_tpu_torch.models.mmgpt import MMGPT
+    from merlin_tpu_torch.models.vit import clip_vit_l14
+
+    lm = dataclasses.replace(vicuna_7b(), vocab_size=32128,
+                             num_layers=n_layers, remat=True)
+    cfg = mm_config(lm, clip_vit_l14(448))
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = MMGPT(cfg)
+    init_params(model, torch.Generator(device="cuda").manual_seed(0),
+                dtype=torch.float32, device="cuda", requires_grad=True)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"train model ({n_layers} LM layers): {n / 1e9:.3f} B f32 parameters "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def train_args(**kw):
+    """pretrain.sh's recipe: llrd, remat, bf16, ctx 2048, batch 1, cosine
+    5e-5 with warmup_ratio 0.01, b2 0.95, wd 0.05, clip 1.0."""
+    from merlin_tpu_torch.train.arguments import TrainingArguments
+
+    base = dict(output_dir="output/chip_smoke_train",
+                per_device_train_batch_size=1,
+                learning_rate=5e-5, adam_beta2=0.95, weight_decay=0.05,
+                max_grad_norm=1.0, warmup_ratio=0.01,
+                lr_scheduler_type="cosine", model_max_length=2048,
+                gradient_checkpointing=True, bf16=True, llrd=True,
+                save_steps=0, logging_steps=1)
+    base.update(kw)
+    return TrainingArguments(**base)
+
+
+def run_training(tag, model, model_args, targs, steps, rng):
+    """Train ``steps`` steps through ``Trainer.train`` on one repeated batch
+    with the launch counts set to 0 just before and read just after.
+    Returns (per-step metrics, launch counts, peak bytes)."""
+    from merlin_tpu_torch.models.builder import make_bundle
+    from merlin_tpu_torch.train.trainer import Trainer
+
+    bundle = make_bundle(model, model_args, orig_vocab_size=32000)
+    trainer = Trainer(bundle, targs, device="cuda")
+    trainer.init_state()
+    batch = train_batch(rng, model.cfg.image_token_len,
+                        rows=targs.gradient_accumulation_steps)
+    seen = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    trainer.train(iter([batch] * steps), num_steps=steps,
+                  log_fn=lambda step, m: seen.append(m))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(seen):
+        log(f"{tag} step {i + 1}: loss {m['loss']:.7f}, grad_norm "
+            f"{m['grad_norm']:.4f}, update_norm {m['update_norm']:.4e}, lr "
+            f"{m['lr']:.3e}, step {m['step_time_s']:.3f} s, "
+            f"{m.get('tokens_per_sec', float('nan')):.1f} tok/s, mfu "
+            f"{m.get('mfu', float('nan')):.4f} (host clock; 8ND estimate at "
+            f"989 TFLOP/s)")
+    log(f"{tag}: launches {counts}, peak memory {peak} bytes "
+        f"(torch.cuda.max_memory_allocated)")
+    return seen, counts, peak, profile_step(
+        tag, trainer, batch, seen[-1]["step_time_s"] * 1e3)
+
+
+# the ops whose FLOPs the profiler counts as matmul work
+MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+# kernel families of a training step, by a piece of the kernel's name
+FAMILIES = (("B10/B13 dq", ("flash_bwd_dq_kernel",)),
+            ("B11/B13 dk/dv", ("flash_bwd_dkv_kernel",)),
+            ("B2 flash forward", ("flash_attention_fwd_kernel",)),
+            ("B12 one-pass forward", ("onepass_attention_kernel",)),
+            ("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+            ("optimizer (foreach)", ("multi_tensor_apply",)),
+            # dtype casts: the f32 weights to bf16 at each use, the bf16
+            # weight gradients back to f32
+            ("casts", ("direct_copy_kernel", "bfloat16_copy_kernel")),
+            ("copies", ("Memcpy", "Memset")))
+
+
+def profile_step(tag, trainer, batch, plain_step_ms):
+    """One more step through ``Trainer.train`` under ``torch.profiler``,
+    after the checked run: the card's time per kernel family, and its idle
+    share of the step (1 - the summed kernel time over the host-clock time
+    of the step; one stream, so kernels do not overlap). The profiler's own
+    host cost lengthens the traced step, so the busy time is also given as
+    a share of ``plain_step_ms``, the last step of the checked run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_flops=True) as prof:
+        t0 = time.perf_counter()
+        trainer.train(iter([batch]), num_steps=trainer.step + 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fams = {name: 0.0 for name, _ in FAMILIES}
+    fams["other elementwise and reductions"] = 0.0
+    others = []
+    mm_flops = 0
+    for ev in prof.key_averages():
+        if ev.key in MATMUL_OPS:
+            mm_flops += ev.flops
+        # kernel and copy rows only: a CPU op's row repeats the device time
+        # of the kernels it launched
+        ms = ev.self_device_time_total / 1e3
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ms <= 0:
+            continue
+        fam = next((name for name, keys in FAMILIES
+                    if any(k in ev.key for k in keys)), None)
+        if fam is None:
+            fam = "other elementwise and reductions"
+            others.append((ms, ev.count, ev.key[:110]))
+        fams[fam] += ms
+    busy = sum(fams.values())
+    if busy <= 0:
+        raise AssertionError(f"{tag}: the trace holds no device time")
+    log(f"{tag} profile (one more step under torch.profiler): step "
+        f"{wall * 1e3:.1f} ms (host clock), card busy {busy:.1f} ms, idle "
+        f"share {1 - busy / (wall * 1e3):.3f} (busy "
+        f"{busy / plain_step_ms:.3f} of the unprofiled {plain_step_ms:.1f} ms "
+        f"step); " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in fams.items()) + f"; matmul work "
+        f"{mm_flops / 1e12:.2f} TFLOP (the profiler's count), "
+        f"{mm_flops / fams['matmuls (cuBLAS)'] / 1e9:.1f} TFLOP/s over the "
+        f"matmul kernels")
+    for ms, count, key in sorted(others, reverse=True)[:8]:
+        log(f"  {ms:.1f} ms in {count} launches: {key}")
+    return dict(step_ms=wall * 1e3, busy_ms=busy,
+                idle_share=1 - busy / (wall * 1e3),
+                busy_of_unprofiled_step=busy / plain_step_ms,
+                families_ms=fams, matmul_tflop=mm_flops / 1e12)
+
+
+def run_t1(rng):
+    """T1: the pretraining recipe at full width, LM cut to 8 layers (f32
+    AdamW over 7B needs ~108 GB), accum 2, 4 steps."""
+    from merlin_tpu_torch.train.arguments import ModelArguments
+
+    model = build_train_model(8)
+    seen, counts, peak, prof = run_training(
+        "T1 recipe (8 LM layers, nothing frozen)", model, ModelArguments(),
+        train_args(gradient_accumulation_steps=2, max_steps=4), 4, rng)
+    losses = [m["loss"] for m in seen]
+    want = launches(B2=128, B10=64, B11=64, B12=184, B13=184)
+    first_ok = abs(losses[0] - math.log(32128)) <= 0.5
+    same = abs(losses[1] - losses[0]) <= 1e-6 * abs(losses[0])
+    finite = all(math.isfinite(m["grad_norm"]) for m in seen)
+    log(f"T1 checks: first loss {losses[0]:.6f} vs ln(32128) "
+        f"{math.log(32128):.6f} (within 0.5: {first_ok}); step 2 equals "
+        f"step 1 at lr 0: {same}; step 4 below step 2: "
+        f"{losses[3] < losses[1]}; grad norms finite: {finite}")
+    if not (first_ok and same and losses[3] < losses[1] and finite
+            and counts == want):
+        raise AssertionError(f"T1 failed: {losses} {counts}")
+    return dict(losses=losses, counts=counts, peak_bytes=peak,
+                step_time_s=seen[-1]["step_time_s"],
+                tokens_per_sec=seen[-1]["tokens_per_sec"],
+                mfu=seen[-1]["mfu"], profile=prof)
+
+
+def run_t2(rng):
+    """T2: the reference's frozen-LM mode at full depth (32 layers): only
+    the tower, the projector and the new-token embedding rows train; the
+    backward still crosses every LM layer. 2 steps at accum 2."""
+    from merlin_tpu_torch.train.arguments import ModelArguments
+
+    model = build_train_model(32)
+    lm_before = {n: p.detach().to("cpu", copy=True)
+                 for n, p in model.lm.named_parameters()}
+    moved_before = {n: p.detach().clone() for n, p in model.named_parameters()
+                    if not n.startswith("lm.")}
+    seen, counts, peak, prof = run_training(
+        "T2 frozen LM (32 layers)", model,
+        ModelArguments(freeze_lm_model=True, tune_im_start_end=True),
+        train_args(gradient_accumulation_steps=2, max_steps=2), 2, rng)
+    new_rows = [START_ID, PATCH_ID, END_ID]
+    lm_same = True
+    for n, p in model.lm.named_parameters():
+        now, was = p.detach().cpu(), lm_before[n]
+        if n == "embed_tokens.embedding":
+            keep = torch.ones(now.shape[0], dtype=torch.bool)
+            keep[32000:] = False
+            lm_same &= torch.equal(now[keep], was[keep])
+            rows_moved = bool((now[new_rows] != was[new_rows]).any(-1).all())
+        else:
+            lm_same &= torch.equal(now, was)
+    # a key bias has no gradient in exact arithmetic (softmax ignores a
+    # per-query constant) and no decay, so it need not move
+    still = [n for n, p in model.named_parameters() if n in moved_before
+             and not n.endswith("k_proj.bias")
+             and torch.equal(p, moved_before[n])]
+    want = launches(B2=256, B10=128, B11=128, B12=92, B13=92)
+    log(f"T2 checks: LM bit-identical but the new-token rows: {lm_same}; "
+        f"rows {new_rows} moved: {rows_moved}; tower and projector "
+        f"parameters that did not move: {still}")
+    if not (lm_same and rows_moved and not still and counts == want):
+        raise AssertionError(f"T2 failed: {lm_same} {rows_moved} {still} "
+                             f"{counts}")
+    return dict(losses=[m["loss"] for m in seen], counts=counts,
+                peak_bytes=peak, step_time_s=seen[-1]["step_time_s"],
+                tokens_per_sec=seen[-1]["tokens_per_sec"],
+                mfu=seen[-1]["mfu"], profile=prof)
+
+
+def measure_c13(gen):
+    """Trap C13: on the card ``MatmulF32``'s backward rounds the f32
+    cotangent to bf16 before its two products; JAX contracts the f32
+    cotangent. The gap between the two orders at an MLP projection of T1
+    (2048 tokens, 4096 -> 11008), as max |difference| of max |f32 order|."""
+    x = torch.randn((2048, 4096), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn((4096, 11008), generator=gen, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    g = torch.randn((2048, 11008), generator=gen, device="cuda") * 1e-3
+    gaps = {}
+    for name, fast, exact in (
+            ("dx", g.to(torch.bfloat16) @ w.T,
+             (g @ w.float().T).to(torch.bfloat16)),
+            ("dw", x.T @ g.to(torch.bfloat16),
+             (x.float().T @ g).to(torch.bfloat16))):
+        gaps[name] = ((fast.float() - exact.float()).abs().max()
+                      / exact.float().abs().max()).item()
+    log(f"C13 cotangent rounded to bf16 before the backward's products, "
+        f"against the f32 order (2048 x 4096 -> 11008): dx {gaps['dx']:.3e}, "
+        f"dW {gaps['dw']:.3e} of max |f32 order|")
+    return gaps
+
+
+def free_cuda():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1098,6 +1733,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     served.update(serve_baichuan(rng))
+    free_cuda()                       # training starts from an empty card
+    trained = check_flash_bwd(gen, b2)
+    trained.update(check_onepass_train(gen))
+    c13 = measure_c13(gen)
+    free_cuda()
+    t0_reading = check_train_reference(rng)
+    free_cuda()
+    t1 = run_t1(rng)
+    free_cuda()
+    t2 = run_t2(rng)
+    free_cuda()
     b1["launches"], b2["launches"] = fwd_counts["B1"], fwd_counts["B2"]
     b1["launches_generation"] = g["counts"]["B1"]
     b2["launches_generation"] = g["counts"]["B2"]
@@ -1108,12 +1754,21 @@ def main() -> int:
                       ("B6", "E2"), ("B7", "E4"), ("B7w", "E5"),
                       ("B8", "E4"), ("B9", "E4")):
         paged[name]["launches"] = served[run][0][name]
+    for name in ("B10", "B11", "B12", "B13"):
+        trained[name]["launches"] = t1["counts"][name]
     rows = [b1, b2] + [paged[k] for k in ("B3", "B4", "B5", "B6", "B7",
-                                          "B7w", "B8", "B9")]
+                                          "B7w", "B8", "B9")] + [
+        trained[k] for k in ("B10", "B11", "B12", "B13")]
     for row in rows:
         key = row["name"].split()[0]
         row["launches_serving"] = {e: served[e][0][key] for e in served}
+        row["launches_training"] = t1["counts"][key]
+        row["launches_training_frozen_lm"] = t2["counts"][key]
     log(json.dumps({"serving": {e: served[e][1] for e in served}}))
+    log(json.dumps({"training": {
+        "T0": t0_reading, "C13": c13,
+        "T1": {k: v for k, v in t1.items() if k != "counts"},
+        "T2": {k: v for k, v in t2.items() if k != "counts"}}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

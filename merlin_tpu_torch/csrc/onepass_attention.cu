@@ -1,9 +1,16 @@
-// B1 - bidirectional attention of the ViT tower, for Hopper (sm_90a).
+// B1 and B12 - bidirectional attention of the ViT tower, for Hopper (sm_90a).
 //
 // Replaces merlin_tpu/ops/onepass_attention.py: _make_kernel (emit_lse=False)
-// and _make_kernel_bd, reached through _onepass_fwd and its pallas_call.
+// and _make_kernel_bd (B1), and _make_kernel with emit_lse=True (B12, the
+// forward of the trained path, _onepass_fwd_rule), all reached through
+// _onepass_fwd and its pallas_call.
 // out = softmax(q k^T * scale) v over the whole KV of each (batch, head);
 // scores in f32, scaled by scale*log2(e) and exp2'd; keys past kv_len masked.
+// With an lse pointer (B12) the kernel also writes the natural-log LSE,
+// m * ln 2 + log l from the exp2 domain, as (b, h, sq) f32: the residual the
+// backward (B13, flash_attention_bwd.cu) recomputes p from. The max is
+// subtracted on both paths, as the TPU's trained path does
+// (assume_bounded=False).
 //
 // What bounds it on the H100: at the CLIP ViT-L/14-448 shape (s=1025, h=16,
 // d=64) one image-layer is 4*16*1025^2*64 = 4.3 GFLOP against 8.4 MB of
@@ -33,7 +40,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace merlin
 
 extern "C" int merlin_onepass_attention_bf16(
-    const void* q, const void* k, const void* v, void* out, int b, int sq,
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int b, int sq,
     int skv, int h, int d, int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
     int64_t v_sh, float scale, void* stream) {
@@ -43,6 +51,7 @@ extern "C" int merlin_onepass_attention_bf16(
   a.k = static_cast<const __nv_bfloat16*>(k);
   a.v = static_cast<const __nv_bfloat16*>(v);
   a.out = static_cast<__nv_bfloat16*>(out);
+  a.lse = static_cast<float*>(lse);
   a.b = b;
   a.sq = sq;
   a.skv = skv;

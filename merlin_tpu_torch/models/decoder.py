@@ -25,7 +25,11 @@ the LM head as an int8 kernel with per-output-channel scales
 embeddings and norms stay full precision.
 
 The non-scanned stack is ported; ``scan_layers`` (with its flat paged pool,
-``layer_index``) and ``remat`` come with later slices and are refused.
+``layer_index``) comes with a later slice and is refused. ``remat``
+recomputes each block in the backward (``torch.utils.checkpoint``, nothing
+saved inside the block, as ``nn.remat(policy=nothing_saveable)``), so a
+training step holds one activation per layer. :func:`cross_entropy_loss`
+is the training loss.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from merlin_tpu_torch.models.layers import (
@@ -320,9 +325,8 @@ class CausalLM(nn.Module):
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        unported = [f for f in ("scan_layers", "remat") if getattr(cfg, f)]
-        if unported:
-            raise NotImplementedError(f"not ported yet: {unported}")
+        if cfg.scan_layers:
+            raise NotImplementedError("not ported yet: ['scan_layers']")
         if cfg.weight_dtype == "int8" and cfg.normhead:
             # NormHead renormalizes its kernel every forward, which a static
             # per-channel scale cannot represent (decoder.py:622-628)
@@ -396,9 +400,17 @@ class CausalLM(nn.Module):
             cache_aux = {"seg": kv_cache["seg"], "pos": kv_cache["pos"],
                          "index": idx}
 
+        remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
             layer_cache = kv_cache["layers"][i] if kv_cache is not None else None
-            x = blk(x, positions, segment_ids, layer_cache, cache_aux)
+            if remat:
+                # decoder.py:664-671: the block's inside is recomputed in
+                # the backward, only its input is kept
+                x = torch.utils.checkpoint.checkpoint(
+                    blk, x, positions, segment_ids, None, None,
+                    use_reentrant=False)
+            else:
+                x = blk(x, positions, segment_ids, layer_cache, cache_aux)
         if cfg.final_norm:
             x = self.final_norm(x)
         logits = self.compute_logits(x)
@@ -423,3 +435,21 @@ class CausalLM(nn.Module):
         if return_hidden:
             return logits, new_cache, x
         return logits, new_cache
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       ignore_index: int = -100, z_loss_weight: float = 0.0):
+    """Label-aligned cross entropy in f32 with ignore masking and an
+    optional z-loss (``decoder.py:804-822``). logits (b, s, V); labels
+    (b, s), already shifted by the caller. Returns (mean loss over the
+    valid tokens, their count); the mean divides by at least 1."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    nll = logz - torch.gather(logits, -1, safe[..., None])[..., 0]
+    if z_loss_weight:
+        nll = nll + z_loss_weight * logz.square()
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    count = valid.sum()
+    return nll.sum() / count.clamp_min(1), count

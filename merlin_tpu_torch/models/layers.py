@@ -64,15 +64,52 @@ class LayerNorm(nn.Module):
         return (norm * self.scale + self.bias).to(x.dtype)
 
 
-def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b of 2-d operands in the compute dtype, with an f32 result
-    (products exact, f32 sums) and no rounding to the compute dtype."""
-    if a.dtype == torch.float32:
-        return a @ b
-    if a.device.type == "cpu":
-        # the CPU build has no kernel for mm's out_dtype overload
-        return a.float() @ b.float()
-    return torch.mm(a, b, out_dtype=torch.float32)
+class MatmulF32(torch.autograd.Function):
+    """a @ b of 2-d operands in the compute dtype with an f32 result
+    (products exact, f32 sums), and no rounding to the compute dtype.
+
+    The forward is ``torch.mm(..., out_dtype=torch.float32)`` on the card
+    (an overload with no derivative of its own) and the f32 matmul of the
+    upcast operands on the CPU. The backward returns da and db in the
+    operands' dtypes, as JAX's transpose of a bf16 ``dot_general`` with
+    ``preferred_element_type=float32`` does: the f32 cotangent is contracted
+    with the other operand and the result rounded once. On the CPU that
+    contraction runs in f32; on the card the cotangent is rounded to the
+    compute dtype first so that both products stay on the tensor cores
+    (trap C13: one extra rounding of the cotangent).
+    """
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.dtype == torch.float32:
+            return a @ b
+        if a.device.type == "cpu":
+            # the CPU build has no kernel for mm's out_dtype overload
+            return a.float() @ b.float()
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        if a.dtype == torch.float32 or a.device.type == "cpu":
+            g = g.float()
+            da = (g @ b.float().T).to(a.dtype) if ctx.needs_input_grad[0] \
+                else None
+            db = (a.float().T @ g).to(b.dtype) if ctx.needs_input_grad[1] \
+                else None
+            return da, db
+        g = g.to(a.dtype)
+        da = g @ b.T if ctx.needs_input_grad[0] else None
+        db = a.T @ g if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def _inference_only(grad):
+    """Tensor hook on an int8 layer's output: the int8 kernels are for
+    serving, so a gradient reaching it raises."""
+    raise RuntimeError("DenseGeneral(weight_q8=True) is inference-only: "
+                       "it has no gradient")
 
 
 class DenseGeneral(nn.Module):
@@ -84,6 +121,8 @@ class DenseGeneral(nn.Module):
     serving, ``merlin_tpu/models/layers.py:70-138``): y = (x @ q8) * scale
     (+ bias), exactly x @ (q8 * scale), rounded once. Build the weights
     with :func:`merlin_tpu_torch.models.convert.quantize_decoder_params_int8`.
+    The int8 kernel is for inference: a gradient asked of its output
+    raises.
     """
 
     def __init__(self, in_shape: Shape, features: Shape, *,
@@ -110,10 +149,15 @@ class DenseGeneral(nn.Module):
         k_in = math.prod(self.in_shape)
         k_out = math.prod(self.features)
         x2 = x.to(self.dtype).reshape(-1, k_in)
-        kernel = self.kernel_q8 if self.weight_q8 else self.kernel
-        out = _matmul_f32(x2, kernel.to(self.dtype).reshape(k_in, k_out))
         if self.weight_q8:
+            out = MatmulF32.apply(
+                x2, self.kernel_q8.to(self.dtype).reshape(k_in, k_out))
             out = out * self.kernel_scale.float().reshape(k_out)
+            if out.requires_grad:
+                out.register_hook(_inference_only)
+        else:
+            out = MatmulF32.apply(
+                x2, self.kernel.to(self.dtype).reshape(k_in, k_out))
         if self.bias is not None:
             out = out + self.bias.float().reshape(k_out)
         return out.to(self.dtype).reshape(batch + self.features)

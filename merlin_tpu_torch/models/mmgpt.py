@@ -6,8 +6,9 @@ gather: the k-th ``<im_patch>`` position of row i takes feature k of row i.
 
 Batching contract: ``images`` is (b, max_images, H, W, C); rows with fewer
 images pad with zero images, which are encoded but never gathered because
-they have no ``<im_patch>`` tokens. The training loss (``labels``) comes
-with the training slice.
+they have no ``<im_patch>`` tokens. With ``labels`` the forward also
+returns the training loss, labels shifted left by one as in
+``merlin_tpu/models/mmgpt.py:131-139``.
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ from typing import Any, Optional
 import torch
 from torch import nn
 
-from merlin_tpu_torch.models.decoder import CausalLM, DecoderConfig
+from merlin_tpu_torch.models.decoder import (
+    CausalLM, DecoderConfig, cross_entropy_loss)
 from merlin_tpu_torch.models.projectors import build_projector
 from merlin_tpu_torch.models.vision_builder import build_vision_tower
+from merlin_tpu_torch.utils.constants import IGNORE_INDEX
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +85,11 @@ class MMGPT(nn.Module):
         return self.projector(self.vision_tower(images))
 
     def forward(self, input_ids, *, images: Optional[torch.Tensor] = None,
-                positions=None, segment_ids=None, kv_cache=None):
+                positions=None, segment_ids=None, kv_cache=None,
+                labels: Optional[torch.Tensor] = None):
         """images: (b, n_img, H, W, C) or None (text-only / decode step).
-        Returns (logits, new_kv_cache)."""
+        Returns (logits, new_kv_cache), and the loss third when ``labels``
+        (b, s) are given."""
         embeds = self.lm.embed(input_ids)
         if images is not None:
             b, n = images.shape[:2]
@@ -92,5 +97,13 @@ class MMGPT(nn.Module):
             feats = feats.reshape(b, n * feats.shape[1], feats.shape[2])
             patch_mask = input_ids == self.cfg.image_patch_id
             embeds = splice_image_embeds(embeds, patch_mask, feats)
-        return self.lm(inputs_embeds=embeds, positions=positions,
-                       segment_ids=segment_ids, kv_cache=kv_cache)
+        logits, new_cache = self.lm(inputs_embeds=embeds, positions=positions,
+                                    segment_ids=segment_ids, kv_cache=kv_cache)
+        if labels is None:
+            return logits, new_cache
+        shifted = torch.cat([labels[:, 1:], torch.full_like(
+            labels[:, :1], IGNORE_INDEX)], dim=1)
+        loss, _ = cross_entropy_loss(logits, shifted,
+                                     ignore_index=IGNORE_INDEX,
+                                     z_loss_weight=self.cfg.lm.z_loss_weight)
+        return logits, new_cache, loss

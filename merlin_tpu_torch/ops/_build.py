@@ -36,13 +36,22 @@ _F = ctypes.c_float
 # argtypes of every C entry point: pointers and the stream as c_void_p
 # (a plain int would be cut to 32 bits)
 SIGNATURES = {
-    # q, k, v, out, b, sq, skv, h, d, q/k/v strides (b, s, h), scale, stream
+    # q, k, v, out, lse (or NULL), b, sq, skv, h, d, q/k/v strides (b, s,
+    # h), scale, stream
     "merlin_onepass_attention_bf16": (
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 9 + [_F, _P]),
+        [_P] * 5 + [_I] * 5 + [_L] * 9 + [_F, _P]),
     # q, k, v, out, lse, qseg, kseg, slopes, b, sq, skv, h, hkv, d,
     # q/k/v strides (b, s, h), scale, causal, stream
     "merlin_flash_attention_fwd_bf16": (
         [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _I, _P]),
+    # q, k, v, do, lse, di, dq, qseg, kseg, slopes, b, sq, skv, h, hkv, d,
+    # q/k/v/do strides (b, s, h), scale, causal, stream
+    "merlin_flash_attention_bwd_dq_bf16": (
+        [_P] * 10 + [_I] * 6 + [_L] * 12 + [_F, _I, _P]),
+    # q, k, v, do, lse, di, dk, dv, qseg, kseg, slopes, b, sq, skv, h, hkv,
+    # d, q/k/v/do strides (b, s, h), scale, causal, stream
+    "merlin_flash_attention_bwd_dkv_bf16": (
+        [_P] * 11 + [_I] * 6 + [_L] * 12 + [_F, _I, _P]),
     # q, k_pages, v_pages, lengths, tables, slopes, out, b, h, hkv, d,
     # page_size, pages_per_seq, scale, stream
     "merlin_paged_decode_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],

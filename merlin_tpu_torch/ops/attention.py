@@ -11,7 +11,9 @@ Counterpart of ``merlin_tpu/ops/attention.py``. Layout throughout:
     kernel (B1), the rest of the flash-eligible calls to the flash forward
     kernel (B2), short sequences and CPU tensors to :func:`mha_reference`.
     The ring-attention and mesh branches of the JAX dispatcher are left out:
-    the port runs on one card.
+    the port runs on one card. Both kernel routes are differentiable: B1's
+    route runs B12/B13 when a gradient is asked for, B2's runs B10/B11 in
+    the backward.
 """
 
 from __future__ import annotations
@@ -103,7 +105,8 @@ def attention(
     Routing (``merlin_tpu/ops/attention.py:192-206``): CPU tensors, sq < 128
     or d > 256 go to :func:`mha_reference`; a non-causal call with no ALiBi,
     no segment ids, no GQA, skv <= 4096 and d <= 128 goes to the one-pass
-    kernel (B1); everything else to the flash forward kernel (B2). The route
+    kernel (B1; B12/B13 under autograd); everything else to the flash
+    kernels (B2; B10/B11 in the backward). The route
     depends on the device and the shapes only: the kernels take bfloat16,
     and their wrappers raise on any other dtype. They need no padding: they
     mask the ragged edge themselves.
@@ -117,19 +120,20 @@ def attention(
 
     if (not causal and alibi_slopes is None and segment_ids_q is None
             and q.shape[2] == k.shape[2] and skv <= 4096 and d <= 128):
-        from merlin_tpu_torch.ops.onepass_attention import onepass_attention
+        from merlin_tpu_torch.ops.onepass_attention import (
+            differentiable_onepass_attention)
 
-        return onepass_attention(q, k, v, scale=scale)
+        return differentiable_onepass_attention(q, k, v, scale=scale)
 
-    from merlin_tpu_torch.ops.flash_attention import flash_attention
+    from merlin_tpu_torch.ops.flash_attention import (
+        differentiable_flash_attention)
 
     if segment_ids_q is not None:
         segment_ids_q = segment_ids_q.to(torch.int32).contiguous()
         segment_ids_kv = segment_ids_kv.to(torch.int32).contiguous()
     if alibi_slopes is not None:
         alibi_slopes = alibi_slopes.to(q.device, torch.float32).contiguous()
-    out, _ = flash_attention(
+    return differentiable_flash_attention(
         q, k, v, causal=causal, segment_ids_q=segment_ids_q,
         segment_ids_kv=segment_ids_kv, alibi_slopes=alibi_slopes,
         scale=scale)
-    return out

@@ -2,8 +2,8 @@
 
   * nothing imports jax, flax, optax or merlin_tpu;
   * the entry points default to the card (``device="cuda"``);
-  * the decoder refuses only the options still to be ported, and builds
-    with int8 weights;
+  * the decoder refuses only the options still to be ported
+    (``scan_layers``), and builds with int8 weights and with ``remat``;
   * a kernel wrapper, or the attention dispatcher, given a tensor that is
     not on the CPU never reaches the plain version: read from its code (the
     CPU test has no card), and shown at run time with tensors on the meta
@@ -30,6 +30,7 @@ from merlin_tpu_torch.ops import onepass_attention as oa
 from merlin_tpu_torch.ops import paged_attention as pa
 from merlin_tpu_torch.ops.image_ops import preprocess_images
 from merlin_tpu_torch.serve.engine import ServingEngine
+from merlin_tpu_torch.train.trainer import Trainer
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = pathlib.Path(merlin_tpu_torch.__file__).resolve().parent
@@ -58,7 +59,7 @@ def test_port_imports_nothing_of_jax(path):
 
 @pytest.mark.parametrize("fn", [init_params, init_kv_cache,
                                 preprocess_images, Generator.__init__,
-                                ServingEngine.__init__],
+                                ServingEngine.__init__, Trainer.__init__],
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
@@ -67,6 +68,10 @@ def test_entry_points_default_to_the_card(fn):
 @pytest.mark.parametrize("wrapper,plain", [
     (oa.onepass_attention, "onepass_attention_plain"),
     (fa.flash_attention, "flash_attention_plain"),
+    (fa.flash_attention_bwd_dq, "flash_attention_bwd_dq_plain"),
+    (fa.flash_attention_bwd_dkv, "flash_attention_bwd_dkv_plain"),
+    (oa.onepass_attention_lse, "onepass_attention_lse_plain"),
+    (oa.onepass_attention_bwd, "onepass_attention_bwd_plain"),
     (pa.paged_attention_dma, "paged_attention_plain"),
     (pa.paged_attention, "paged_attention_plain"),
     (pa.paged_attention_dma_multi, "paged_attention_multi_plain"),
@@ -129,10 +134,32 @@ def test_non_cpu_tensors_are_refused_not_computed_plain(dtype):
                 fa.flash_attention.launches) == before
 
 
+BWD_WRAPPERS = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                oa.onepass_attention_lse, oa.onepass_attention_bwd)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_backward_wrappers_refuse_non_cpu_tensors(dtype):
+    """The training kernels' wrappers (B10-B13) refuse meta tensors before
+    any launch, as the forward ones do."""
+    q = torch.empty((1, 130, 2, 64), dtype=dtype, device="meta")
+    lse = torch.empty((1, 2, 130), dtype=torch.float32, device="meta")
+    for call in (lambda: fa.flash_attention_bwd_dq(q, q, q, q, lse, lse),
+                 lambda: fa.flash_attention_bwd_dkv(q, q, q, q, lse, lse),
+                 lambda: oa.onepass_attention_lse(q, q, q),
+                 lambda: oa.onepass_attention_bwd(q, q, q, q, lse, lse)):
+        before = [w.launches for w in BWD_WRAPPERS]
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+        assert [w.launches for w in BWD_WRAPPERS] == before
+
+
 def test_kernel_sources_are_in_the_tree():
     names = {p.name for p in _build.sources()}
     assert {"onepass_attention.cu", "flash_attention.cu",
-            "paged_attention.cu", "attention_core.cuh"} <= names
+            "flash_attention_bwd.cu", "paged_attention.cu",
+            "attention_core.cuh"} <= names
     for name, argtypes in _build.SIGNATURES.items():
         text = "".join(p.read_text() for p in _build.sources())
         assert f'extern "C" int {name}(' in text
@@ -185,7 +212,7 @@ def test_paged_wrappers_refuse_non_cpu_tensors(dtype):
 @pytest.mark.parametrize("option,refused", [
     (dict(paged_multi_query=True), False),
     (dict(scan_layers=True), True),
-    (dict(remat=True), True),
+    (dict(remat=True), False),
     (dict(weight_dtype="int8"), False)],
     ids=["paged_multi_query", "scan_layers", "remat", "int8_weights"])
 def test_decoder_refuses_only_unported_options(option, refused):
