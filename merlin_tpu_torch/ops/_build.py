@@ -6,7 +6,9 @@ a build takes seconds, not minutes), linked into one shared library and
 loaded with :mod:`ctypes`. The sources compile in parallel, one ``nvcc``
 each. The library lands in ``csrc/build/`` (listed in ``.gitignore``)
 under a name that hashes the sources, so an edited source rebuilds and an
-unchanged one loads the library already built.
+unchanged one loads the library already built. ptxas reports each
+kernel's registers, shared memory and spills (``-Xptxas -v``); the report
+is kept beside the library (:func:`ptxas_log`).
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on a non-zero code.
@@ -26,7 +28,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,14 +46,11 @@ SIGNATURES = {
     # q/k/v strides (b, s, h), scale, causal, stream
     "merlin_flash_attention_fwd_bf16": (
         [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _I, _P]),
-    # q, k, v, do, lse, di, dq, qseg, kseg, slopes, b, sq, skv, h, hkv, d,
-    # q/k/v/do strides (b, s, h), scale, causal, stream
-    "merlin_flash_attention_bwd_dq_bf16": (
-        [_P] * 10 + [_I] * 6 + [_L] * 12 + [_F, _I, _P]),
-    # q, k, v, do, lse, di, dk, dv, qseg, kseg, slopes, b, sq, skv, h, hkv,
-    # d, q/k/v/do strides (b, s, h), scale, causal, stream
-    "merlin_flash_attention_bwd_dkv_bf16": (
-        [_P] * 11 + [_I] * 6 + [_L] * 12 + [_F, _I, _P]),
+    # q, k, v, out (or NULL), do, lse, di, dq_acc, dq, dk, dv, qseg, kseg,
+    # slopes, b, sq, skv, h, hkv, d, q/k/v/do/out strides (b, s, h), scale,
+    # causal, stream
+    "merlin_flash_attention_bwd_bf16": (
+        [_P] * 14 + [_I] * 6 + [_L] * 15 + [_F, _I, _P]),
     # q, k_pages, v_pages, lengths, tables, slopes, out, b, h, hkv, d,
     # page_size, pages_per_seq, scale, stream
     "merlin_paged_decode_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
@@ -107,11 +106,12 @@ def build() -> Path:
             [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for src, obj in zip(cu, objs)]
-        failed = []
+        failed, report = [], []
         for src, proc in zip(cu, procs):
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{src.name}:\n{out}")
+            report.append(f"{src.name}:\n{out}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / target.name
@@ -121,8 +121,15 @@ def build() -> Path:
             text=True)
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        target.with_suffix(".log").write_text("".join(report))
         os.replace(tmp_lib, target)
     return target
+
+
+def ptxas_log() -> str:
+    """What nvcc and ptxas printed while building the library (registers,
+    shared memory and spill bytes of every kernel)."""
+    return build().with_suffix(".log").read_text()
 
 
 def lib() -> ctypes.CDLL:

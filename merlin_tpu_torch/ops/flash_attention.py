@@ -4,8 +4,9 @@ no-cache path).
 Counterpart of ``merlin_tpu/ops/flash_attention.py``: ``_fwd_kernel`` via
 ``_flash_fwd_pallas`` (B2, ``csrc/flash_attention.cu``), and
 ``_bwd_dq_kernel`` / ``_bwd_dkv_gqa_kernel`` via ``_flash_bwd_pallas``
-(B10 / B11, ``csrc/flash_attention_bwd.cu``). Each source note says what
-bounds its kernel on the H100 and how the design answers.
+(B10 / B11, both served by one fused kernel in
+``csrc/flash_attention_bwd.cu``). Each source note says what bounds its
+kernel on the H100 and how the design answers.
 
 Each kernel has a wrapper that launches it for CUDA tensors and raises on
 anything it does not take, and a ``*_plain`` version: the same function in
@@ -14,9 +15,12 @@ card. :func:`flash_attention` returns ``(out, lse)``: out in q's dtype, the
 natural-log LSE in f32 as (b, h, sq). :func:`flash_attention_bwd_dq` (B10)
 and :func:`flash_attention_bwd_dkv` (B11) take that LSE and
 di = sum(out * do) per row (:func:`attention_di`, plain torch, as JAX
-computes it in XLA) and return dq, and dk/dv per kv head. No sequence
-length needs padding. :func:`differentiable_flash_attention` is the
-autograd function the dispatcher calls: B2 forward, B10 + B11 backward.
+computes it in XLA) and return dq, and dk/dv per kv head; on the card
+each is one launch of the fused backward. :func:`flash_attention_bwd`
+takes the forward's out instead of di and returns all three from one
+launch. No sequence length needs padding.
+:func:`differentiable_flash_attention` is the autograd function the
+dispatcher calls: B2 forward, :func:`flash_attention_bwd` backward.
 """
 
 from __future__ import annotations
@@ -215,8 +219,9 @@ def flash_attention_bwd_dkv_plain(
             dv.reshape(group).sum(3).to(v.dtype))
 
 
-def _check_bwd(name, q, k, v, do, lse, di):
-    """Raise unless do, lse and di are what the backward kernels read."""
+def _check_bwd(name, q, k, v, do, lse, di=None):
+    """Raise unless do, lse and di (when given) are what the backward
+    kernel reads."""
     _build.check_qkv(name, q, k, v, max_d=128)
     _build.check_qkv(name, do, k, v, max_d=128)
     if do.shape != q.shape:
@@ -224,49 +229,46 @@ def _check_bwd(name, q, k, v, do, lse, di):
                          f"{tuple(q.shape)}")
     shape = (q.shape[0], q.shape[2], q.shape[1])
     for t, tn in ((lse, "lse"), (di, "di")):
-        if (t.device != q.device or t.dtype != torch.float32
+        if t is not None and (
+                t.device != q.device or t.dtype != torch.float32
                 or tuple(t.shape) != shape or not t.is_contiguous()):
             raise ValueError(f"{name}: {tn} must be contiguous float32 "
                              f"{shape} on {q.device}")
 
 
-def _bwd_args(q, k, v, do, lse, di, causal, scale):
-    """The leading pointers and the trailing dims, strides, scale, causal
-    flag and stream the two backward kernels share."""
+def _check_out(name, q, k, v, out):
+    """Raise unless the forward's out is what the pre-pass reads for di."""
+    _build.check_qkv(name, out, k, v, max_d=128)
+    if out.shape != q.shape:
+        raise ValueError(f"{name}: out {tuple(out.shape)} must match q "
+                         f"{tuple(q.shape)}")
+
+
+def _launch_bwd(name, q, k, v, do, lse, di, out, segment_ids_q,
+                segment_ids_kv, alibi_slopes, causal, scale):
+    """One launch of the fused backward on checked inputs: the pre-pass
+    (zeroes the f32 dq buffer; given ``out`` instead of ``di``, computes di
+    = sum(out * do)), the key-major kernel, the post-pass (dq to bf16).
+    Returns dq (b, sq, h, d) and dk, dv (b, skv, hkv, d)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), di.data_ptr())
-    dims = (b, sq, skv, h, hkv, d, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *do.stride()[:3], float(scale), int(causal),
-            _build.stream_handle(q.device))
-    return ptrs, dims
-
-
-def _launch_bwd_dq(name, q, k, v, do, lse, di, segment_ids_q,
-                   segment_ids_kv, alibi_slopes, causal, scale):
-    """Launch the dq kernel on checked inputs; (b, sq, h, d) in q's dtype."""
-    ptrs, dims = _bwd_args(q, k, v, do, lse, di, causal, scale)
+    if di is None:
+        di = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    code = _build.lib().merlin_flash_attention_bwd_dq_bf16(
-        *ptrs, dq.data_ptr(), _ptr(segment_ids_q), _ptr(segment_ids_kv),
-        _ptr(alibi_slopes), *dims)
-    _build.check(code, name)
-    return dq
-
-
-def _launch_bwd_dkv(name, q, k, v, do, lse, di, segment_ids_q,
-                    segment_ids_kv, alibi_slopes, causal, scale):
-    """Launch the dk/dv kernel on checked inputs; (b, skv, hkv, d) each."""
-    ptrs, dims = _bwd_args(q, k, v, do, lse, di, causal, scale)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    code = _build.lib().merlin_flash_attention_bwd_dkv_bf16(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), _ptr(segment_ids_q),
-        _ptr(segment_ids_kv), _ptr(alibi_slopes), *dims)
+    code = _build.lib().merlin_flash_attention_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(out), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _ptr(segment_ids_q),
+        _ptr(segment_ids_kv), _ptr(alibi_slopes), b, sq, skv, h, hkv, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *(out.stride()[:3] if out is not None else (0, 0, 0)), float(scale),
+        int(causal), _build.stream_handle(q.device))
     _build.check(code, name)
-    return dk, dv
+    return dq, dk, dv
 
 
 def flash_attention_bwd_dq(
@@ -277,7 +279,8 @@ def flash_attention_bwd_dq(
     alibi_slopes: Optional[torch.Tensor] = None,
     causal: bool = True, scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """B10: dq; see :func:`flash_attention_bwd_dq_plain`."""
+    """B10: dq; see :func:`flash_attention_bwd_dq_plain`. On the card, one
+    launch of the fused backward, of which dq is returned."""
     kw = dict(segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
               alibi_slopes=alibi_slopes, causal=causal, scale=scale)
     if q.device.type == "cpu":
@@ -285,9 +288,9 @@ def flash_attention_bwd_dq(
     _check_bwd("flash_attention_bwd_dq", q, k, v, do, lse, di)
     _check_masks("flash_attention_bwd_dq", q, k, segment_ids_q,
                  segment_ids_kv, alibi_slopes)
-    dq = _launch_bwd_dq("flash_attention_bwd_dq", q, k, v, do, lse, di,
-                        segment_ids_q, segment_ids_kv, alibi_slopes, causal,
-                        scale)
+    dq, _, _ = _launch_bwd("flash_attention_bwd_dq", q, k, v, do, lse, di,
+                           None, segment_ids_q, segment_ids_kv, alibi_slopes,
+                           causal, scale)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -303,7 +306,9 @@ def flash_attention_bwd_dkv(
     alibi_slopes: Optional[torch.Tensor] = None,
     causal: bool = True, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B11: (dk, dv) per kv head; see :func:`flash_attention_bwd_dkv_plain`."""
+    """B11: (dk, dv) per kv head; see :func:`flash_attention_bwd_dkv_plain`.
+    On the card, one launch of the fused backward, of which dk and dv are
+    returned."""
     kw = dict(segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
               alibi_slopes=alibi_slopes, causal=causal, scale=scale)
     if q.device.type == "cpu":
@@ -311,9 +316,9 @@ def flash_attention_bwd_dkv(
     _check_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, di)
     _check_masks("flash_attention_bwd_dkv", q, k, segment_ids_q,
                  segment_ids_kv, alibi_slopes)
-    dk, dv = _launch_bwd_dkv("flash_attention_bwd_dkv", q, k, v, do, lse, di,
-                             segment_ids_q, segment_ids_kv, alibi_slopes,
-                             causal, scale)
+    _, dk, dv = _launch_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, di,
+                            None, segment_ids_q, segment_ids_kv,
+                            alibi_slopes, causal, scale)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -321,18 +326,39 @@ def flash_attention_bwd_dkv(
 flash_attention_bwd_dkv.launches = 0
 
 
-def flash_attention_bwd(q, k, v, out, lse, do, **kw):
-    """(dq, dk, dv) from the forward's out and LSE: di in plain torch, then
-    B10 and B11 (their plain versions for CPU tensors)."""
-    di = attention_di(out, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, di, **kw)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw)
-    return dq, dk, dv
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *,
+    segment_ids_q: Optional[torch.Tensor] = None,
+    segment_ids_kv: Optional[torch.Tensor] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    causal: bool = True, scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's out and LSE (B10 + B11); see
+    :func:`flash_attention_bwd_plain`. On the card, one launch of the fused
+    backward, whose pre-pass computes di from out and do."""
+    kw = dict(segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
+              alibi_slopes=alibi_slopes, causal=causal, scale=scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    _check_bwd("flash_attention_bwd", q, k, v, do, lse)
+    _check_out("flash_attention_bwd", q, k, v, out)
+    _check_masks("flash_attention_bwd", q, k, segment_ids_q, segment_ids_kv,
+                 alibi_slopes)
+    grads = _launch_bwd("flash_attention_bwd", q, k, v, do, lse, None, out,
+                        segment_ids_q, segment_ids_kv, alibi_slopes, causal,
+                        scale)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+flash_attention_bwd.launches = 0
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, **kw):
-    """:func:`flash_attention_bwd` through the plain versions on any
-    device: the yardstick of B10 + B11 on the card."""
+    """:func:`flash_attention_bwd` in plain PyTorch on any device: di by
+    :func:`attention_di`, then the B10 and B11 plain versions; the
+    yardstick of the fused kernel on the card."""
     di = attention_di(out, do)
     dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, di, **kw)
     dk, dv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, di, **kw)
@@ -342,7 +368,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, do, **kw):
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with its kernels' backward, as the JAX package's
     ``_flash`` custom VJP: the forward (B2) saves out and the LSE, the
-    backward runs B10 + B11 from them."""
+    backward makes one fused launch (B10 + B11) from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids_q, segment_ids_kv, alibi_slopes,
@@ -372,6 +398,7 @@ def differentiable_flash_attention(
     alibi_slopes: Optional[torch.Tensor] = None,
     causal: bool = True, scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Flash attention's output with a kernel backward (B2; B10 + B11)."""
+    """Flash attention's output with a kernel backward (B2; the fused
+    B10 + B11)."""
     return FlashAttentionFn.apply(q, k, v, segment_ids_q, segment_ids_kv,
                                   alibi_slopes, causal, scale)

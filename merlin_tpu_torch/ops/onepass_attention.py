@@ -9,9 +9,9 @@ Counterpart of ``merlin_tpu/ops/onepass_attention.py``:
     ``_onepass_fwd_rule`` -> :func:`onepass_attention_lse`, the same kernel
     writing the natural-log LSE as well;
   * B13, its backward: ``_make_dq_kernel`` / ``_make_dkv_kernel`` via
-    ``_onepass_bwd_rule`` -> :func:`onepass_attention_bwd`, which runs the
-    flash backward kernels (``csrc/flash_attention_bwd.cu``) non-causal and
-    unmasked: they mask the ragged edge at 1025 themselves, where the TPU
+    ``_onepass_bwd_rule`` -> :func:`onepass_attention_bwd`, one launch of
+    the fused flash backward (``csrc/flash_attention_bwd.cu``) non-causal
+    and unmasked: it masks the ragged edge at 1025 itself, where the TPU
     pads to 128 and lets the zero rows cancel.
 
 Each wrapper launches its kernel for CUDA tensors and raises on anything it
@@ -30,7 +30,7 @@ import torch
 
 from merlin_tpu_torch.ops import _build
 from merlin_tpu_torch.ops.flash_attention import (
-    _check_bwd, _launch_bwd_dkv, _launch_bwd_dq, attention_di)
+    _check_bwd, _check_out, _launch_bwd, attention_di)
 
 LOG2E = math.log2(math.e)
 
@@ -143,24 +143,24 @@ def onepass_attention_bwd_plain(
 
 def onepass_attention_bwd(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-        lse: torch.Tensor, di: torch.Tensor, *,
+        lse: torch.Tensor, out: torch.Tensor, *,
         scale: Optional[float] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """B13: (dq, dk, dv) from B12's LSE and di = sum(out * do); see
-    :func:`onepass_attention_bwd_plain`. One call launches the flash
-    backward's dq and dk/dv kernels, non-causal with no masks."""
+    """B13: (dq, dk, dv) from B12's out and LSE; see
+    :func:`onepass_attention_bwd_plain`, fed di = sum(out * do). One call
+    makes one launch of the fused flash backward, non-causal with no masks,
+    whose pre-pass computes di."""
     if q.device.type == "cpu":
-        return onepass_attention_bwd_plain(q, k, v, do, lse, di, scale=scale)
-    _check_bwd("onepass_attention_bwd", q, k, v, do, lse, di)
+        return onepass_attention_bwd_plain(q, k, v, do, lse,
+                                           attention_di(out, do), scale=scale)
+    _check_bwd("onepass_attention_bwd", q, k, v, do, lse)
     if k.shape[2] != q.shape[2]:
         raise ValueError("onepass_attention_bwd: GQA is not supported")
-    masks = (None, None, None, False, scale)
-    dq = _launch_bwd_dq("onepass_attention_bwd (dq)", q, k, v, do, lse, di,
-                        *masks)
-    dk, dv = _launch_bwd_dkv("onepass_attention_bwd (dk, dv)", q, k, v, do,
-                             lse, di, *masks)
+    _check_out("onepass_attention_bwd", q, k, v, out)
+    grads = _launch_bwd("onepass_attention_bwd", q, k, v, do, lse, None, out,
+                        None, None, None, False, scale)
     onepass_attention_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 onepass_attention_bwd.launches = 0
@@ -181,10 +181,8 @@ class OnepassAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        do = do.contiguous()
-        dq, dk, dv = onepass_attention_bwd(q, k, v, do, lse,
-                                           attention_di(out, do),
-                                           scale=ctx.scale)
+        dq, dk, dv = onepass_attention_bwd(q, k, v, do.contiguous(), lse,
+                                           out, scale=ctx.scale)
         return dq, dk, dv, None
 
 

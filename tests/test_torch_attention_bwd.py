@@ -5,7 +5,8 @@ functions) against the JAX package on the CPU.
     Pallas ``_flash_fwd_pallas`` + ``_flash_bwd_pallas`` in TPU interpret
     mode: causal with segment ids, ALiBi, GQA 4/2, non-causal, and a ragged
     length (which the JAX side pads to its block, with the padding in its
-    own segment);
+    own segment); the fused entry ``flash_attention_bwd`` (one launch for
+    dq, dk and dv on the card) on the CPU against both;
   * B12: ``onepass_attention_lse_plain`` against ``_onepass_fwd(emit_lse=
     True)`` in interpret mode;
   * B13: ``onepass_attention_bwd_plain`` against ``jax.vjp`` of
@@ -116,6 +117,34 @@ def test_flash_bwd_plain_matches_pallas_interpret(case):
         np.testing.assert_allclose(g, w, atol=TOL, rtol=TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_fused_flash_bwd_matches_separate_plain_and_pallas(case):
+    """``flash_attention_bwd`` (the fused B10 + B11 entry, which takes the
+    forward's out instead of di) on CPU tensors: equal to the B10 and B11
+    plain versions fed ``attention_di``, and to the Pallas backward in
+    interpret mode within TOL."""
+    c = FLASH_CASES[case]
+    q, k, v, do = _inputs(8, c["b"], c["s"], c["h"], c["hkv"], 64)
+    seg = _segments(c["b"], c["s"], c["s"] // 2 + 3) if c["seg"] else None
+    slopes = (np.asarray([2.0 ** -(i + 1) for i in range(c["h"])],
+                         np.float32) if c["alibi"] else None)
+    want = _jax_flash(q, k, v, do, seg, slopes, causal=c["causal"])
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    kw = dict(causal=c["causal"],
+              segment_ids_q=None if seg is None else torch.from_numpy(seg),
+              segment_ids_kv=None if seg is None else torch.from_numpy(seg),
+              alibi_slopes=None if slopes is None else torch.from_numpy(slopes))
+    out, lse = fa.flash_attention_plain(*t[:3], **kw)
+    got = fa.flash_attention_bwd(*t[:3], out, lse, t[3], **kw)
+    di = fa.attention_di(out, t[3])
+    separate = (fa.flash_attention_bwd_dq_plain(*t, lse, di, **kw),
+                *fa.flash_attention_bwd_dkv_plain(*t, lse, di, **kw))
+    for name, g, s_, w in zip(("dq", "dk", "dv"), got, separate, want[2:]):
+        assert torch.equal(g, s_), name
+        np.testing.assert_allclose(g.numpy(), w, atol=TOL, rtol=TOL,
+                                   err_msg=name)
+
+
 def test_flash_bwd_ragged_length_matches_padded_pallas():
     """The port's backward takes sq = 200 as it is; the JAX kernels take
     it padded to their 128-row block, the padding in a segment of its own
@@ -154,7 +183,7 @@ def test_onepass_lse_plain_matches_pallas_interpret():
 
 
 def test_onepass_bwd_plain_matches_jax_vjp_interpret():
-    """B13: the one-pass backward from B12's LSE against jax.vjp of
+    """B13: the one-pass backward from B12's out and LSE against jax.vjp of
     onepass_attention (its Pallas dq and dk/dv kernels)."""
     q, k, v, do = _inputs(4, 1, 200, 4, 4, 64)
     with pltpu.force_tpu_interpret_mode():
@@ -162,8 +191,7 @@ def test_onepass_bwd_plain_matches_jax_vjp_interpret():
         want = vjp(jnp.asarray(do))
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     out, lse = oa.onepass_attention_lse(tq, tk, tv)
-    got = oa.onepass_attention_bwd(tq, tk, tv, tdo, lse,
-                                   fa.attention_di(out, tdo))
+    got = oa.onepass_attention_bwd(tq, tk, tv, tdo, lse, out)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
                                    rtol=TOL, err_msg=name)

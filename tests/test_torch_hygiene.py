@@ -70,6 +70,7 @@ def test_entry_points_default_to_the_card(fn):
     (fa.flash_attention, "flash_attention_plain"),
     (fa.flash_attention_bwd_dq, "flash_attention_bwd_dq_plain"),
     (fa.flash_attention_bwd_dkv, "flash_attention_bwd_dkv_plain"),
+    (fa.flash_attention_bwd, "flash_attention_bwd_plain"),
     (oa.onepass_attention_lse, "onepass_attention_lse_plain"),
     (oa.onepass_attention_bwd, "onepass_attention_bwd_plain"),
     (pa.paged_attention_dma, "paged_attention_plain"),
@@ -135,20 +136,23 @@ def test_non_cpu_tensors_are_refused_not_computed_plain(dtype):
 
 
 BWD_WRAPPERS = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
-                oa.onepass_attention_lse, oa.onepass_attention_bwd)
+                fa.flash_attention_bwd, oa.onepass_attention_lse,
+                oa.onepass_attention_bwd)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
 def test_backward_wrappers_refuse_non_cpu_tensors(dtype):
-    """The training kernels' wrappers (B10-B13) refuse meta tensors before
-    any launch, as the forward ones do."""
+    """The training kernels' wrappers (B10-B13, and the fused B10 + B11
+    entry) refuse meta tensors before any launch, as the forward ones
+    do."""
     q = torch.empty((1, 130, 2, 64), dtype=dtype, device="meta")
     lse = torch.empty((1, 2, 130), dtype=torch.float32, device="meta")
     for call in (lambda: fa.flash_attention_bwd_dq(q, q, q, q, lse, lse),
                  lambda: fa.flash_attention_bwd_dkv(q, q, q, q, lse, lse),
+                 lambda: fa.flash_attention_bwd(q, q, q, q, lse, q),
                  lambda: oa.onepass_attention_lse(q, q, q),
-                 lambda: oa.onepass_attention_bwd(q, q, q, q, lse, lse)):
+                 lambda: oa.onepass_attention_bwd(q, q, q, q, lse, q)):
         before = [w.launches for w in BWD_WRAPPERS]
         with pytest.raises(ValueError, match="CUDA"):
             call()
