@@ -7,11 +7,14 @@ the LM quantized to int8) and of Baichuan-13B:
 
   1. setup      - card name and power limit; build the CUDA kernels from
                   ``merlin_tpu_torch/csrc`` (nvcc, sm_90a) and print what
-                  ptxas reported for the backward kernel (registers,
-                  spills);
+                  ptxas reported for every wgmma kernel, the forward's and
+                  the backward's instantiations (registers, spills: any
+                  spill fails);
   2. kernels    - each kernel (B1-B9) against its plain PyTorch version on
                   the card at its path's shapes (and edge cases: GQA, ALiBi,
-                  ragged lengths over permuted page tables, hkv = 40), with
+                  ragged lengths over permuted page tables, hkv = 40; B1 at
+                  d = 104, B2 at the training shape with its padding, the
+                  paged kernels at d = 64), with
                   times, the bound from the shapes, and one PyTorch library
                   call as a yardstick where one exists (SDPA pinned to its
                   flash backend and to the unpinned dispatcher's pick, each
@@ -50,9 +53,12 @@ the LM quantized to int8) and of Baichuan-13B:
                   path: B2 then the fused backward (B10 dq + B11 dk, dv in
                   one kernel) at the decoder's (1, 2048, 32, 128) causal
                   with a padded tail, GQA 8/2 + ALiBi, non-causal, and
-                  causal with fewer queries than keys; B12 (one-pass
-                  forward with its LSE) then B13 (the fused kernel,
-                  non-causal) at the tower's (8, 1025, 16, 64); a second
+                  causal with fewer queries than keys, and the widths the
+                  card had not run: d = 80 and d = 256 (GQA 8/4, the
+                  column-split backward) at (1, 1024) causal with a padded
+                  tail; B12 (one-pass forward with its LSE) then B13 (the
+                  fused kernel, non-causal) at the tower's (8, 1025, 16,
+                  64), and at d = 80 and 104 (2, 1025, 16); a second
                   run gives dk/dv bit-identical and dq within tolerance
                   (C17); the whole backward against SDPA's on the same
                   inputs (as above, 5 alternating pairs of runs per
@@ -125,8 +131,9 @@ Q8_GEN_RTOL = 1e-1           # the same over int8 pages: a key's int8 step
                              # 80GB HBM3 at 700 W; a swapped prompt gives
                              # 0.53-1.32
 
-B1_SOURCE = "merlin_tpu_torch/csrc/onepass_attention.cu"
-B2_SOURCE = "merlin_tpu_torch/csrc/flash_attention.cu"
+# B1, B2 and B12 run one forward kernel (two entry names, one body)
+B1_SOURCE = "merlin_tpu_torch/csrc/attention_fwd.cu"
+B2_SOURCE = "merlin_tpu_torch/csrc/attention_fwd.cu"
 B1_REPLACES = "merlin_tpu/ops/onepass_attention.py:254"
 B2_REPLACES = "merlin_tpu/ops/flash_attention.py:161"
 PAGED_SOURCE = "merlin_tpu_torch/csrc/paged_attention.cu"
@@ -355,7 +362,10 @@ def check_b1(gen):
         onepass_attention, onepass_attention_plain)
 
     rows = []
-    for shape in [(2, 1025, 16, 64), (3, 257, 16, 64), (1, 77, 4, 128)]:
+    # the tower's (ViT-L/14-448) shape, ragged ones, d = 128, and d = 104
+    # (Qwen-VL's bigG tower; C18: a width the card had not run)
+    for shape in [(2, 1025, 16, 64), (3, 257, 16, 64), (1, 77, 4, 128),
+                  (1, 1025, 16, 104)]:
         q, k, v = (layer_normed(shape, gen) for _ in range(3))
         got = onepass_attention(q, k, v)
         want = onepass_attention_plain(q, k, v)
@@ -366,11 +376,13 @@ def check_b1(gen):
         if not rel <= OUT_RTOL:
             raise AssertionError(f"B1 {shape} disagrees: {err} {rel}")
         rows.append((err, q, k, v, got, want))
-    # the KV tile is 64 keys: at s=1025 the last tile holds key 1024 alone
+        # the KV tile is 128 keys: at s=1025 the last tile holds key 1024
+        # alone
+        if shape[1] == 1025:
+            s = shape[1]
+            planted_fault(f"B1 {shape}", out_err(onepass_attention(
+                q, k[:, :s - 1], v[:, :s - 1]), want)[1])
     _, q, k, v, out, want = rows[0]
-    s = q.shape[1]
-    planted_fault("B1", out_err(onepass_attention(
-        q, k[:, :s - 1], v[:, :s - 1]), want)[1])
     # time at the tower's shape, per image batch of 1 (one layer's call)
     q1, k1, v1, out1 = q[:1], k[:1], v[:1], out[:1]
     b, s, h, d = q1.shape
@@ -439,6 +451,21 @@ def check_b2(gen):
                 and l_s[1, :, 7].eq(NEG_INF).all().item()):
             raise AssertionError("B2 fully masked row is not 0 / NEG_INF")
 
+    # the training shape, as T1 runs B2: causal, the last 300 positions
+    # padding (a segment of their own)
+    tshape = (1, 2048, 32, 128)
+    qt, kt, vt = (torch.randn(tshape, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    seg_t = torch.ones(tshape[:2], dtype=torch.int32, device="cuda")
+    seg_t[:, -N_PAD:] = 0
+    pad = dict(causal=True, segment_ids_q=seg_t, segment_ids_kv=seg_t)
+    out_t, lse_t, want_t = compare(
+        f"{tshape} causal, last {N_PAD} padding", qt, kt, vt, **pad)
+    cut = tshape[1] - 64
+    planted_fault(f"B2 {tshape} padded", out_err(flash_attention(
+        qt, kt[:, :cut], vt[:, :cut], causal=True, segment_ids_q=seg_t,
+        segment_ids_kv=seg_t[:, :cut].contiguous())[0], want_t)[1])
+
     bq, sq, hq, dq = shape
     lib_for, qkv = sdpa_fwd(q, k, v, is_causal=True)
     p = vs_sdpa(lambda: flash_attention(q, k, v, causal=True), lib_for,
@@ -449,10 +476,30 @@ def check_b2(gen):
     bms, by = bound_ms(4.0 * bq * hq * pairs * dq, nbytes(q, k, v, out, lse))
     log(f"B2 {shape} causal bf16: " + sdpa_text(p) + f", plain {plain:.4f} "
         f"ms, bound {bms:.4f} ms ({by})")
+    # at the training shape: the padded call as T1 makes it, and like for
+    # like against SDPA (causal, no padding), in alternating pairs
+    _, st, ht, dt = tshape
+    ms_t = time_ms(lambda: flash_attention(qt, kt, vt, **pad))
+    bms_t, by_t = bound_ms(4.0 * ht * visible_pairs(st, st, True, seg_t,
+                                                    seg_t) * dt,
+                           nbytes(qt, kt, vt, out_t, lse_t))
+    lib_for, qkv = sdpa_fwd(qt, kt, vt, is_causal=True)
+    p_t = vs_sdpa(lambda: flash_attention(qt, kt, vt, causal=True), lib_for,
+                  *qkv, is_causal=True)
+    del lib_for, qkv
+    bms_c, by_c = bound_ms(4.0 * ht * st * (st + 1) / 2 * dt,
+                           nbytes(qt, kt, vt, out_t, lse_t))
+    log(f"B2 {tshape} causal, last {N_PAD} padding bf16: kernel {ms_t:.4f} "
+        f"ms, bound {bms_t:.4f} ms ({by_t}); causal, no padding: "
+        + sdpa_text(p_t) + f", bound {bms_c:.4f} ms ({by_c})")
+    training = dict(shape=list(tshape), padded_ms=ms_t,
+                    padded_bound_ms=bms_t, padded_bound_by=by_t,
+                    bound_ms=bms_c, bound_by=by_c, **sdpa_fields(p_t))
     return dict(name="B2 flash_attention_fwd", route="cuda",
                 source=B2_SOURCE, replaces=B2_REPLACES,
                 max_abs_err=max(errs), plain_ms=plain, bound_ms=bms,
-                bound_by=by, shape=list(shape), **sdpa_fields(p))
+                bound_by=by, shape=list(shape), training_shape=training,
+                **sdpa_fields(p))
 
 
 def runs_text(times) -> str:
@@ -552,38 +599,70 @@ def check_flash_bwd(gen, b2_row):
                  *fa.flash_attention_bwd_dkv(q, k, v, do, lse, di, **kw))
         torch.cuda.synchronize()
         check_grads(f"B10/B11 wrappers {tag}", split, want, errs)
-        return out, lse, di, got, want
+        return out, lse, di, got, want, want_out
+
+    def padded(b, s, h, hkv, d):
+        """Inputs at (b, s, h/hkv, d) with segment ids whose last 300
+        positions are padding, as the LM path's attention mask gives."""
+        seg = torch.ones((b, s), dtype=torch.int32, device="cuda")
+        seg[:, s - N_PAD:] = 0
+        return inputs(b, s, h, hkv, d), dict(
+            causal=True, segment_ids_q=seg, segment_ids_kv=seg)
+
+    def faults(tag, q, k, v, do, kw, fwd, want, with_b2=False):
+        """Planted faults on a padded causal case: keys from s - 64 left
+        out of dq (and of B2's out); queries from s - 64 left out of dk/dv
+        (the keys only they see lose everything)."""
+        out, lse, di, want_out = fwd
+        seg = kw["segment_ids_q"]
+        cut = q.shape[1] - 64
+        seg_cut = seg[:, :cut].contiguous()
+        if with_b2:
+            planted_fault(f"B2 {tag}", out_err(fa.flash_attention(
+                q, k[:, :cut], v[:, :cut], causal=True, segment_ids_q=seg,
+                segment_ids_kv=seg_cut)[0], want_out)[1])
+        dq_bad = fa.flash_attention_bwd_dq(
+            q, k[:, :cut], v[:, :cut], do, lse, di, causal=True,
+            segment_ids_q=seg, segment_ids_kv=seg_cut)
+        dkv_bad = fa.flash_attention_bwd_dkv(
+            q[:, :cut], k, v, do[:, :cut], lse[..., :cut].contiguous(),
+            di[..., :cut].contiguous(), causal=True, segment_ids_q=seg_cut,
+            segment_ids_kv=seg)
+        torch.cuda.synchronize()
+        for name, got_bad, ref, what in (
+                ("B10", dq_bad, want[0], "last key tile dropped from dq"),
+                ("B11", dkv_bad[0], want[1],
+                 "last query tile dropped from dk"),
+                ("B11", dkv_bad[1], want[2],
+                 "last query tile dropped from dv")):
+            rel = grad_err(got_bad, ref)[1]
+            log(f"{name} {tag} planted fault ({what}): row error "
+                f"{rel:.3e}, must exceed {OUT_RTOL:.3e}")
+            if not rel > OUT_RTOL:
+                raise AssertionError(f"{name}: the check cannot see: {what}")
 
     b, s, h, d = 1, 2048, 32, 128
-    q, k, v, do = inputs(b, s, h, h, d)
-    seg = torch.ones((b, s), dtype=torch.int32, device="cuda")
-    seg[:, s - 300:] = 0
-    kw = dict(causal=True, segment_ids_q=seg, segment_ids_kv=seg)
-    out, lse, di, got, want = compare(
+    (q, k, v, do), kw = padded(b, s, h, h, d)
+    seg = kw["segment_ids_q"]
+    out, lse, di, got, want, want_out = compare(
         "(1, 2048, 32, 128) causal, last 300 padding", q, k, v, do, **kw)
     rerun = check_rerun(
         "B10/B11 fused (1, 2048, 32, 128)",
         lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw), got)
-    # planted faults: keys 1984.. left out of dq; queries 1984.. left out
-    # of dk/dv (the keys only they see lose everything)
-    cut = s - 64
-    dq_bad = fa.flash_attention_bwd_dq(
-        q, k[:, :cut], v[:, :cut], do, lse, di, causal=True,
-        segment_ids_q=seg, segment_ids_kv=seg[:, :cut].contiguous())
-    dkv_bad = fa.flash_attention_bwd_dkv(
-        q[:, :cut], k, v, do[:, :cut], lse[..., :cut].contiguous(),
-        di[..., :cut].contiguous(), causal=True,
-        segment_ids_q=seg[:, :cut].contiguous(), segment_ids_kv=seg)
-    torch.cuda.synchronize()
-    for name, got_bad, ref, what in (
-            ("B10", dq_bad, want[0], "last key tile dropped from dq"),
-            ("B11", dkv_bad[0], want[1], "last query tile dropped from dk"),
-            ("B11", dkv_bad[1], want[2], "last query tile dropped from dv")):
-        rel = grad_err(got_bad, ref)[1]
-        log(f"{name} planted fault ({what}): row error {rel:.3e}, must "
-            f"exceed {OUT_RTOL:.3e}")
-        if not rel > OUT_RTOL:
-            raise AssertionError(f"{name}: the check cannot see: {what}")
+    faults("(1, 2048, 32, 128)", q, k, v, do, kw, (out, lse, di, want_out),
+           want)
+    # C18/C19: head dims the card had not run, B2 then the backward: d = 80
+    # (phi-2's width) and d = 256 with GQA 8/4 (the column-split form)
+    wide = {}
+    for shape in ((1, 1024, 32, 32, 80), (1, 1024, 8, 4, 256)):
+        tag = f"({shape[0]}, {shape[1]}, {shape[2]}/{shape[3]} heads, " \
+              f"{shape[4]}) causal, last {N_PAD} padding"
+        (qw, kw_, vw, dow), kww = padded(*shape)
+        o_w, l_w, di_w, got_w, want_w, wo_w = compare(tag, qw, kw_, vw, dow,
+                                                      **kww)
+        faults(tag, qw, kw_, vw, dow, kww, (o_w, l_w, di_w, wo_w), want_w,
+               with_b2=True)
+        wide[shape[4]] = (qw, kw_, vw, dow, kww, o_w, l_w)
 
     qg, kg, vg, dog = inputs(2, 200, 8, 2, 128)
     slopes = torch.tensor([2.0 ** -(i + 1) for i in range(8)], device="cuda")
@@ -619,6 +698,23 @@ def check_flash_bwd(gen, b2_row):
                                                causal=True), lib_for, *qkv,
                 is_causal=True)
     del lib_for, qkv
+    # the column-split form at d = 256: both halves contract S^T and dP^T,
+    # so it does 7 products of 2 d flops per visible pair where the
+    # function needs 5
+    qw, kw_, vw, dow, kww, o_w, l_w = wide[256]
+    ms256 = time_ms(lambda: fa.flash_attention_bwd(qw, kw_, vw, o_w, l_w, dow,
+                                                   **kww))
+    pairs256 = visible_pairs(qw.shape[1], qw.shape[1], True,
+                             kww["segment_ids_q"], kww["segment_ids_kv"])
+    io256 = nbytes(qw, kw_, vw, dow, o_w, l_w) + nbytes(qw, kw_, vw)
+    b256, by256 = bound_ms(5 * 2.0 * qw.shape[2] * pairs256 * 256, io256)
+    b256_7, _ = bound_ms(7 * 2.0 * qw.shape[2] * pairs256 * 256, io256)
+    log(f"B10/B11 fused {tuple(qw.shape)} (hkv {kw_.shape[2]}) causal + "
+        f"padding bf16: one launch {ms256:.4f} ms, bound {b256:.4f} ms "
+        f"({by256}, 5 products), {b256_7:.4f} ms for the 7 products the "
+        f"column split does")
+    d256 = dict(shape=list(qw.shape), hkv=kw_.shape[2], ms=ms256,
+                bound_ms=b256, bound_by=by256, bound_ms_7_products=b256_7)
     b2_row["max_abs_err"] = max([b2_row["max_abs_err"]] + errs["B2"])
     log(f"B10/B11 fused (1, 2048, 32, 128) causal + padding bf16: one launch "
         f"{ms:.4f} ms (pre-pass with di, kernel, post-pass; plain {plain:.4f} "
@@ -629,7 +725,7 @@ def check_flash_bwd(gen, b2_row):
                kernel="flash_bwd_kernel", wrapper="flash_attention_bwd",
                counter="B10+B11", ms=ms, plain_ms=plain, bound_ms=bms,
                bound_by=by, attention_di_ms=di_ms, host_us_per_call=host,
-               rerun_dq_max_diff=rerun, shape=[b, s, h, d],
+               rerun_dq_max_diff=rerun, shape=[b, s, h, d], d256=d256,
                **sdpa_fields(p, "whole_backward_ms"))
     return {"B10": dict(row, name="B10 flash_attention_bwd_dq",
                         replaces=B10_REPLACES, max_abs_err=max(errs["B10"])),
@@ -667,9 +763,50 @@ def check_onepass_train(gen):
     torch.cuda.synchronize()
     errs = {"B10": [], "B11": []}
     check_grads(f"B13 {shape}", got, ref, errs)
-    err13 = max(errs["B10"] + errs["B11"])
     rerun = check_rerun(f"B13 {shape}", lambda: oa.onepass_attention_bwd(
         q, k, v, do, lse, out), got)
+    # C18: the metaclip ViT-H/14 (d = 80) and Qwen-VL bigG (d = 104) towers'
+    # widths, each with planted faults: the last key left out of B12's out
+    # and of dq, the last query tile left out of dk/dv
+    for wshape in ((2, 1025, 16, 80), (2, 1025, 16, 104)):
+        qw, kw, vw = (layer_normed(wshape, gen) for _ in range(3))
+        dow = torch.randn(wshape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        o_w, l_w = oa.onepass_attention_lse(qw, kw, vw)
+        want_w, want_lw = oa.onepass_attention_lse_plain(qw, kw, vw)
+        torch.cuda.synchronize()
+        e_w, rel = out_err(o_w, want_w)
+        lerr = (l_w - want_lw).abs().max().item()
+        log(f"B12 {wshape}: max_abs_err {e_w:.3e}, row error {rel:.3e} (tol "
+            f"{OUT_RTOL:.3e}), lse {lerr:.3e} (tol {LSE_TOL})")
+        if not (rel <= OUT_RTOL and lerr <= LSE_TOL):
+            raise AssertionError(f"B12 {wshape} disagrees: {e_w} {rel} {lerr}")
+        err12 = max(err12, e_w)
+        sw = wshape[1]
+        planted_fault(f"B12 {wshape}", out_err(oa.onepass_attention_lse(
+            qw, kw[:, :sw - 1], vw[:, :sw - 1])[0], want_w)[1])
+        got_w = oa.onepass_attention_bwd(qw, kw, vw, dow, l_w, o_w)
+        ref_w = oa.onepass_attention_bwd_plain(qw, kw, vw, dow, l_w,
+                                               attention_di(o_w, dow))
+        torch.cuda.synchronize()
+        check_grads(f"B13 {wshape}", got_w, ref_w, errs)
+        cut = sw - 64
+        dq_bad = oa.onepass_attention_bwd(qw, kw[:, :cut], vw[:, :cut], dow,
+                                          l_w, o_w)[0]
+        dkv_bad = oa.onepass_attention_bwd(
+            qw[:, :cut], kw, vw, dow[:, :cut], l_w[..., :cut].contiguous(),
+            o_w[:, :cut])[1:]
+        torch.cuda.synchronize()
+        for got_bad, ref, what in (
+                (dq_bad, ref_w[0], "last key tile dropped from dq"),
+                (dkv_bad[0], ref_w[1], "last query tile dropped from dk"),
+                (dkv_bad[1], ref_w[2], "last query tile dropped from dv")):
+            rel = grad_err(got_bad, ref)[1]
+            log(f"B13 {wshape} planted fault ({what}): row error {rel:.3e}, "
+                f"must exceed {OUT_RTOL:.3e}")
+            if not rel > OUT_RTOL:
+                raise AssertionError(f"B13: the check cannot see: {what}")
+    err13 = max(errs["B10"] + errs["B11"])
 
     b, s, h, d = shape
     lib_for, qkv = sdpa_fwd(q, k, v)
@@ -808,6 +945,16 @@ def check_paged(gen):
     compare("window s_q=128 gqa alibi", "B6", win_gqa128, s8)
     compare("window s_q=128 vicuna", "B6", win128,
             tables=redirect_page(win128[4], [128, 256, 1990, 700]))
+    # C18: d = 64, a width the paged checks had not run (16 heads), each
+    # with a live page redirected to the trash page
+    for tag, name, lens, s_q in (("decode d=64 (16 heads)", "B3", vicuna, 0),
+                                 ("window s_q=5 d=64", "B5",
+                                  [5, 256, 1937, 700], 5),
+                                 ("window s_q=128 d=64", "B6",
+                                  [128, 256, 1990, 700], 128)):
+        inputs = paged_inputs(gen, 4, 16, 16, 64, lens, s_q=s_q)
+        compare(tag, name, inputs)
+        compare(tag, name, inputs, tables=redirect_page(inputs[4], lens))
 
     def row(name, fn_name, inputs, slopes, plain, flops):
         q, kp, vp, lens, tabs = inputs
@@ -956,6 +1103,15 @@ def check_paged_q8(gen):
     compare("window s_q=5 baichuan-13b", "B7w", win5_bc, s40, fault="lanes")
     compare("window s_q=128 vicuna", "B8", win128, fault="page")
     compare("window s_q=128 vicuna", "B8", win128, fault="lanes")
+    # C18: d = 64 (16 heads, scale stride 8)
+    dec64 = paged_q8_inputs(gen, 4, 16, 16, 64, vicuna)
+    win64 = paged_q8_inputs(gen, 4, 16, 16, 64, [128, 256, 1990, 700],
+                            s_q=128)
+    compare("decode d=64 (16 heads)", "B7", dec64)
+    compare("decode d=64 (16 heads)", "B7", dec64, fault="page")
+    compare("decode d=64 (16 heads)", "B7", dec64, fault="lanes")
+    compare("window s_q=128 d=64", "B8", win64)
+    compare("window s_q=128 d=64", "B8", win64, fault="page")
 
     def row(name, fn_name, inputs, slopes, flops):
         q, kv, ks, vv, vs, lens, tabs = inputs
@@ -1881,20 +2037,35 @@ def measure_c13(gen):
     return gaps
 
 
-def ptxas_report(piece: str = "flash_bwd"):
+# the wgmma kernels, by a piece of their (mangled) names: every
+# instantiation must build with no spills
+WGMMA_KERNELS = ("flash_attention_fwd_kernel", "onepass_attention_kernel",
+                 "flash_bwd_")
+
+
+def ptxas_report(pieces=WGMMA_KERNELS):
     """Registers and spill bytes that ptxas reported while building the
-    library, for each kernel whose (mangled) name holds ``piece``."""
+    library, for each kernel whose (mangled) name holds one of ``pieces``,
+    with any "Potential Performance Loss" note ptxas gave it (a wgmma
+    serialized)."""
     import re
 
     from merlin_tpu_torch.ops import _build
 
     report, current = {}, None
     for line in _build.ptxas_log().splitlines():
+        m = re.search(r"Performance Loss: (.*) in the function '(\S+)'",
+                      line)
+        if m and any(p in m.group(2) for p in pieces):
+            report.setdefault(m.group(2), {}).setdefault(
+                "warnings", []).append(m.group(1))
+            continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            current = m.group(1) if piece in m.group(1) else None
+            current = m.group(1) if any(p in m.group(1) for p in pieces) \
+                else None
             if current:
-                report[current] = {}
+                report.setdefault(current, {})
             continue
         if current is None:
             continue
@@ -1929,9 +2100,17 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.lib()
     log(f"setup: kernels built and loaded in {time.perf_counter() - t0:.1f} s")
-    bwd_ptxas = ptxas_report()
-    for name, info in bwd_ptxas.items():
+    ptxas = ptxas_report()
+    for name, info in ptxas.items():
         log(f"ptxas {name}: {info}")
+    spilled = [n for n, i in ptxas.items() if i.get("spill_store_bytes", 1)
+               or i.get("spill_load_bytes", 1)]
+    if spilled or len(ptxas) < 18:
+        raise AssertionError(f"ptxas: spills in {spilled}, or a wgmma "
+                             f"kernel missing from {sorted(ptxas)}")
+    fwd_ptxas = {n: i for n, i in ptxas.items() if "fwd" in n
+                 or "onepass" in n}
+    bwd_ptxas = {n: i for n, i in ptxas.items() if n not in fwd_ptxas}
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
@@ -1979,8 +2158,8 @@ def main() -> int:
     for name in ("B10", "B11", "B12", "B13"):
         row = trained[name]
         row["launches"] = t1["counts"][row.get("counter", name)]
-        if name != "B12":
-            row["ptxas"] = bwd_ptxas
+        row["ptxas"] = fwd_ptxas if name == "B12" else bwd_ptxas
+    b1["ptxas"] = b2["ptxas"] = fwd_ptxas
     rows = [b1, b2] + [paged[k] for k in ("B3", "B4", "B5", "B6", "B7",
                                           "B7w", "B8", "B9")] + [
         trained[k] for k in ("B10", "B11", "B12", "B13")]

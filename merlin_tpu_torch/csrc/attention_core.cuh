@@ -1,6 +1,7 @@
-// Shared tile machinery of the port's attention kernels
-// (onepass_attention.cu = B1, flash_attention.cu = B2, and the paged
-// window kernel of paged_attention.cu = B5/B6, and B7/B8 over int8 pages).
+// Shared numerics of the port's attention kernels, and the mma.sync tile
+// engine of the paged window kernel (paged_attention.cu: B5/B6, and B7/B8
+// over int8 pages). The dense forward (attention_fwd.cu: B1, B2, B12) and
+// the fused backward run on wgmma instead (hopper.cuh).
 //
 // A thread block of WARPS warps owns up to 16 * WARPS query rows: each warp
 // owns 16. The block stages its Q tile in shared memory once, then walks
@@ -16,9 +17,8 @@
 // What differs between the kernels is a "problem": where each query row,
 // key row and value row lies, which (row, key) pairs are visible with what
 // bias, and where a row's output goes. attention_tile<DP, WARPS, Problem>
-// takes it as a template argument (DenseProblem below for B1/B2,
-// PagedWindowProblem in paged_attention.cu, over bf16 or int8 pages), so
-// the tile loop is written once. A problem provides:
+// takes it as a template argument (PagedWindowProblem in
+// paged_attention.cu, over bf16 or int8 pages). A problem provides:
 //   Row row(int r)                  per-row state of block row r
 //   bool live(const Row&)           the row exists and writes an output
 //   int n_rows(), n_keys(), key_end()
@@ -59,24 +59,8 @@ namespace merlin {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kBlockM = 64;   // query rows per block of B1/B2 (4 warps x 16)
 constexpr int kBlockN = 64;   // key rows per KV tile
-constexpr int kThreads = 128;
 constexpr int kPad = 8;       // bf16 per smem row, staggers banks
-
-struct AttnArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* out;   // (b, sq, h, d) contiguous
-  float* lse;           // (b, h, sq) natural log, or nullptr
-  const int* qseg;      // (b, sq) or nullptr
-  const int* kseg;      // (b, skv) or nullptr
-  const float* slopes;  // (h,) ALiBi slopes, or nullptr
-  int b, sq, skv, h, hkv, d;
-  int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
-  float scale;
-};
 
 // Dynamic shared memory of a block: its Q tile and one K and one V tile
 // (one pair per warp with SPLIT_KEYS).
@@ -85,11 +69,6 @@ constexpr int tile_smem_bytes() {
   return SPLIT_KEYS
              ? (16 + WARPS * 2 * kBlockN) * (DP + kPad) * (int)sizeof(__nv_bfloat16)
              : (16 * WARPS + 2 * kBlockN) * (DP + kPad) * (int)sizeof(__nv_bfloat16);
-}
-
-template <int DP>
-constexpr int smem_bytes() {
-  return tile_smem_bytes<DP, kBlockM / 16>();
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -346,68 +325,6 @@ __device__ __forceinline__ void attention_tile(const Problem& pb, int d) {
   }
 }
 
-// B1/B2: 64 query rows of one (batch, head) of strided (b, s, h, d) q/k/v,
-// with causal masking, segment ids and ALiBi; the block is
-// (blockIdx.x = q tile, blockIdx.y = head, blockIdx.z = batch).
-template <bool CAUSAL>
-struct DenseProblem {
-  struct Row {
-    int qi;   // query position
-    int seg;  // its segment id (0 without segments)
-  };
-  const AttnArgs a;  // by value: a reference would force a local copy
-  int bi, hi, hk, q0;
-  float slope;
-
-  __device__ explicit DenseProblem(const AttnArgs& args)
-      : a(args),
-        bi(blockIdx.z),
-        hi(blockIdx.y),
-        hk(blockIdx.y / (args.h / args.hkv)),  // GQA: kv head of this head
-        q0(blockIdx.x * kBlockM),
-        slope(args.slopes != nullptr ? args.slopes[blockIdx.y] : 0.f) {}
-
-  __device__ Row row(int r) const {
-    const int qi = q0 + r;
-    const int seg =
-        (a.qseg != nullptr && qi < a.sq) ? a.qseg[(int64_t)bi * a.sq + qi] : 0;
-    return Row{qi, seg};
-  }
-  __device__ bool live(const Row& rw) const { return rw.qi < a.sq; }
-  __device__ int n_rows() const { return min(kBlockM, a.sq - q0); }
-  __device__ int n_keys() const { return a.skv; }
-  // tiles wholly above the diagonal hold no visible key for any row
-  __device__ int key_end() const {
-    return CAUSAL ? min(a.skv, q0 + kBlockM) : a.skv;
-  }
-  __device__ const __nv_bfloat16* q_row(int r) const {
-    return a.q + bi * a.q_sb + (int64_t)(q0 + r) * a.q_ss + hi * a.q_sh;
-  }
-  __device__ uint4 k_chunk(int key, int c) const {
-    return ld128(a.k + bi * a.k_sb + (int64_t)key * a.k_ss + hk * a.k_sh + c);
-  }
-  __device__ uint4 v_chunk(int key, int c) const {
-    return ld128(a.v + bi * a.v_sb + (int64_t)key * a.v_ss + hk * a.v_sh + c);
-  }
-  __device__ float logit(const Row& rw, int ki, float s) const {
-    const float x = a.slopes != nullptr
-                        ? (s * a.scale + slope * (float)(ki - rw.qi)) * kLog2e
-                        : s * (a.scale * kLog2e);
-    bool ok = ki < a.skv;
-    if (CAUSAL) ok = ok && ki <= rw.qi;
-    if (a.qseg != nullptr) {
-      ok = ok && rw.seg == a.kseg[(int64_t)bi * a.skv + ki];
-    }
-    return ok ? x : kNegInf;
-  }
-  __device__ __nv_bfloat16* out_row(const Row& rw) const {
-    return a.out + (((int64_t)bi * a.sq + rw.qi) * a.h + hi) * a.d;
-  }
-  __device__ void store_lse(const Row& rw, float lse) const {
-    if (a.lse != nullptr) a.lse[((int64_t)bi * a.h + hi) * a.sq + rw.qi] = lse;
-  }
-};
-
 // Raise the dynamic shared-memory limit and launch `kernel` on `stream`.
 template <typename Kernel, typename Args>
 cudaError_t launch_grid(Kernel kernel, dim3 grid, int threads, int smem,
@@ -417,14 +334,6 @@ cudaError_t launch_grid(Kernel kernel, dim3 grid, int threads, int smem,
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, stream>>>(args);
   return cudaGetLastError();
-}
-
-// B1/B2: launch over (q tiles, heads, batch).
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int smem, const AttnArgs& a,
-                   cudaStream_t stream) {
-  const dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.h, a.b);
-  return launch_grid(kernel, grid, kThreads, smem, a, stream);
 }
 
 }  // namespace merlin

@@ -57,8 +57,20 @@
 //     computes di = sum(out * do) per row); a post-pass rounds it to bf16.
 //     The order of the f32 additions varies from run to run (trap C17):
 //     dq is not bit-reproducible, dk and dv are.
+//   * Head dims up to 128 run in the 64- or 128-column form (columns past
+//     d zero-filled). For 128 < d <= 256 a 64 x 256 dK + dV accumulator
+//     cannot sit in one warpgroup's registers, so the output columns are
+//     split into two 128-column halves, one launch each: each CTA keeps
+//     all 256 columns of K and V resident, streams all of Q and dO,
+//     contracts S^T and dP^T over all of them, and accumulates dK, dV and
+//     its dQ share for its own half only (the d = 128 register plan, at
+//     one CTA per SM for its 203 KB of shared memory). S^T and dP^T are
+//     computed by both halves: 7 products of 2 d flops per visible (query,
+//     key) pair instead of 5.
+//   * The swizzle, cp.async, wgmma and exp2 helpers are hopper.cuh's,
+//     shared with the forward (attention_fwd.cu).
 
-#include "attention_core.cuh"
+#include "hopper.cuh"
 
 namespace merlin {
 
@@ -86,13 +98,6 @@ struct BwdArgs {
   float scale;
 };
 
-// 2^x by the SFU, flushing results below 2^-126 to 0
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The raw dot s of (query qi, key ki) -> its log2-domain score, or kNegInf
 // where the key is not visible to the query (B2's DenseProblem::logit, with
 // the query's own edge masked too).
@@ -110,200 +115,6 @@ __device__ __forceinline__ float bwd_logit(const BwdArgs& a, float slope,
 }
 
 // ---------------------------------------------------------------------------
-// shared memory, cp.async and wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of (row r, column c) in a 64-row bf16 tile kept as 64-column
-// blocks of [64][64], each in the 128-byte swizzle: 16-byte chunk (c / 8)
-// of row r sits at chunk (c / 8) ^ (r % 8). Block bases are 1024-aligned.
-__device__ __forceinline__ uint32_t sw128(int r, int c) {
-  return (c >> 6) * kBlockBytes + r * 128 +
-         ((((c >> 3) & 7) ^ (r & 7)) << 4) + (c & 7) * 2;
-}
-
-// 16 (or 4) bytes global -> shared, asynchronously; zero-filled when !ok
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait for this thread's copies; fence_async_smem then makes every
-// thread's writes to shared memory visible to wgmma (the async proxy) once
-// the caller syncs
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// 64 rows x DP columns of a strided (b, s, h, d) tensor (rows `row_stride`
-// apart) into the swizzled tile at `dst`; rows past `rows` and columns past
-// d are zero-filled. 16 consecutive threads cover one 256-byte row.
-template <int DP>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          int64_t row_stride, int rows, int d,
-                                          int tid) {
-  constexpr int kChunks = DP / 8;
-#pragma unroll
-  for (int i = tid; i < kBwdRows * kChunks; i += kBwdThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const bool ok = r < rows && c < d;
-    cp_async16(dst + sw128(r, c), ok ? src + r * row_stride + c : src, ok);
-  }
-}
-
-// wgmma descriptor of a swizzled tile at shared address `addr`: strides in
-// bytes (lbo: between 64-column blocks along M/N for an MN-major operand,
-// unused for a K-major one; sbo: between 8-row groups), 128-byte swizzle.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ uint64_t kmajor(uint32_t addr) {
-  return wgmma_desc(addr, 16, 1024);
-}
-
-__device__ __forceinline__ uint64_t mnmajor(uint32_t addr) {
-  return wgmma_desc(addr, kBlockBytes, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pin registers that an asynchronous wgmma writes (or reads) at this point
-// of the program, so the compiler moves no use of them across a wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// d (+)= A B, A (64 x 16) and B (16 x 64) both read from shared memory
-// through descriptors; TA / TB mark A / B as MN-major (transposed). With
-// scale_d 0 the old d is ignored (d = A B).
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
-}
-
-// d += A B, A (64 x 16) from registers (each warp's 16 rows in the
-// mma.sync A fragment layout) and B (16 x 64) MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// As wgmma_rs_n64 with B (16 x 128).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int DP>
-__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2],
-                                         const uint32_t* a, uint64_t db) {
-  if constexpr (DP == 64) {
-    wgmma_rs_n64(d, a, db);
-  } else {
-    wgmma_rs_n128(d, a, db);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // the fused kernel
 // ---------------------------------------------------------------------------
 
@@ -315,12 +126,26 @@ constexpr int bwd_smem_bytes() {
          1024;
 }
 
+// Output columns a CTA owns: all of them up to d = 128; above, one
+// 128-column half (dK, dV and dQ for 64 x 256 columns would not fit in a
+// warpgroup's registers).
+template <int DP>
+__host__ __device__ constexpr int bwd_cols() {
+  return DP > 128 ? 128 : DP;
+}
+
 // One CTA per (64 keys, kv head, batch): blockIdx.x = (key tile * b + bi)
-// * hkv + hk, so key tile 0, the longest causal walk, goes first.
-template <int DP, bool CAUSAL>
-__global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
+// * hkv + hk, so key tile 0, the longest causal walk, goes first. At DP =
+// 256 the CTA owns the 128-column half HALF of d, a template constant (as
+// a grid dimension it would cost registers the kernel does not have), and
+// the two halves are two launches; both contract S^T and dP^T over all DP
+// columns.
+template <int DP, bool CAUSAL, int HALF>
+__global__ void __launch_bounds__(kBwdThreads,
+                                  DP == 64 ? 3 : (DP == 128 ? 2 : 1))
     flash_bwd_kernel(const BwdArgs a) {
   constexpr int kTile = kBwdRows * DP * 2;  // bytes of one 64-row tile
+  constexpr int DO = bwd_cols<DP>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -343,6 +168,8 @@ __global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
   const int bi = (blockIdx.x / a.hkv) % a.b;
   const int k0 = blockIdx.x / (a.hkv * a.b) * kBwdRows;
   const int group = a.h / a.hkv;
+  constexpr int col0 = HALF * DO;           // first output column
+  constexpr uint32_t cblk = (col0 >> 6) * kBlockBytes;  // its block
   // queries before the tile's first key see none of its keys
   const int q_begin = CAUSAL ? k0 : 0;
   const int n_qt = q_begin < a.sq ? (a.sq - q_begin + kBwdRows - 1) / kBwdRows
@@ -354,10 +181,10 @@ __global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
     const int hq = hk * group + step / n_qt;
     const int q0 = q_begin + (step % n_qt) * kBwdRows;
     const int nq = min(kBwdRows, a.sq - q0);
-    load_tile<DP>(sQ0 + stage * kTile,
+    load_tile<DP, kBwdRows, kBwdThreads>(sQ0 + stage * kTile,
                   a.q + bi * a.q_sb + (int64_t)q0 * a.q_ss + hq * a.q_sh,
                   a.q_ss, nq, a.d, tid);
-    load_tile<DP>(sD0 + stage * kTile,
+    load_tile<DP, kBwdRows, kBwdThreads>(sD0 + stage * kTile,
                   a.dout + bi * a.o_sb + (int64_t)q0 * a.o_ss + hq * a.o_sh,
                   a.o_ss, nq, a.d, tid);
     if (tid < kBwdRows) {
@@ -384,9 +211,9 @@ __global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
   // a thread whose two keys share one segment may skip the mask on a
   // step whose queries all carry that segment too
   const bool kseg_one = kseg[0] == kseg[1];
-  float dk[DP / 2], dv[DP / 2], s[32], dp[32], dq[32];
+  float dk[DO / 2], dv[DO / 2], s[32], dp[32], dq[32];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DO / 2; ++i) dk[i] = dv[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = dp[i] = dq[i] = 0.f;
   uint32_t pf[16], sf[16];  // P^T and dS^T as bf16 A fragments
@@ -395,9 +222,9 @@ __global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
   // issues no copy and writes zero dK, dV
   if (n_steps > 0) {
     const int n_keys = min(kBwdRows, a.skv - k0);
-    load_tile<DP>(sK, a.k + bi * a.k_sb + (int64_t)k0 * a.k_ss + hk * a.k_sh,
+    load_tile<DP, kBwdRows, kBwdThreads>(sK, a.k + bi * a.k_sb + (int64_t)k0 * a.k_ss + hk * a.k_sh,
                   a.k_ss, n_keys, a.d, tid);
-    load_tile<DP>(sV, a.v + bi * a.v_sb + (int64_t)k0 * a.v_ss + hk * a.v_sh,
+    load_tile<DP, kBwdRows, kBwdThreads>(sV, a.v + bi * a.v_sb + (int64_t)k0 * a.v_ss + hk * a.v_sh,
                   a.v_ss, n_keys, a.d, tid);
     load_step(0, 0);
   }
@@ -449,7 +276,7 @@ __global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
       }
       unmasked = __all_sync(0xffffffffu, same);
     }
-    wgmma_wait_all();  // S^T and dP^T have landed
+    wgmma_wait<0>();  // S^T and dP^T have landed
     pin(s);
     pin(dp);
 #pragma unroll
@@ -493,7 +320,7 @@ __global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
     pin(pf);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs<DP>(dv, pf + 4 * kk, mnmajor(sD + kk * 2048));
+      wgmma_rs<DO>(dv, pf + 4 * kk, mnmajor(sD + cblk + kk * 2048));
     }
 
     // dK += dS^T Q
@@ -502,7 +329,7 @@ __global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
     pin(sf);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs<DP>(dk, sf + 4 * kk, mnmajor(sQ + kk * 2048));
+      wgmma_rs<DO>(dk, sf + 4 * kk, mnmajor(sQ + cblk + kk * 2048));
     }
     wgmma_commit();
     fence_async_smem();
@@ -510,17 +337,17 @@ __global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
 
     // dQ = dS K, 64 columns at a time, added into the f32 buffer
 #pragma unroll
-    for (int half = 0; half < DP / 64; ++half) {
+    for (int half = 0; half < DO / 64; ++half) {
       wgmma_fence();
       pin(dq);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_ss_n64<1, 1>(dq, mnmajor(sS + kk * 2048),
-                           mnmajor(sK + half * kBlockBytes + kk * 2048),
-                           kk > 0);
+        wgmma_ss_n64<1, 1>(
+            dq, mnmajor(sS + kk * 2048),
+            mnmajor(sK + cblk + half * kBlockBytes + kk * 2048), kk > 0);
       }
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       pin(dq);
       // lanes t and t ^ 1 swap halves of their rows: an even t adds 4
       // columns of row g, an odd t 4 columns of row g + 8, 16 bytes a red
@@ -532,7 +359,7 @@ __global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
         const float* c = dq + j * 4;
         const float x = __shfl_xor_sync(0xffffffffu, h ? c[0] : c[2], 1);
         const float y = __shfl_xor_sync(0xffffffffu, h ? c[1] : c[3], 1);
-        const int col = half * 64 + j * 8 + (t & 2) * 2;
+        const int col = col0 + half * 64 + j * 8 + (t & 2) * 2;
         if (qi < a.sq && col < a.d) {
           asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::
                            "l"(row + col), "f"(h ? x : c[0]),
@@ -553,8 +380,8 @@ __global__ void __launch_bounds__(kBwdThreads, DP == 64 ? 3 : 2)
     if (ki[r] >= a.skv) continue;
     const int64_t at = (((int64_t)bi * a.skv + ki[r]) * a.hkv + hk) * a.d;
 #pragma unroll
-    for (int j = 0; j < DP / 8; ++j) {
-      const int col = j * 8 + t * 2;
+    for (int j = 0; j < DO / 8; ++j) {
+      const int col = col0 + j * 8 + t * 2;
       if (col < a.d) {
         *reinterpret_cast<__nv_bfloat162*>(a.dk + at + col) =
             __floats2bfloat162_rn(dk[j * 4 + 2 * r], dk[j * 4 + 2 * r + 1]);
@@ -620,13 +447,22 @@ __global__ void __launch_bounds__(256)
   out[1] = __floats2bfloat162_rn(x.z, x.w);
 }
 
+template <int DP, int HALF>
+cudaError_t launch_bwd_half(const BwdArgs& a, bool causal, cudaStream_t s) {
+  const dim3 grid((a.skv + kBwdRows - 1) / kBwdRows * a.hkv * a.b);
+  return causal ? launch_grid(flash_bwd_kernel<DP, true, HALF>, grid,
+                              kBwdThreads, bwd_smem_bytes<DP>(), a, s)
+                : launch_grid(flash_bwd_kernel<DP, false, HALF>, grid,
+                              kBwdThreads, bwd_smem_bytes<DP>(), a, s);
+}
+
 template <int DP>
 cudaError_t launch_bwd(const BwdArgs& a, bool causal, cudaStream_t s) {
-  const dim3 grid((a.skv + kBwdRows - 1) / kBwdRows * a.hkv * a.b);
-  return causal ? launch_grid(flash_bwd_kernel<DP, true>, grid, kBwdThreads,
-                              bwd_smem_bytes<DP>(), a, s)
-                : launch_grid(flash_bwd_kernel<DP, false>, grid, kBwdThreads,
-                              bwd_smem_bytes<DP>(), a, s);
+  cudaError_t err = launch_bwd_half<DP, 0>(a, causal, s);
+  if constexpr (DP > 128) {
+    if (err == cudaSuccess) err = launch_bwd_half<DP, 1>(a, causal, s);
+  }
+  return err;
 }
 
 }  // namespace merlin
@@ -646,7 +482,7 @@ extern "C" int merlin_flash_attention_bwd_bf16(
     int64_t o_ss, int64_t o_sh, int64_t out_sb, int64_t out_ss,
     int64_t out_sh, float scale, int causal, void* stream) {
   using namespace merlin;
-  if (d > 128) return (int)cudaErrorInvalidValue;
+  if (d > 256) return (int)cudaErrorInvalidValue;
   BwdArgs a{};
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
@@ -679,8 +515,9 @@ extern "C" int merlin_flash_attention_bwd_bf16(
       static_cast<float*>(di));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = d <= 64 ? launch_bwd<64>(a, causal != 0, s)
-                : launch_bwd<128>(a, causal != 0, s);
+  err = d <= 64    ? launch_bwd<64>(a, causal != 0, s)
+        : d <= 128 ? launch_bwd<128>(a, causal != 0, s)
+                   : launch_bwd<256>(a, causal != 0, s);
   if (err != cudaSuccess) return (int)err;
   const int64_t n = rows * d;
   flash_bwd_postpass_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, s>>>(

@@ -2,7 +2,8 @@
 no-cache path).
 
 Counterpart of ``merlin_tpu/ops/flash_attention.py``: ``_fwd_kernel`` via
-``_flash_fwd_pallas`` (B2, ``csrc/flash_attention.cu``), and
+``_flash_fwd_pallas`` (B2, ``csrc/attention_fwd.cu``, the dense forward it
+shares with B1 and B12), and
 ``_bwd_dq_kernel`` / ``_bwd_dkv_gqa_kernel`` via ``_flash_bwd_pallas``
 (B10 / B11, both served by one fused kernel in
 ``csrc/flash_attention_bwd.cu``). Each source note says what bounds its
@@ -32,6 +33,10 @@ import torch
 from merlin_tpu_torch.ops import _build
 
 NEG_INF = -1e30
+# head dims the kernels take (multiples of 8): the backward takes every d
+# the forward does, so a route that runs B2 can train
+FWD_MAX_D = 256
+BWD_MAX_D = 256
 
 
 def flash_attention_plain(
@@ -117,7 +122,7 @@ def flash_attention(
               alibi_slopes=alibi_slopes, causal=causal, scale=scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, **kw)
-    _build.check_qkv("flash_attention", q, k, v, max_d=256)
+    _build.check_qkv("flash_attention", q, k, v, max_d=FWD_MAX_D)
     _check_masks("flash_attention", q, k, segment_ids_q, segment_ids_kv,
                  alibi_slopes)
     b, sq, h, d = q.shape
@@ -222,8 +227,8 @@ def flash_attention_bwd_dkv_plain(
 def _check_bwd(name, q, k, v, do, lse, di=None):
     """Raise unless do, lse and di (when given) are what the backward
     kernel reads."""
-    _build.check_qkv(name, q, k, v, max_d=128)
-    _build.check_qkv(name, do, k, v, max_d=128)
+    _build.check_qkv(name, q, k, v, max_d=BWD_MAX_D)
+    _build.check_qkv(name, do, k, v, max_d=BWD_MAX_D)
     if do.shape != q.shape:
         raise ValueError(f"{name}: do {tuple(do.shape)} must match q "
                          f"{tuple(q.shape)}")
@@ -238,7 +243,7 @@ def _check_bwd(name, q, k, v, do, lse, di=None):
 
 def _check_out(name, q, k, v, out):
     """Raise unless the forward's out is what the pre-pass reads for di."""
-    _build.check_qkv(name, out, k, v, max_d=128)
+    _build.check_qkv(name, out, k, v, max_d=BWD_MAX_D)
     if out.shape != q.shape:
         raise ValueError(f"{name}: out {tuple(out.shape)} must match q "
                          f"{tuple(q.shape)}")

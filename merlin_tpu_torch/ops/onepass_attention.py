@@ -4,7 +4,8 @@ Counterpart of ``merlin_tpu/ops/onepass_attention.py``:
 
   * B1, the inference path: ``_make_kernel(emit_lse=False)`` /
     ``_make_kernel_bd`` via ``_onepass_fwd`` -> :func:`onepass_attention`
-    (``csrc/onepass_attention.cu``);
+    (``csrc/attention_fwd.cu``: the dense forward it shares with B2, run
+    non-causal and unmasked);
   * B12, the trained path's forward: ``_make_kernel(emit_lse=True)`` via
     ``_onepass_fwd_rule`` -> :func:`onepass_attention_lse`, the same kernel
     writing the natural-log LSE as well;
@@ -33,6 +34,7 @@ from merlin_tpu_torch.ops.flash_attention import (
     _check_bwd, _check_out, _launch_bwd, attention_di)
 
 LOG2E = math.log2(math.e)
+MAX_D = 128  # head dims B1/B12 take (multiples of 8)
 
 
 def _onepass_plain(q, k, v, scale):
@@ -102,7 +104,7 @@ onepass_attention_lse.launches = 0
 
 def _launch_forward(name, q, k, v, scale, *, lse: bool):
     """Launch the one-pass kernel (B1, or B12 with ``lse``)."""
-    _build.check_qkv(name, q, k, v, max_d=128)
+    _build.check_qkv(name, q, k, v, max_d=MAX_D)
     if k.shape[2] != q.shape[2]:
         raise ValueError(f"{name}: GQA is not supported "
                          f"(h={q.shape[2]}, hkv={k.shape[2]})")

@@ -65,7 +65,9 @@ def _j(x, dtype=jnp.float32):
     return jnp.asarray(x, dtype)
 
 
-@pytest.mark.parametrize("b,s,h,d", [(1, 37, 2, 64), (2, 21, 4, 32)])
+# d = 80 and 104: the metaclip ViT-H/14 and Qwen-VL bigG towers' widths
+@pytest.mark.parametrize("b,s,h,d", [(1, 37, 2, 64), (2, 21, 4, 32),
+                                     (1, 37, 2, 80), (1, 37, 2, 104)])
 def test_onepass_plain_matches_pallas_interpret_f32(b, s, h, d):
     q, k, v = (_layer_normed(x) for x in _qkv(0, b, s, s, h, h, d))
     with pltpu.force_tpu_interpret_mode():
@@ -112,13 +114,19 @@ FLASH_CASES = {
     "bidir_segments": dict(causal=False, seg=True, alibi=False, hkv=2),
     "causal_alibi_segments": dict(causal=True, seg=True, alibi=True, hkv=2),
     "causal_gqa": dict(causal=True, seg=False, alibi=False, hkv=1),
+    # widths past the 64/128 forms: phi-2's d = 80, and d = 256 (the
+    # flash route's limit)
+    "causal_segments_d80": dict(causal=True, seg=True, alibi=False, hkv=2,
+                                d=80),
+    "causal_segments_d256": dict(causal=True, seg=True, alibi=False, hkv=2,
+                                 d=256),
 }
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_plain_matches_pallas_interpret(case):
     c = FLASH_CASES[case]
-    b, s, h, d = 1, 256, 2, 64
+    b, s, h, d = 1, 256, 2, c.get("d", 64)
     q, k, v = _qkv(2, b, s, s, h, c["hkv"], d)
     seg = None
     if c["seg"]:

@@ -18,6 +18,9 @@ All at f32, where the two differ only in summation order: tolerance 2e-5
 absolute and relative on values of magnitude ~1 (seen: ~1e-6).
 """
 
+import ast
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -101,13 +104,20 @@ FLASH_CASES = {
                     alibi=False),
     "non_causal": dict(b=1, s=128, h=4, hkv=4, causal=False, seg=True,
                        alibi=False),
+    # widths past the 64/128 forms: phi-2's d = 80, and d = 256 (the
+    # backward's column-split form, C19)
+    "causal_segments_d80": dict(b=1, s=128, h=2, hkv=2, causal=True,
+                                seg=True, alibi=False, d=80),
+    "causal_segments_d256": dict(b=1, s=128, h=2, hkv=2, causal=True,
+                                 seg=True, alibi=False, d=256),
 }
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
 def test_flash_bwd_plain_matches_pallas_interpret(case):
     c = FLASH_CASES[case]
-    q, k, v, do = _inputs(1, c["b"], c["s"], c["h"], c["hkv"], 64)
+    q, k, v, do = _inputs(1, c["b"], c["s"], c["h"], c["hkv"],
+                          c.get("d", 64))
     seg = _segments(c["b"], c["s"], c["s"] // 2 + 3) if c["seg"] else None
     slopes = (np.asarray([2.0 ** -(i + 1) for i in range(c["h"])],
                          np.float32) if c["alibi"] else None)
@@ -124,7 +134,8 @@ def test_fused_flash_bwd_matches_separate_plain_and_pallas(case):
     plain versions fed ``attention_di``, and to the Pallas backward in
     interpret mode within TOL."""
     c = FLASH_CASES[case]
-    q, k, v, do = _inputs(8, c["b"], c["s"], c["h"], c["hkv"], 64)
+    q, k, v, do = _inputs(8, c["b"], c["s"], c["h"], c["hkv"],
+                          c.get("d", 64))
     seg = _segments(c["b"], c["s"], c["s"] // 2 + 3) if c["seg"] else None
     slopes = (np.asarray([2.0 ** -(i + 1) for i in range(c["h"])],
                          np.float32) if c["alibi"] else None)
@@ -182,10 +193,9 @@ def test_onepass_lse_plain_matches_pallas_interpret():
                                atol=TOL, rtol=TOL)
 
 
-def test_onepass_bwd_plain_matches_jax_vjp_interpret():
-    """B13: the one-pass backward from B12's out and LSE against jax.vjp of
-    onepass_attention (its Pallas dq and dk/dv kernels)."""
-    q, k, v, do = _inputs(4, 1, 200, 4, 4, 64)
+def _check_onepass_bwd(q, k, v, do):
+    """B13 from B12's out and LSE against jax.vjp of onepass_attention in
+    interpret mode, within TOL."""
     with pltpu.force_tpu_interpret_mode():
         _, vjp = jax.vjp(j_onepass, *(jnp.asarray(x) for x in (q, k, v)))
         want = vjp(jnp.asarray(do))
@@ -195,6 +205,46 @@ def test_onepass_bwd_plain_matches_jax_vjp_interpret():
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL,
                                    rtol=TOL, err_msg=name)
+
+
+def test_onepass_bwd_plain_matches_jax_vjp_interpret():
+    """B13: the one-pass backward from B12's out and LSE against jax.vjp of
+    onepass_attention (its Pallas dq and dk/dv kernels)."""
+    _check_onepass_bwd(*_inputs(4, 1, 200, 4, 4, 64))
+
+
+@pytest.mark.parametrize("d", [80, 104])
+def test_onepass_bwd_plain_matches_jax_vjp_interpret_wide(d):
+    """B13 at the metaclip ViT-H/14 (d = 80) and Qwen-VL bigG (d = 104)
+    towers' widths."""
+    _check_onepass_bwd(*_inputs(5, 1, 130, 2, 2, d))
+
+
+def _dispatcher_head_dim_bounds():
+    """The head-dim bounds written in ``attention()``: calls with ``d >
+    N`` go to the plain reference, so N is the flash route's widest d;
+    ``d <= M`` is the one-pass route's term."""
+    fn = ast.parse(inspect.getsource(attention)).body[0]
+    bounds = {}
+    for n in ast.walk(fn):
+        if (isinstance(n, ast.Compare) and isinstance(n.left, ast.Name)
+                and n.left.id == "d" and len(n.ops) == 1
+                and isinstance(n.comparators[0], ast.Constant)):
+            bounds[type(n.ops[0]).__name__] = n.comparators[0].value
+    return bounds["Gt"], bounds["LtE"]
+
+
+def test_backward_takes_every_head_dim_the_forward_routes():
+    """C19: every head dim the dispatcher sends to a kernel route can train
+    there. The widest d of the flash route must be within B2's limit and
+    the fused backward's (B10/B11), the one-pass route's within B1/B12's
+    and the same backward's (B13): a forward that runs where its backward
+    raises fails here."""
+    flash_d, onepass_d = _dispatcher_head_dim_bounds()
+    assert flash_d <= fa.FWD_MAX_D <= fa.BWD_MAX_D
+    assert onepass_d <= oa.MAX_D <= fa.BWD_MAX_D
+    # the JAX dispatcher's widths (merlin_tpu/ops/attention.py:192)
+    assert (flash_d, onepass_d) == (256, 128)
 
 
 def _autograd(fn, q, k, v, do):

@@ -161,9 +161,8 @@ def test_backward_wrappers_refuse_non_cpu_tensors(dtype):
 
 def test_kernel_sources_are_in_the_tree():
     names = {p.name for p in _build.sources()}
-    assert {"onepass_attention.cu", "flash_attention.cu",
-            "flash_attention_bwd.cu", "paged_attention.cu",
-            "attention_core.cuh"} <= names
+    assert {"attention_fwd.cu", "flash_attention_bwd.cu",
+            "paged_attention.cu", "attention_core.cuh", "hopper.cuh"} <= names
     for name, argtypes in _build.SIGNATURES.items():
         text = "".join(p.read_text() for p in _build.sources())
         assert f'extern "C" int {name}(' in text
