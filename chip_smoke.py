@@ -8,21 +8,25 @@ the LM quantized to int8) and of Baichuan-13B:
   1. setup      - card name and power limit; build the CUDA kernels from
                   ``merlin_tpu_torch/csrc`` (nvcc, sm_90a) and print what
                   ptxas reported for every wgmma kernel, the forward's and
-                  the backward's instantiations (registers, spills: any
-                  spill fails);
+                  the backward's instantiations, and for the paged
+                  few-rows kernel's (registers, spills: any spill fails);
   2. kernels    - each kernel (B1-B9) against its plain PyTorch version on
                   the card at its path's shapes (and edge cases: GQA, ALiBi,
                   ragged lengths over permuted page tables, hkv = 40; B1 at
                   d = 104, B2 at the training shape with its padding, the
-                  paged kernels at d = 64), with
+                  paged kernels at d = 64; the paged decode at query groups
+                  16 and 32, a 15-row window, and lengths 0, 1, a multiple
+                  of the key split, one past it and the full table), with
                   times, the bound from the shapes, and one PyTorch library
                   call as a yardstick where one exists (SDPA pinned to its
                   flash backend and to the unpinned dispatcher's pick, each
                   timed in alternating pairs of runs with the kernel, the
-                  faster backend the yardstick); a planted fault (the
-                  last key tile dropped; a live page redirected to the trash
-                  page; int8 scales read at lane hk instead of hk * stride)
-                  must fail the same check;
+                  faster backend the yardstick), and each paged wrapper's
+                  host time per call; a planted fault (the last key tile
+                  dropped; a live page redirected to the trash page, also
+                  one in the last key split of a sequence; int8 scales read
+                  at lane hk instead of hk * stride) must fail the same
+                  check;
   3. reference  - a narrow model on the card (through the kernels) against
                   the same weights on the CPU (plain path), both in bf16;
   4. forward    - uint8 640x480 frames -> preprocess -> tower -> projector
@@ -142,8 +146,9 @@ PAGED_REPLACES = {"B3": "merlin_tpu/ops/paged_attention.py:365",
                   "B5": "merlin_tpu/ops/paged_attention.py:631",
                   "B6": "merlin_tpu/ops/paged_attention.py:772",
                   # B7 is one pallas_call; the port serves its s_q = 1 case
-                  # (paged_attention_dma_q8, "B7") with the decode kernel
-                  # and its windows ("B7w") with the window kernel
+                  # (paged_attention_dma_q8, "B7") and its windows ("B7w",
+                  # <= 16 rows per kv head) with the split-key few-rows
+                  # kernel, as B3, B4, B5 and B9
                   "B7": "merlin_tpu/ops/paged_attention.py:1172",
                   "B7w": "merlin_tpu/ops/paged_attention.py:1172",
                   "B8": "merlin_tpu/ops/paged_attention.py:916",
@@ -862,13 +867,37 @@ def paged_inputs(gen, b, h, hkv, d, lengths, s_q=0, page=128, pps=16):
     return q, pool[0], pool[1], lens, tables
 
 
-def redirect_page(tables, lengths, page=128):
+def redirect_page(tables, lengths, page=128, last_split=False):
     """The planted fault: one live page of the first sequence with two or
-    more pages, pointed at the trash page 0."""
+    more pages, pointed at the trash page 0: its page 1, or (last_split)
+    the first page of its last key split of the few-rows kernel, in the
+    first sequence with more than one split, so that the fault reaches
+    the splits' merge."""
+    from merlin_tpu_torch.ops.paged_attention import SPLIT_KEYS
+
     bad = tables.clone()
-    i = next(i for i, n in enumerate(lengths) if n > page)
-    bad[i, 1] = 0
+    split = max(1, SPLIT_KEYS // page) * page
+    if last_split:
+        i = next(i for i, n in enumerate(lengths) if n > split)
+        bad[i, (lengths[i] - 1) // split * split // page] = 0
+    else:
+        i = next(i for i, n in enumerate(lengths) if n > page)
+        bad[i, 1] = 0
     return bad
+
+
+def no_key_rows_zero(want, lens):
+    """The kernels' answer for query rows that see no key (trap C2): 0,
+    where the plain versions average V. A decode row sees none at length 0,
+    a window row t of s_q at length - s_q + t < 0."""
+    want = want.clone()
+    if want.dim() == 3:
+        want[lens == 0] = 0
+    else:
+        s_q = want.shape[1]
+        pos = lens[:, None] - s_q + torch.arange(s_q, device=lens.device)
+        want[pos < 0] = 0
+    return want
 
 
 def window_flops(q, lens):
@@ -900,7 +929,7 @@ def check_paged(gen):
                  else pa.paged_attention_multi_plain)
         got = fns[name](q, kp, vp, lens, tabs if tables is None else tables,
                         **kw)
-        want = plain(q, kp, vp, lens, tabs, **kw)
+        want = no_key_rows_zero(plain(q, kp, vp, lens, tabs, **kw), lens)
         torch.cuda.synchronize()
         err, rel = out_err(got, want)
         if tables is not None:
@@ -931,6 +960,21 @@ def check_paged(gen):
     compare("decode gqa alibi (8/2 heads)", "B4", dec_gqa, s8)
     compare("decode vicuna", "B3", dec_mha,
             tables=redirect_page(dec_mha[4], vicuna))
+    compare("decode vicuna, last split", "B3", dec_mha,
+            tables=redirect_page(dec_mha[4], vicuna, last_split=True))
+    # any query group: 32 query heads over 2 kv heads (16) and over 1 (32)
+    s32 = alibi_slopes(32, device="cuda")
+    for hkv in (2, 1):
+        inputs = paged_inputs(gen, 4, 32, hkv, 128, vicuna)
+        compare(f"decode group {32 // hkv} (32/{hkv} heads)", "B3", inputs)
+        compare(f"decode group {32 // hkv} alibi (32/{hkv} heads)", "B4",
+                inputs, s32)
+    # the key splits' edges: no key, one, a whole split, one key past it,
+    # the full table (16 pages of 128)
+    edges = [0, 1, 256, 257, 2048]
+    dec_edges = paged_inputs(gen, 5, 32, 32, 128, edges)
+    compare(f"decode lengths {edges}", "B3", dec_edges)
+    compare(f"decode lengths {edges} alibi", "B4", dec_edges, s32)
 
     win5 = paged_inputs(gen, 4, 32, 32, 128, [5, 256, 1937, 700], s_q=5)
     win128 = paged_inputs(gen, 4, 32, 32, 128, [128, 256, 1990, 700],
@@ -939,7 +983,18 @@ def check_paged(gen):
     win_gqa128 = paged_inputs(gen, 3, 8, 2, 128, [130, 1024, 1900],
                               s_q=128)
     compare("window s_q=5 vicuna", "B5", win5)
+    compare("window s_q=5 vicuna, last split", "B5", win5,
+            tables=redirect_page(win5[4], [5, 256, 1937, 700],
+                                 last_split=True))
     compare("window s_q=5 gqa alibi", "B5", win_gqa5, s8)
+    # 15 rows per kv head (group 3 x s_q 5): one full 16-row tile
+    s24 = alibi_slopes(24, device="cuda")
+    win_g3 = paged_inputs(gen, 4, 24, 8, 128, [5, 256, 1937, 700], s_q=5)
+    compare("window s_q=5 group 3 alibi (24/8 heads)", "B5", win_g3, s24)
+    win_edges = paged_inputs(gen, 6, 32, 32, 128, [3, 5, 256, 257, 261,
+                                                    2048], s_q=5)
+    compare("window s_q=5 lengths [3, 5, 256, 257, 261, 2048]", "B5",
+            win_edges)
     compare("window s_q=5 gqa alibi", "B6", win_gqa5, s8)
     compare("window s_q=128 vicuna", "B6", win128)
     compare("window s_q=128 gqa alibi", "B6", win_gqa128, s8)
@@ -963,17 +1018,19 @@ def check_paged(gen):
         ms = time_ms(lambda: fn(q, kp, vp, lens, tabs, **kw))
         plain_ms = time_ms(lambda: plain(q, kp, vp, lens, tabs, **kw),
                            iters=5)
+        host = host_us(lambda: fn(q, kp, vp, lens, tabs, **kw))
         hkv_d = kp.shape[2]
         kv_bytes = int(lens.sum()) * hkv_d * 2 * 2     # each live K/V once
         bms, by = bound_ms(flops, kv_bytes + 2 * nbytes(q))
         log(f"{name} {tuple(q.shape)} lengths {lens.tolist()} bf16: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
-            f"({by}), library none")
+            f"({by}), library none; wrapper {host:.1f} us of host time a "
+            f"call")
         return dict(name=f"{name} {fn_name}", route="cuda",
                     source=PAGED_SOURCE, replaces=PAGED_REPLACES[name],
                     max_abs_err=max(errs[name]), ms=ms, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by, library_ms=None,
-                    shape=list(q.shape))
+                    host_us_per_call=host, shape=list(q.shape))
 
     # the route's reason: B6's 64-row tiles on the verify window's shape
     q, kp, vp, lens, tabs = win5
@@ -1041,17 +1098,19 @@ def check_paged_q8(gen):
     def compare(tag, name, inputs, slopes=None, fault=None):
         q, kv, ks, vv, vs, lens, tabs = inputs
         got_in = list(inputs)
-        if fault == "page":
+        if fault in ("page", "last split page"):
             lengths = lens.tolist()
-            got_in[6] = redirect_page(tabs, lengths)
-            what = "a live page redirected to the trash page"
+            got_in[6] = redirect_page(tabs, lengths,
+                                      last_split=fault != "page")
+            what = ("a live page redirected to the trash page" +
+                    ("" if fault == "page" else ", in the last key split"))
         elif fault == "lanes":
             hkv = kv.shape[2] // q.shape[-1]
             got_in[2] = head_lane_scales(ks, hkv)
             got_in[4] = head_lane_scales(vs, hkv)
             what = f"scales at lane hk, not hk * {128 // hkv}"
         got = fns[name](*got_in, alibi_slopes=slopes)
-        want = plain(q)(*inputs, alibi_slopes=slopes)
+        want = no_key_rows_zero(plain(q)(*inputs, alibi_slopes=slopes), lens)
         torch.cuda.synchronize()
         err, rel = out_err(got, want)
         if fault is not None:
@@ -1080,8 +1139,25 @@ def check_paged_q8(gen):
         compare("decode baichuan-13b alibi (40 heads)", name, dec_bc, s40)
     compare("decode gqa (8/2 heads)", "B7", dec_gqa)
     compare("decode vicuna", "B7", dec_mha, fault="page")
+    compare("decode vicuna", "B7", dec_mha, fault="last split page")
     compare("decode vicuna", "B7", dec_mha, fault="lanes")
     compare("decode baichuan-13b", "B7", dec_bc, s40, fault="lanes")
+    # any query group: 32 query heads over 2 kv heads (16; scale lane
+    # stride 64) and over 1 (32)
+    s32 = alibi_slopes(32, device="cuda")
+    for hkv in (2, 1):
+        inputs = paged_q8_inputs(gen, 4, 32, hkv, 128, vicuna)
+        for name in ("B7", "B9"):
+            compare(f"decode group {32 // hkv} alibi (32/{hkv} heads)", name,
+                    inputs, s32)
+        if hkv == 2:
+            compare("decode group 16 alibi (32/2 heads)", "B7", inputs, s32,
+                    fault="lanes")
+    # the key splits' edges, as check_paged's
+    edges = [0, 1, 256, 257, 2048]
+    dec_edges = paged_q8_inputs(gen, 5, 32, 32, 128, edges)
+    compare(f"decode lengths {edges}", "B7", dec_edges)
+    compare(f"decode lengths {edges} alibi", "B9", dec_edges, s32)
 
     win5 = paged_q8_inputs(gen, 4, 32, 32, 128, [5, 256, 1937, 700], s_q=5)
     win5_bc = paged_q8_inputs(gen, 4, 40, 40, 128, [5, 384, 1999, 901],
@@ -1096,6 +1172,15 @@ def check_paged_q8(gen):
     compare("window s_q=5 vicuna", "B7w", win5)
     compare("window s_q=5 baichuan-13b alibi", "B7w", win5_bc, s40)
     compare("window s_q=5 gqa alibi", "B7w", win_gqa5, s8)
+    s24 = alibi_slopes(24, device="cuda")
+    win_g3 = paged_q8_inputs(gen, 4, 24, 8, 128, [5, 256, 1937, 700],
+                             s_q=5)
+    compare("window s_q=5 group 3 alibi (24/8 heads)", "B7w", win_g3, s24)
+    win_edges = paged_q8_inputs(gen, 6, 32, 32, 128, [3, 5, 256, 257, 261,
+                                                       2048], s_q=5)
+    compare("window s_q=5 lengths [3, 5, 256, 257, 261, 2048]", "B7w",
+            win_edges)
+    compare("window s_q=5 vicuna", "B7w", win5, fault="last split page")
     compare("window s_q=5 gqa alibi", "B8", win_gqa5, s8)
     compare("window s_q=128 vicuna", "B8", win128)
     compare("window s_q=128 baichuan-13b alibi", "B8", win128_bc, s40)
@@ -1120,6 +1205,8 @@ def check_paged_q8(gen):
                                 alibi_slopes=slopes))
         plain_ms = time_ms(lambda: plain(q)(q, kv, ks, vv, vs, lens, tabs,
                                             alibi_slopes=slopes), iters=5)
+        host = host_us(lambda: fn(q, kv, ks, vv, vs, lens, tabs,
+                                  alibi_slopes=slopes))
         hkv = kv.shape[2] // q.shape[-1]
         live = int(lens.sum())
         # each live int8 K/V row once, each live (token, head) scale of K
@@ -1128,12 +1215,13 @@ def check_paged_q8(gen):
         bms, by = bound_ms(flops, kv_bytes + 2 * nbytes(q))
         log(f"{name} {tuple(q.shape)} lengths {lens.tolist()} int8 pages: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} "
-            f"ms ({by}), library none")
+            f"ms ({by}), library none; wrapper {host:.1f} us of host time a "
+            f"call")
         return dict(name=f"{name} {fn_name}", route="cuda",
                     source=PAGED_SOURCE, replaces=PAGED_REPLACES[name],
                     max_abs_err=max(errs[name]), ms=ms, plain_ms=plain_ms,
                     bound_ms=bms, bound_by=by, library_ms=None,
-                    shape=list(q.shape))
+                    host_us_per_call=host, shape=list(q.shape))
 
     return {
         "B7": row("B7", "paged_attention_dma_q8", dec_mha, None,
@@ -2037,13 +2125,16 @@ def measure_c13(gen):
     return gaps
 
 
-# the wgmma kernels, by a piece of their (mangled) names: every
-# instantiation must build with no spills
-WGMMA_KERNELS = ("flash_attention_fwd_kernel", "onepass_attention_kernel",
-                 "flash_bwd_")
+# the wgmma kernels and the paged few-rows kernel, by a piece of their
+# (mangled) names: every instantiation must build with no spills (18 wgmma
+# ones; the few-rows kernel at d = 64 and 128, bf16 and int8 pages, ALiBi
+# being a run-time branch of each)
+SPILL_CHECKED = ("flash_attention_fwd_kernel", "onepass_attention_kernel",
+                 "flash_bwd_", "paged_rows_kernel")
+N_SPILL_CHECKED = 22
 
 
-def ptxas_report(pieces=WGMMA_KERNELS):
+def ptxas_report(pieces=SPILL_CHECKED):
     """Registers and spill bytes that ptxas reported while building the
     library, for each kernel whose (mangled) name holds one of ``pieces``,
     with any "Potential Performance Loss" note ptxas gave it (a wgmma
@@ -2105,12 +2196,14 @@ def main() -> int:
         log(f"ptxas {name}: {info}")
     spilled = [n for n, i in ptxas.items() if i.get("spill_store_bytes", 1)
                or i.get("spill_load_bytes", 1)]
-    if spilled or len(ptxas) < 18:
-        raise AssertionError(f"ptxas: spills in {spilled}, or a wgmma "
+    if spilled or len(ptxas) < N_SPILL_CHECKED:
+        raise AssertionError(f"ptxas: spills in {spilled}, or a checked "
                              f"kernel missing from {sorted(ptxas)}")
+    paged_ptxas = {n: i for n, i in ptxas.items() if "paged_rows" in n}
     fwd_ptxas = {n: i for n, i in ptxas.items() if "fwd" in n
                  or "onepass" in n}
-    bwd_ptxas = {n: i for n, i in ptxas.items() if n not in fwd_ptxas}
+    bwd_ptxas = {n: i for n, i in ptxas.items()
+                 if n not in fwd_ptxas and n not in paged_ptxas}
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.default_rng(0)
@@ -2160,6 +2253,8 @@ def main() -> int:
         row["launches"] = t1["counts"][row.get("counter", name)]
         row["ptxas"] = fwd_ptxas if name == "B12" else bwd_ptxas
     b1["ptxas"] = b2["ptxas"] = fwd_ptxas
+    for name in ("B3", "B4", "B5", "B7", "B7w", "B9"):
+        paged[name]["ptxas"] = paged_ptxas
     rows = [b1, b2] + [paged[k] for k in ("B3", "B4", "B5", "B6", "B7",
                                           "B7w", "B8", "B9")] + [
         trained[k] for k in ("B10", "B11", "B12", "B13")]

@@ -1,5 +1,5 @@
 // Shared numerics of the port's attention kernels, and the mma.sync tile
-// engine of the paged window kernel (paged_attention.cu: B5/B6, and B7/B8
+// engine of the paged prefill-window kernel (paged_attention.cu: B6, and B8
 // over int8 pages). The dense forward (attention_fwd.cu: B1, B2, B12) and
 // the fused backward run on wgmma instead (hopper.cuh).
 //
@@ -8,11 +8,7 @@
 // the keys in 64-row tiles staged through shared memory. Scores and P@V run
 // on the tensor cores as mma.sync.m16n8k16 (bf16 in, f32 accumulate); the
 // softmax is online (running max m and sum l per row, kept in registers of
-// the quad of threads that owns the row). With SPLIT_KEYS the block owns
-// only 16 rows and its warps split the key tiles instead (tile w, w +
-// WARPS, ...; each warp stages its own tiles), then merge their (m, l, o)
-// through shared memory: a short window walks a long history WARPS times
-// faster than one warp would, with no idle rows.
+// the quad of threads that owns the row).
 //
 // What differs between the kernels is a "problem": where each query row,
 // key row and value row lies, which (row, key) pairs are visible with what
@@ -62,13 +58,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBlockN = 64;   // key rows per KV tile
 constexpr int kPad = 8;       // bf16 per smem row, staggers banks
 
-// Dynamic shared memory of a block: its Q tile and one K and one V tile
-// (one pair per warp with SPLIT_KEYS).
-template <int DP, int WARPS, bool SPLIT_KEYS = false>
+// Dynamic shared memory of a block: its Q tile and one K and one V tile.
+template <int DP, int WARPS>
 constexpr int tile_smem_bytes() {
-  return SPLIT_KEYS
-             ? (16 + WARPS * 2 * kBlockN) * (DP + kPad) * (int)sizeof(__nv_bfloat16)
-             : (16 * WARPS + 2 * kBlockN) * (DP + kPad) * (int)sizeof(__nv_bfloat16);
+  return (16 * WARPS + 2 * kBlockN) * (DP + kPad) * (int)sizeof(__nv_bfloat16);
 }
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
@@ -114,27 +107,26 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* smem, Chunk chunk,
 // The whole forward for the block's query rows. DP is the head dim d
 // rounded up to a supported width (zero columns cost MMA work, not
 // results).
-template <int DP, int WARPS, bool SPLIT_KEYS = false, class Problem>
+template <int DP, int WARPS, class Problem>
 __device__ __forceinline__ void attention_tile(const Problem& pb, int d) {
-  constexpr int kRows = SPLIT_KEYS ? 16 : 16 * WARPS;
+  constexpr int kRows = 16 * WARPS;
   constexpr int kNThreads = 32 * WARPS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int LD = DP + kPad;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kRows * LD + (SPLIT_KEYS ? warp * 2 * kBlockN * LD : 0);
+  __nv_bfloat16* Ks = Qs + kRows * LD;
   __nv_bfloat16* Vs = Ks + kBlockN * LD;
   const uint16_t* Vbits = reinterpret_cast<const uint16_t*>(Vs);
 
   const int g = lane >> 2;  // fragment row within the warp's 16
   const int t = lane & 3;   // thread within the quad that shares a row
-  const int r_lo = (SPLIT_KEYS ? 0 : warp * 16) + g;
+  const int r_lo = warp * 16 + g;
 
   load_rows<DP, kNThreads, kRows>(
       Qs, [&](int r, int c) { return ld128(pb.q_row(r) + c); }, pb.n_rows(),
       d, threadIdx.x);
-  if (SPLIT_KEYS) __syncthreads();  // every warp reads all 16 Q rows
   const typename Problem::Row row[2] = {pb.row(r_lo), pb.row(r_lo + 8)};
 
   float m[2] = {kNegInf, kNegInf};
@@ -149,30 +141,17 @@ __device__ __forceinline__ void attention_tile(const Problem& pb, int d) {
   const int n_tiles = (pb.key_end() + kBlockN - 1) / kBlockN;
   const int dk = (d + 15) / 16 * 16;
 
-  for (int tile = SPLIT_KEYS ? warp : 0; tile < n_tiles;
-       tile += SPLIT_KEYS ? WARPS : 1) {
+  for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * kBlockN;
     const int rows = min(kBlockN, n_keys - k0);
-    if (SPLIT_KEYS) {
-      // this warp's own K/V tile
-      __syncwarp();
-      load_rows<DP, 32, kBlockN>(
-          Ks, [&](int r, int c) { return pb.k_chunk(k0 + r, c); }, rows, d,
-          lane);
-      load_rows<DP, 32, kBlockN>(
-          Vs, [&](int r, int c) { return pb.v_chunk(k0 + r, c); }, rows, d,
-          lane);
-      __syncwarp();
-    } else {
-      __syncthreads();  // every warp is done with the previous K/V tile
-      load_rows<DP, kNThreads, kBlockN>(
-          Ks, [&](int r, int c) { return pb.k_chunk(k0 + r, c); }, rows, d,
-          threadIdx.x);
-      load_rows<DP, kNThreads, kBlockN>(
-          Vs, [&](int r, int c) { return pb.v_chunk(k0 + r, c); }, rows, d,
-          threadIdx.x);
-      __syncthreads();
-    }
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_rows<DP, kNThreads, kBlockN>(
+        Ks, [&](int r, int c) { return pb.k_chunk(k0 + r, c); }, rows, d,
+        threadIdx.x);
+    load_rows<DP, kNThreads, kBlockN>(
+        Vs, [&](int r, int c) { return pb.v_chunk(k0 + r, c); }, rows, d,
+        threadIdx.x);
+    __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys: 8 n-tiles of 8 keys
     float s[8][4];
@@ -261,50 +240,6 @@ __device__ __forceinline__ void attention_tile(const Problem& pb, int d) {
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  if (SPLIT_KEYS) {
-    // merge the warps' partial (m, l, o) of the same 16 rows in warp 0,
-    // through the K/V tiles' shared memory (every warp is done with them)
-    __syncthreads();
-    float* ms = reinterpret_cast<float*>(Qs + kRows * LD);  // [WARPS][16]
-    float* ls = ms + WARPS * 16;                            // [WARPS][16]
-    float* os = ls + WARPS * 16;                            // [WARPS][16][DP]
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int wr = warp * 16 + g + 8 * r;
-      if (t == 0) {
-        ms[wr] = m[r];
-        ls[wr] = l[r];
-      }
-#pragma unroll
-      for (int dn = 0; dn < DP / 8; ++dn) {
-        os[wr * DP + dn * 8 + t * 2] = o[dn][2 * r];
-        os[wr * DP + dn * 8 + t * 2 + 1] = o[dn][2 * r + 1];
-      }
-    }
-    __syncthreads();
-    if (warp != 0) return;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int rr = g + 8 * r;
-      float mx = kNegInf;
-      for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, ms[w * 16 + rr]);
-      float lsum = 0.f;
-#pragma unroll
-      for (int dn = 0; dn < DP / 8; ++dn) o[dn][2 * r] = o[dn][2 * r + 1] = 0.f;
-      for (int w = 0; w < WARPS; ++w) {
-        const int wr = w * 16 + rr;
-        const float sc = exp2f(ms[wr] - mx);
-        lsum += ls[wr] * sc;
-#pragma unroll
-        for (int dn = 0; dn < DP / 8; ++dn) {
-          o[dn][2 * r] += os[wr * DP + dn * 8 + t * 2] * sc;
-          o[dn][2 * r + 1] += os[wr * DP + dn * 8 + t * 2 + 1] * sc;
-        }
-      }
-      m[r] = mx;
-      l[r] = lsum;
-    }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {

@@ -51,19 +51,21 @@ SIGNATURES = {
     # causal, stream
     "merlin_flash_attention_bwd_bf16": (
         [_P] * 14 + [_I] * 6 + [_L] * 15 + [_F, _I, _P]),
-    # q, k_pages, v_pages, lengths, tables, slopes, out, b, h, hkv, d,
-    # page_size, pages_per_seq, scale, stream
-    "merlin_paged_decode_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
-    # q, k_pages, v_pages, lengths, tables, slopes, out, b, s_q, h, hkv, d,
-    # page_size, pages_per_seq, scale, split_keys, stream
-    "merlin_paged_window_bf16": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
-    # q, k_pages, k_scales, v_pages, v_scales, lengths, tables, slopes, out,
-    # b, h, hkv, d, page_size, pages_per_seq, scale_lanes, scale, stream
-    "merlin_paged_decode_q8": [_P] * 9 + [_I] * 7 + [_F, _P],
-    # q, k_pages, k_scales, v_pages, v_scales, lengths, tables, slopes, out,
-    # b, s_q, h, hkv, d, page_size, pages_per_seq, scale_lanes, scale,
+    # q, k_pages, v_pages, lengths, tables, slopes, out, ws, counters, b,
+    # h, hkv, d, page_size, pages_per_seq, split_pages, scale, stream
+    "merlin_paged_decode_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # q, k_pages, v_pages, lengths, tables, slopes, out, ws, counters, b,
+    # s_q, h, hkv, d, page_size, pages_per_seq, split_pages, scale,
     # split_keys, stream
-    "merlin_paged_window_q8": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+    "merlin_paged_window_bf16": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
+    # q, k_pages, k_scales, v_pages, v_scales, lengths, tables, slopes, out,
+    # ws, counters, b, h, hkv, d, page_size, pages_per_seq, scale_lanes,
+    # split_pages, scale, stream
+    "merlin_paged_decode_q8": [_P] * 11 + [_I] * 8 + [_F, _P],
+    # q, k_pages, k_scales, v_pages, v_scales, lengths, tables, slopes, out,
+    # ws, counters, b, s_q, h, hkv, d, page_size, pages_per_seq,
+    # scale_lanes, split_pages, scale, split_keys, stream
+    "merlin_paged_window_q8": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

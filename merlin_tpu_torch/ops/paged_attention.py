@@ -11,14 +11,16 @@ contiguous row, so a token's write is one row and a head's keys are a
 Four TPU kernels sit on the serving path; two CUDA kernels
 (``csrc/paged_attention.cu``) stand in for them:
 
-  * paged decode, one query token per sequence: :func:`paged_attention_dma`
-    (B3, no ALiBi) and :func:`paged_attention` (B4, ALiBi);
-  * paged window, ``s_q`` queries per sequence, causal from their true
-    positions: :func:`paged_attention_dma_multi` (B5, one 16-row tile per
-    kv head whose warps split the keys, for speculative verify windows) and
-    :func:`paged_attention_multi_blocked` (B6, 64-row tiles, for
-    chunked-prefill windows). :func:`paged_window_attention` picks one from
-    the window's shape.
+  * the few-rows kernel, which splits each sequence's keys over CTAs and
+    takes any query group: paged decode, one query token per sequence,
+    :func:`paged_attention_dma` (B3, no ALiBi) and :func:`paged_attention`
+    (B4, ALiBi); and paged windows of up to :data:`WINDOW_SMALL_ROWS` query
+    rows per kv head (speculative verify), :func:`paged_attention_dma_multi`
+    (B5);
+  * the 64-row tile engine: paged windows, ``s_q`` queries per sequence,
+    causal from their true positions, for chunked prefill:
+    :func:`paged_attention_multi_blocked` (B6).
+    :func:`paged_window_attention` picks B5 or B6 from the window's shape.
 
 The same two CUDA kernels read int8 pages (their scale pages ``(P, page,
 128)`` f32 in the strided layout of :func:`_scale_row`) for the three int8
@@ -26,9 +28,9 @@ TPU kernels:
 
   * int8 paged decode: :func:`paged_attention_dma_q8` (B7 at s_q = 1, what
     the decoder's token step calls) and :func:`paged_attention_quantized`
-    (B9);
+    (B9), on the few-rows kernel;
   * int8 paged window: :func:`paged_attention_dma_multi_q8` (B7 windows,
-    split-key 16-row tile) and :func:`paged_attention_multi_blocked_q8` (B8,
+    the few-rows kernel) and :func:`paged_attention_multi_blocked_q8` (B8,
     64-row tiles). :func:`paged_window_attention_q8` picks one.
 
 Their plain versions (:func:`paged_attention_q8_plain`,
@@ -57,8 +59,13 @@ import torch
 from merlin_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-# query rows per kv head up to which a window takes B5's split-key tile
+# query rows per kv head up to which a window takes the few-rows kernel
+# (B5, B7 windows)
 WINDOW_SMALL_ROWS = 16
+# keys per CTA of the few-rows kernel, rounded down to whole pages (at least
+# one); the kernel takes at most 256 splits of a table row
+SPLIT_KEYS = 256
+_COUNTERS = {}    # device -> the few-rows kernel's int32 arrival counters
 
 
 # ---------------------------------------------------------------------------
@@ -128,16 +135,40 @@ class PagePool:
 LANES = 128   # scale-row width of int8 pages
 
 
-def _page_slots(positions: torch.Tensor, page_tables: torch.Tensor,
-                page_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(physical page, offset) of each position (b, n) through its row of
-    the tables. A position past the table takes the row's last entry (the
-    JAX scatter drops it): only an idle engine slot, whose row is all
-    trash page, has one."""
+def _page_targets(positions: torch.Tensor, page_tables: torch.Tensor,
+                  page_size: int):
+    """Where each position (b, n) lands through its row of the tables, for
+    :func:`_write_rows`: (physical page, offset, source row) of each of the
+    b * n rows, and whether any row is kept.
+
+    A position whose logical page lies past the table is dropped, as JAX's
+    scatter drops it (trap C9). A dropped row takes the target and the
+    source of the first kept row, so the scatter writes that row's bits
+    twice and nothing else: it neither races with a live write to its own
+    clamped slot (a window longer than a page can land there) nor needs a
+    host sync to leave it out. When no row is kept, every row targets the
+    first one's clamped slot and :func:`_write_rows` writes that slot's
+    own contents back."""
     pos = positions.long()
-    logical = (pos // page_size).clamp(max=page_tables.shape[1] - 1)
-    phys = torch.gather(page_tables.long(), 1, logical)
-    return phys.reshape(-1), (pos % page_size).reshape(-1)
+    logical = pos // page_size
+    kept = (logical < page_tables.shape[1]).reshape(-1)
+    phys = torch.gather(page_tables.long(), 1,
+                        logical.clamp(max=page_tables.shape[1] - 1))
+    row = (phys * page_size + pos % page_size).reshape(-1)
+    first = torch.argmax(kept.int())     # the first kept row, else row 0
+    src = torch.where(kept, torch.arange(kept.numel(), device=kept.device),
+                      first)
+    row = row[src]
+    return row // page_size, row % page_size, src, kept.any()
+
+
+def _write_rows(pages: torch.Tensor, rows: torch.Tensor, targets) -> None:
+    """``pages[phys, offset] = rows[src]`` IN PLACE for the targets of
+    :func:`_page_targets`; with no kept row, the targeted slot keeps its
+    contents. rows: (b * n, pages.shape[-1])."""
+    phys, offset, src, any_kept = targets
+    pages[phys, offset] = torch.where(any_kept, rows[src].to(pages.dtype),
+                                      pages[phys, offset])
 
 
 def write_token_to_pages(k_pages, v_pages, k_new, v_new, *, positions,
@@ -148,12 +179,13 @@ def write_token_to_pages(k_pages, v_pages, k_new, v_new, *, positions,
     k_new/v_new: (b, hkv, d); positions: (b,) token index per sequence;
     page_tables: (b, pages_per_seq). Each token is one head-packed
     (hkv*d,) row; duplicate targets only occur on the trash page, where
-    any write order is acceptable. Returns (k_pages, v_pages)."""
-    phys, offset = _page_slots(positions[:, None], page_tables,
-                               k_pages.shape[1])
+    any write order is acceptable, and a position past the table writes
+    nothing. Returns (k_pages, v_pages)."""
+    targets = _page_targets(positions[:, None], page_tables,
+                            k_pages.shape[1])
     b = k_new.shape[0]
-    k_pages[phys, offset] = k_new.reshape(b, -1).to(k_pages.dtype)
-    v_pages[phys, offset] = v_new.reshape(b, -1).to(v_pages.dtype)
+    _write_rows(k_pages, k_new.reshape(b, -1), targets)
+    _write_rows(v_pages, v_new.reshape(b, -1), targets)
     return k_pages, v_pages
 
 
@@ -163,14 +195,14 @@ def write_tokens_to_pages(k_pages, v_pages, k_new, v_new, *,
 
     k_new/v_new: (b, s_q, hkv, d); start_positions: (b,) first token
     index per sequence (token j lands at start+j); page_tables:
-    (b, pages_per_seq). One batched scatter of b*s_q head-packed rows.
-    Returns (k_pages, v_pages)."""
+    (b, pages_per_seq). One batched scatter of b*s_q head-packed rows; a
+    token past the table writes nothing. Returns (k_pages, v_pages)."""
     b, s_q = k_new.shape[:2]
     positions = start_positions.long()[:, None] + torch.arange(
         s_q, device=start_positions.device)[None]
-    phys, offset = _page_slots(positions, page_tables, k_pages.shape[1])
-    k_pages[phys, offset] = k_new.reshape(b * s_q, -1).to(k_pages.dtype)
-    v_pages[phys, offset] = v_new.reshape(b * s_q, -1).to(v_pages.dtype)
+    targets = _page_targets(positions, page_tables, k_pages.shape[1])
+    _write_rows(k_pages, k_new.reshape(b * s_q, -1), targets)
+    _write_rows(v_pages, v_new.reshape(b * s_q, -1), targets)
     return k_pages, v_pages
 
 
@@ -224,14 +256,15 @@ def write_token_to_pages_q8(k_pages, k_scales, v_pages, v_scales, k_new,
                             v_new, *, positions, page_tables):
     """:func:`write_token_to_pages` over int8 pages, IN PLACE: each token's
     per-head rows are quantized on write, their scales land in the strided
-    scale row. k/v_new: (b, hkv, d). Returns the four arrays."""
-    phys, offset = _page_slots(positions[:, None], page_tables,
-                               k_pages.shape[1])
+    scale row; a position past the table writes neither. k/v_new:
+    (b, hkv, d). Returns the four arrays."""
+    targets = _page_targets(positions[:, None], page_tables,
+                            k_pages.shape[1])
     for pages, scales, new in ((k_pages, k_scales, k_new),
                                (v_pages, v_scales, v_new)):
         q8, sc = _quantize_rows(new)
-        pages[phys, offset] = q8.reshape(q8.shape[0], -1)
-        scales[phys, offset] = _scale_row(sc, scales.shape[-1])
+        _write_rows(pages, q8.reshape(q8.shape[0], -1), targets)
+        _write_rows(scales, _scale_row(sc, scales.shape[-1]), targets)
     return k_pages, k_scales, v_pages, v_scales
 
 
@@ -242,13 +275,13 @@ def write_tokens_to_pages_q8(k_pages, k_scales, v_pages, v_scales, k_new,
     b, s_q, hkv = k_new.shape[:3]
     positions = start_positions.long()[:, None] + torch.arange(
         s_q, device=start_positions.device)[None]
-    phys, offset = _page_slots(positions, page_tables, k_pages.shape[1])
+    targets = _page_targets(positions, page_tables, k_pages.shape[1])
     for pages, scales, new in ((k_pages, k_scales, k_new),
                                (v_pages, v_scales, v_new)):
         q8, sc = _quantize_rows(new)
-        pages[phys, offset] = q8.reshape(b * s_q, -1)
-        scales[phys, offset] = _scale_row(sc.reshape(b * s_q, hkv),
-                                          scales.shape[-1])
+        _write_rows(pages, q8.reshape(b * s_q, -1), targets)
+        _write_rows(scales, _scale_row(sc.reshape(b * s_q, hkv),
+                                       scales.shape[-1]), targets)
     return k_pages, k_scales, v_pages, v_scales
 
 
@@ -405,34 +438,57 @@ def _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
     return hkv
 
 
+def _split_workspace(q, b, rows, hkv, d, page_size, pps):
+    """What the few-rows kernel needs to split each sequence's keys over
+    CTAs: (pages per split, the workspace tensor, its pointer, the
+    counters' pointer). With more than one split of ``SPLIT_KEYS`` keys,
+    an f32 workspace for each split's (O, m, l) of each of the ``rows``
+    query rows of a kv head (``torch.empty``: a split writes its rows
+    before the last one reads them), and the device's arrival counters,
+    one per (sequence, kv head, 16-row tile): zeroed once when allocated
+    or grown, and left at 0 by the kernel, so no call launches a memset.
+    The port runs one stream; two streams must not share the counters."""
+    split_pages = max(1, SPLIT_KEYS // page_size)
+    n_splits = -(-pps // split_pages)
+    if n_splits == 1:
+        return split_pages, None, None, None
+    ws = torch.empty(b * hkv * n_splits * rows * (d + 2),
+                     dtype=torch.float32, device=q.device)
+    need = b * hkv * -(-rows // 16)
+    counters = _COUNTERS.get(q.device)
+    if counters is None or counters.numel() < need:
+        counters = torch.zeros(need, dtype=torch.int32, device=q.device)
+        _COUNTERS[q.device] = counters
+    return split_pages, ws, ws.data_ptr(), counters.data_ptr()
+
+
 def _launch_decode(name, q, k_pages, v_pages, lengths, page_tables,
                    alibi_slopes, scale, k_scales=None, v_scales=None):
     """One query token per sequence: bf16 pages, or int8 pages with their
-    scale pages."""
+    scale pages; the few-rows kernel, any query group."""
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (b, h, d), got {tuple(q.shape)}")
     hkv = _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
                        alibi_slopes, k_scales, v_scales)
     b, h, d = q.shape
-    if h // hkv > 8:
-        raise ValueError(f"{name}: at most 8 query heads per kv head, got "
-                         f"{h // hkv}")
+    page_size, pps = k_pages.shape[1], page_tables.shape[1]
+    split_pages, ws, ws_ptr, counters = _split_workspace(
+        q, b, h // hkv, hkv, d, page_size, pps)
     out = torch.empty_like(q)
     common = (lengths.data_ptr(), page_tables.data_ptr(),
               alibi_slopes.data_ptr() if alibi_slopes is not None else None,
-              out.data_ptr(), b, h, hkv, d, k_pages.shape[1],
-              page_tables.shape[1])
+              out.data_ptr(), ws_ptr, counters, b, h, hkv, d, page_size, pps)
     scale = float(scale if scale is not None else d ** -0.5)
     stream = _build.stream_handle(q.device)
     if k_scales is None:
         code = _build.lib().merlin_paged_decode_bf16(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *common,
-            scale, stream)
+            split_pages, scale, stream)
     else:
         code = _build.lib().merlin_paged_decode_q8(
             q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
             v_pages.data_ptr(), v_scales.data_ptr(), *common,
-            k_scales.shape[2], scale, stream)
+            k_scales.shape[2], split_pages, scale, stream)
     _build.check(code, name)
     return out
 
@@ -441,29 +497,34 @@ def _launch_window(name, q, k_pages, v_pages, lengths, page_tables,
                    alibi_slopes, scale, split_keys, k_scales=None,
                    v_scales=None):
     """An s_q-token window per sequence: bf16 pages, or int8 pages with
-    their scale pages."""
+    their scale pages; the few-rows kernel with ``split_keys``, else the
+    64-row tile engine."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (b, s_q, h, d), got "
                          f"{tuple(q.shape)}")
     hkv = _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
                        alibi_slopes, k_scales, v_scales)
     b, s_q, h, d = q.shape
+    page_size, pps = k_pages.shape[1], page_tables.shape[1]
+    split_pages, ws, ws_ptr, counters = (
+        _split_workspace(q, b, h // hkv * s_q, hkv, d, page_size, pps)
+        if split_keys else (1, None, None, None))
     out = torch.empty_like(q)
     common = (lengths.data_ptr(), page_tables.data_ptr(),
               alibi_slopes.data_ptr() if alibi_slopes is not None else None,
-              out.data_ptr(), b, s_q, h, hkv, d, k_pages.shape[1],
-              page_tables.shape[1])
+              out.data_ptr(), ws_ptr, counters, b, s_q, h, hkv, d, page_size,
+              pps)
     scale = float(scale if scale is not None else d ** -0.5)
     stream = _build.stream_handle(q.device)
     if k_scales is None:
         code = _build.lib().merlin_paged_window_bf16(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *common,
-            scale, int(split_keys), stream)
+            split_pages, scale, int(split_keys), stream)
     else:
         code = _build.lib().merlin_paged_window_q8(
             q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
             v_pages.data_ptr(), v_scales.data_ptr(), *common,
-            k_scales.shape[2], scale, int(split_keys), stream)
+            k_scales.shape[2], split_pages, scale, int(split_keys), stream)
     _build.check(code, name)
     return out
 
@@ -499,9 +560,9 @@ def paged_attention_dma_multi(q, k_pages, v_pages, lengths, page_tables, *,
                               alibi_slopes=None,
                               scale: Optional[float] = None):
     """B5: an s_q-token window per sequence over arbitrary page tables
-    (see :func:`paged_attention_multi_plain`), any s_q, in tiles of 16
-    query rows of a kv head whose four warps split the keys. Returns
-    (b, s_q, h, d)."""
+    (see :func:`paged_attention_multi_plain`), any s_q, on the few-rows
+    kernel: tiles of 16 query rows of a kv head, each sequence's keys split
+    over CTAs. Returns (b, s_q, h, d)."""
     if q.device.type == "cpu":
         return paged_attention_multi_plain(
             q, k_pages, v_pages, lengths, page_tables,
@@ -539,7 +600,7 @@ def paged_window_attention(q, k_pages, v_pages, lengths, page_tables, *,
                            alibi_slopes=None):
     """A window's attention, routed by its query rows per kv head
     (group * s_q): up to :data:`WINDOW_SMALL_ROWS` (a verify window) to
-    B5, whose warps split a long history between them; more (a prefill
+    B5, whose CTAs split a long history between them; more (a prefill
     window) to B6, whose 64-row tiles read each K/V tile once for 64
     rows."""
     group = q.shape[2] // (k_pages.shape[2] // q.shape[3])
@@ -589,8 +650,8 @@ def paged_attention_dma_multi_q8(q, k_values, k_scales, v_values, v_scales,
                                  lengths, page_tables, *, alibi_slopes=None,
                                  scale: Optional[float] = None):
     """B7: an s_q-token window per sequence over int8 pages (the contract
-    of :func:`paged_attention_multi_q8_plain`), in B5's split-key 16-row
-    tiles. Returns (b, s_q, h, d)."""
+    of :func:`paged_attention_multi_q8_plain`), on B5's few-rows kernel.
+    Returns (b, s_q, h, d)."""
     if q.device.type == "cpu":
         return paged_attention_multi_q8_plain(
             q, k_values, k_scales, v_values, v_scales, lengths, page_tables,

@@ -8,13 +8,22 @@
     last grid step reads ``lengths[b]`` one past the end (trap C8).
   * each wrapper takes its plain version for CPU tensors and counts no
     launch;
-  * ``write_token(s)_to_pages`` and ``PagePool`` against JAX's.
+  * ``write_token(s)_to_pages`` and ``PagePool`` against JAX's, writes
+    past a table row included (JAX drops them: trap C9);
+  * the kernels' shape guards (the wrappers' and ``bad_shape`` in
+    ``csrc/paged_attention.cu``) take every query group the JAX kernels
+    take.
 
 Inputs come from numpy with a seed: GQA, ALiBi, ragged lengths (1, a page
 multiple, a ragged last page), permuted page tables with unused entries on
-page 0, s_q in {1, 3, 8}. f32 holds to 1e-5 (summation order only), bf16 to
-2e-2 (half an ulp of values of magnitude ~1, rounded at other places).
+page 0, query groups up to 32, s_q in {1, 3, 5, 8}. f32 holds to 1e-5
+(summation order only), bf16 to 2e-2 (half an ulp of values of magnitude
+~1, rounded at other places).
 """
+
+import ast
+import inspect
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +34,7 @@ from jax.experimental.pallas import tpu as pltpu
 from merlin_tpu.models.layers import alibi_slopes as j_alibi_slopes
 from merlin_tpu.ops import paged_attention as jpa
 
+from merlin_tpu_torch.ops import _build
 from merlin_tpu_torch.ops import paged_attention as pa
 
 F32_TOL = 1e-5
@@ -72,6 +82,9 @@ DECODE_CASES = {
     "gqa": ([5, 32, 16], 8, 2, False),
     "mha_alibi": ([1, 8, 29, 17], 4, 4, True),
     "gqa_alibi": ([5, 32, 16], 8, 2, True),
+    # query groups above 8: 32 query heads over 2 kv heads and over 1
+    "g16": ([3, 32, 17], 32, 2, False),
+    "g32_alibi": ([9, 1, 30], 32, 1, True),
 }
 
 
@@ -95,7 +108,8 @@ def test_decode_plain_matches_jax_reference_f32(case):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("case", ["mha_alibi", "gqa_alibi", "gqa"])
+@pytest.mark.parametrize("case", ["mha_alibi", "gqa_alibi", "gqa", "g16",
+                                  "g32_alibi"])
 def test_decode_plain_matches_b4_pallas_interpret(case):
     """B4's Pallas kernel (``_paged_kernel``) runs in interpret mode; with
     no slopes its contract is B3's."""
@@ -135,6 +149,8 @@ WINDOW_CASES = {
     "sq3_gqa_alibi": ([3, 16, 30], 3, 8, 2, True),
     "sq8_mha_alibi": ([8, 16, 27, 9], 8, 4, 4, True),
     "sq8_gqa": ([8, 24, 32], 8, 8, 2, False),
+    # 15 query rows per kv head (group 3 x 5), the few-rows kernel's tile
+    "sq5_g3_alibi": ([5, 20, 31], 5, 6, 2, True),
 }
 
 
@@ -192,6 +208,7 @@ def test_window_plain_matches_jax_reference_bf16():
 
 @pytest.mark.parametrize("group,s_q,route", [
     (1, 5, "paged_attention_dma_multi"), (4, 4, "paged_attention_dma_multi"),
+    (3, 5, "paged_attention_dma_multi"),
     (1, 17, "paged_attention_multi_blocked"),
     (4, 128, "paged_attention_multi_blocked")])
 def test_window_route_by_rows_per_kv_head(monkeypatch, group, s_q, route):
@@ -247,6 +264,96 @@ def test_write_tokens_to_pages_matches_jax():
                              page_tables=_t(tables))
     np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+# positions (decode) or window starts past 3-page tables of 4-token pages:
+# JAX's scatter drops the rows whose logical page is 3 or more. In
+# "window_collide" row 1's dropped tokens would clamp to the page its first
+# token writes.
+PAST_TABLE = {
+    "decode_one_past": np.asarray([6, 12], np.int32),
+    "decode_all_past": np.asarray([13, 40], np.int32),
+    "window_collide": np.asarray([2, 8], np.int32),
+    "window_all_past": np.asarray([12, 20], np.int32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAST_TABLE))
+def test_write_past_table_is_dropped_like_jax(case):
+    """C9: a write whose logical page lies past its table row changes no
+    page, as JAX's scatter drops it, while the call's other rows land; a
+    dropped window token does not overwrite the live token of the same
+    call whose slot it would clamp to."""
+    rng = np.random.default_rng(8)
+    hkv, d, page = 2, 8, 4
+    kp = rng.normal(size=(7, page, hkv * d)).astype(np.float32)
+    vp = rng.normal(size=(7, page, hkv * d)).astype(np.float32)
+    tables = np.asarray([[3, 1, 4], [5, 6, 2]], np.int32)
+    window = case.startswith("window")
+    shape = (2, 5, hkv, d) if window else (2, hkv, d)
+    k_new = rng.normal(size=shape).astype(np.float32)
+    v_new = rng.normal(size=shape).astype(np.float32)
+    pos = PAST_TABLE[case]
+    key = "start_positions" if window else "positions"
+    jfn = jpa.write_tokens_to_pages if window else jpa.write_token_to_pages
+    pfn = pa.write_tokens_to_pages if window else pa.write_token_to_pages
+    want = jfn(_j(kp), _j(vp), _j(k_new), _j(v_new), page_tables=_j(tables),
+               **{key: _j(pos)})
+    arrays = [_t(kp), _t(vp)]
+    pfn(*arrays, _t(k_new), _t(v_new), page_tables=_t(tables),
+        **{key: _t(pos)})
+    for got, w, before in zip(arrays, want, (kp, vp)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+        assert np.array_equal(got.numpy(), before) == case.endswith(
+            "all_past")
+
+
+def _bad_shape():
+    """``bad_shape`` of ``csrc/paged_attention.cu``, the C entry points'
+    shape guard, read from the source and evaluated in Python."""
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    m = re.search(r"bool bad_shape\(([^)]*)\) \{\s*return (.*?);\s*\}", src,
+                  re.S)
+    params = [p_.split()[-1] for p_ in m.group(1).split(",")]
+    expr = " ".join(m.group(2).replace("||", " or ").replace("&&", " and ")
+                    .replace("/", "//").split())
+    return lambda *args: eval(expr, {}, dict(zip(params, args)))
+
+
+def _group_limits(fn):
+    """Comparisons of a query group (``h // hkv`` or ``group``) with a
+    number in the source of ``fn``: a refusal of groups above a size."""
+    found = []
+    for node in ast.walk(ast.parse(inspect.getsource(fn))):
+        if not isinstance(node, ast.Compare):
+            continue
+        sides = [node.left, *node.comparators]
+        grouped = any(
+            (isinstance(n, ast.BinOp) and isinstance(n.op, ast.FloorDiv))
+            or (isinstance(n, ast.Name) and n.id == "group")
+            for side in sides for n in ast.walk(side))
+        if grouped and any(isinstance(n, ast.Constant) for n in sides):
+            found.append(ast.unparse(node))
+    return found
+
+
+def test_kernels_take_every_query_group_jax_takes():
+    """The JAX paged kernels take any grouping with h % hkv == 0 (B4's
+    block is (1, 1, group, d)); the port's wrappers and the C guard must
+    refuse none of them: no limit on the group in the Python checks, and
+    ``bad_shape`` false for groups 1..64 at the widths the kernels take."""
+    for fn in (pa._check_paged, pa._launch_decode, pa._launch_window,
+               pa._split_workspace):
+        assert _group_limits(fn) == [], fn.__name__
+    bad_shape = _bad_shape()
+    for group in (1, 3, 8, 16, 32, 64):
+        for hkv in (1, 2, 40):
+            for d, s_lanes in ((64, 0), (128, 0), (128, 128), (80, 128)):
+                assert not bad_shape(group * hkv, hkv, d, s_lanes), (
+                    group, hkv, d, s_lanes)
+    # the guard still refuses what the kernels cannot take
+    assert bad_shape(5, 2, 128, 0) and bad_shape(8, 2, 136, 0)
+    assert bad_shape(8, 2, 60, 0) and bad_shape(256, 256, 64, 128)
 
 
 def _pool_trace(pool_cls):

@@ -15,11 +15,14 @@
     kernel cannot run in interpret mode, because its prefetch predicate
     reads ``lengths[b]`` one past the end on the last grid step (trap C8);
   * every int8 wrapper takes its plain version for CPU tensors and counts
-    no launch; the int8 window router sends <= 16 rows per kv head to B7.
+    no launch; the int8 window router sends <= 16 rows per kv head to B7;
+  * a write past a table row changes no page and no scale, as JAX drops it
+    (trap C9).
 
 Inputs come from numpy with a seed: ragged lengths (1, a page multiple, a
 ragged last page), permuted page tables with unused entries on page 0,
-GQA, ALiBi and hkv = 3 (a stride that does not divide 128).
+GQA up to 32 query heads per kv head, ALiBi and hkv = 3 (a stride that
+does not divide 128).
 """
 
 import jax.numpy as jnp
@@ -163,6 +166,50 @@ def test_write_tokens_to_pages_q8_matches_jax():
         np.testing.assert_array_equal(got.numpy(), np.asarray(w))
 
 
+# positions (decode) or window starts past 3-page tables of 4-token pages:
+# JAX's scatter drops the rows whose logical page is 3 or more. In
+# "window_collide" row 1's dropped tokens would clamp to the page its first
+# token writes.
+PAST_TABLE = {
+    "decode_one_past": np.asarray([6, 12], np.int32),
+    "decode_all_past": np.asarray([13, 40], np.int32),
+    "window_collide": np.asarray([2, 8], np.int32),
+    "window_all_past": np.asarray([12, 20], np.int32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PAST_TABLE))
+def test_write_past_table_q8_is_dropped_like_jax(case):
+    """C9 over int8 pages: a write past its table row changes no value and
+    no scale, as JAX drops it, while the call's other rows land, and a
+    dropped window token does not overwrite the live token whose slot it
+    would clamp to."""
+    rng = np.random.default_rng(13)
+    hkv, d, page = 2, 8, 4
+    kv, ks = _empty_pools(rng, 7, page, hkv, d)
+    vv, vs = _empty_pools(rng, 7, page, hkv, d)
+    tables = np.asarray([[3, 1, 4], [5, 6, 2]], np.int32)
+    window = case.startswith("window")
+    shape = (2, 5, hkv, d) if window else (2, hkv, d)
+    k_new = rng.normal(size=shape).astype(np.float32)
+    v_new = rng.normal(size=shape).astype(np.float32)
+    pos = PAST_TABLE[case]
+    key = "start_positions" if window else "positions"
+    jfn = (jpa.write_tokens_to_pages_q8 if window
+           else jpa.write_token_to_pages_q8)
+    pfn = (pa.write_tokens_to_pages_q8 if window
+           else pa.write_token_to_pages_q8)
+    want = jfn(_j(kv), _j(ks), _j(vv), _j(vs), _j(k_new), _j(v_new),
+               page_tables=_j(tables), **{key: _j(pos)})
+    arrays = [_t(a) for a in (kv, ks, vv, vs)]
+    pfn(*arrays, _t(k_new), _t(v_new), page_tables=_t(tables),
+        **{key: _t(pos)})
+    for got, w, before in zip(arrays, want, (kv, ks, vv, vs)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+        assert np.array_equal(got.numpy(), before) == case.endswith(
+            "all_past")
+
+
 def _assert_within_one_ulp(got, want):
     """|got - want| <= one bf16 ulp of the largest |want|."""
     want = np.asarray(want, np.float32)
@@ -175,6 +222,9 @@ DECODE_CASES = {
     "mha": ([1, 8, 29, 17], 4, 4, False),
     "gqa": ([5, 32, 16], 8, 2, False),
     "hkv3_alibi": ([1, 24, 13], 6, 3, True),
+    # query groups above 8: 32 query heads over 2 kv heads and over 1
+    "g16": ([3, 32, 17], 32, 2, False),
+    "g32_alibi": ([9, 1, 30], 32, 1, True),
 }
 
 
@@ -229,6 +279,8 @@ WINDOW_CASES = {
     "sq5_hkv3": ([5, 21, 30], 5, 3, 3, False),
     "sq8_mha_alibi": ([8, 16, 27, 9], 8, 4, 4, True),
     "sq8_gqa": ([8, 24, 32], 8, 8, 2, False),
+    # 15 query rows per kv head (group 3 x 5), the few-rows kernel's tile
+    "sq5_g3": ([5, 21, 30], 5, 6, 2, False),
 }
 
 
@@ -284,6 +336,7 @@ def test_b8_plain_matches_pallas_interpret(case):
 @pytest.mark.parametrize("group,s_q,route", [
     (1, 5, "paged_attention_dma_multi_q8"),
     (4, 4, "paged_attention_dma_multi_q8"),
+    (3, 5, "paged_attention_dma_multi_q8"),
     (1, 17, "paged_attention_multi_blocked_q8"),
     (4, 128, "paged_attention_multi_blocked_q8")])
 def test_q8_window_route_by_rows_per_kv_head(monkeypatch, group, s_q, route):
