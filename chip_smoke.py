@@ -9,24 +9,33 @@ the LM quantized to int8) and of Baichuan-13B:
                   ``merlin_tpu_torch/csrc`` (nvcc, sm_90a) and print what
                   ptxas reported for every wgmma kernel, the forward's and
                   the backward's instantiations, and for the paged
-                  few-rows kernel's (registers, spills: any spill fails);
+                  few-rows and window kernels' (registers, spills: any
+                  spill fails);
   2. kernels    - each kernel (B1-B9) against its plain PyTorch version on
                   the card at its path's shapes (and edge cases: GQA, ALiBi,
                   ragged lengths over permuted page tables, hkv = 40; B1 at
                   d = 104, B2 at the training shape with its padding, the
-                  paged kernels at d = 64; the paged decode at query groups
-                  16 and 32, a 15-row window, and lengths 0, 1, a multiple
-                  of the key split, one past it and the full table), with
+                  paged kernels at d = 64 and at pages of 16 and 256 keys,
+                  B6 at d = 80, B7/B8 at d = 72 (8-byte int8 copies) and
+                  80;
+                  the paged decode at query groups 16 and 32, a 15-row
+                  window, and lengths 0, 1, a multiple of the key split,
+                  one past it and the full table; B6/B8 at the engine's
+                  one-sequence prefill windows, (1, 128, 32, 128) at 128,
+                  640 and 1536 keys and (1, 128, 40, 128) with ALiBi, and
+                  at window lengths [100, 128, 129, 640, 641, 2048], rows
+                  that see no key reading 0), with
                   times, the bound from the shapes, and one PyTorch library
                   call as a yardstick where one exists (SDPA pinned to its
                   flash backend and to the unpinned dispatcher's pick, each
                   timed in alternating pairs of runs with the kernel, the
                   faster backend the yardstick), and each paged wrapper's
-                  host time per call; a planted fault (the last key tile
-                  dropped; a live page redirected to the trash page, also
-                  one in the last key split of a sequence; int8 scales read
-                  at lane hk instead of hk * stride) must fail the same
-                  check;
+                  host time per call (B6/B8 both at the 4-sequence check
+                  shape and at the prefill windows); a planted fault (the
+                  last key tile dropped; a live page redirected to the
+                  trash page, also one in the first and in the last key
+                  split of a sequence; int8 scales read at lane hk instead
+                  of hk * stride) must fail the same check;
   3. reference  - a narrow model on the card (through the kernels) against
                   the same weights on the CPU (plain path), both in bf16;
   4. forward    - uint8 640x480 frames -> preprocess -> tower -> projector
@@ -848,10 +857,12 @@ def check_onepass_train(gen):
                         **sdpa_fields(p13, "whole_backward_ms"))}
 
 
-def paged_inputs(gen, b, h, hkv, d, lengths, s_q=0, page=128, pps=16):
-    """q, a pool of b * pps + 1 random pages (page 0 is the trash page),
-    and tables whose live entries are a random permutation of pages 1..
-    (not contiguous), unused entries on page 0."""
+def paged_inputs(gen, b, h, hkv, d, lengths, s_q=0, page=128, pps=None):
+    """q, a pool of b * pps + 1 random pages (page 0 is the trash page;
+    pps by default holds 2048 keys), and tables whose live entries are a
+    random permutation of pages 1.. (not contiguous), unused entries on
+    page 0."""
+    pps = pps or 2048 // page
     total = b * pps + 1
     pool = [torch.randn((total, page, hkv * d), generator=gen,
                         device="cuda").to(torch.bfloat16) for _ in range(2)]
@@ -867,17 +878,23 @@ def paged_inputs(gen, b, h, hkv, d, lengths, s_q=0, page=128, pps=16):
     return q, pool[0], pool[1], lens, tables
 
 
-def redirect_page(tables, lengths, page=128, last_split=False):
+def redirect_page(tables, lengths, page=128, last_split=False,
+                  window=False):
     """The planted fault: one live page of the first sequence with two or
     more pages, pointed at the trash page 0: its page 1, or (last_split)
     the first page of its last key split of the few-rows kernel, in the
     first sequence with more than one split, so that the fault reaches
-    the splits' merge."""
+    the splits' merge. For the window kernel, whose splits are sized from
+    the lengths (``window``): the sequence's first page, in its first
+    split, or (last_split) the page of its last key, in its last split."""
     from merlin_tpu_torch.ops.paged_attention import SPLIT_KEYS
 
     bad = tables.clone()
     split = max(1, SPLIT_KEYS // page) * page
-    if last_split:
+    if window:
+        i = next(i for i, n in enumerate(lengths) if n > page)
+        bad[i, (lengths[i] - 1) // page if last_split else 0] = 0
+    elif last_split:
         i = next(i for i, n in enumerate(lengths) if n > split)
         bad[i, (lengths[i] - 1) // split * split // page] = 0
     else:
@@ -907,6 +924,12 @@ def window_flops(q, lens):
     seen = sum(max(0, n - s_q + t + 1) for n in lens.tolist()
                for t in range(s_q))
     return 4.0 * h * d * seen
+
+
+# the engine's prefill windows (b = 1, s_q = 128) and window lengths at
+# the edges: rows that see no key (100 < 128), a page's edges, the table
+WINDOW_PATH_LENGTHS = (128, 640, 1536)
+WINDOW_EDGES = [100, 128, 129, 640, 641, 2048]
 
 
 def check_paged(gen):
@@ -1000,6 +1023,51 @@ def check_paged(gen):
     compare("window s_q=128 gqa alibi", "B6", win_gqa128, s8)
     compare("window s_q=128 vicuna", "B6", win128,
             tables=redirect_page(win128[4], [128, 256, 1990, 700]))
+    # the engine's prefill windows: one sequence, s_q = 128, its keys split
+    # over CTAs; a page redirected in the first and in the last split
+    path = {n: paged_inputs(gen, 1, 32, 32, 128, [n], s_q=128)
+            for n in WINDOW_PATH_LENGTHS}
+    for n, inputs in path.items():
+        compare(f"window (1,128,32,128) L={n}", "B6", inputs)
+    path_bc = paged_inputs(gen, 1, 40, 40, 128, [640], s_q=128)
+    compare("window (1,128,40,128) L=640 baichuan-13b alibi", "B6", path_bc,
+            s40)
+    for last in (False, True):
+        where = "last" if last else "first"
+        compare(f"window L=1536, {where} split", "B6", path[1536],
+                tables=redirect_page(path[1536][4], [1536], last_split=last,
+                                     window=True))
+    # rows that see no key (100 < 128: rows 0..27), a page's edges, the
+    # full table
+    win_edges128 = paged_inputs(gen, 6, 32, 32, 128, WINDOW_EDGES, s_q=128)
+    compare(f"window s_q=128 lengths {WINDOW_EDGES}", "B6", win_edges128)
+    compare(f"window s_q=128 lengths {WINDOW_EDGES} alibi", "B6",
+            win_edges128, s32)
+    # page sizes 16 (a key tile spans pages) and 256 (a page spans tiles),
+    # for both kernels, each with a redirected page in a last split
+    for page in (16, 256):
+        dec = paged_inputs(gen, 4, 32, 32, 128, vicuna, page=page)
+        compare(f"decode page {page}", "B3", dec)
+        compare(f"decode page {page} alibi", "B4", dec, s32)
+        compare(f"decode page {page}, last split", "B3", dec,
+                tables=redirect_page(dec[4], vicuna, page, last_split=True))
+        w5 = paged_inputs(gen, 4, 32, 32, 128, [5, 256, 1937, 700], s_q=5,
+                          page=page)
+        compare(f"window s_q=5 page {page}", "B5", w5)
+        w128 = paged_inputs(gen, 2, 32, 32, 128, [1536, 641], s_q=128,
+                            page=page)
+        compare(f"window s_q=128 page {page}", "B6", w128)
+        compare(f"window s_q=128 page {page} alibi", "B6", w128, s32)
+        compare(f"window s_q=128 page {page}, last split", "B6", w128,
+                tables=redirect_page(w128[4], [1536, 641], page,
+                                     last_split=True, window=True))
+    # d = 80: the columns past d of the window kernel's 128-column tiles
+    # zero-filled
+    d80 = paged_inputs(gen, 2, 32, 32, 80, [1536, 641], s_q=128)
+    compare("window s_q=128 d=80", "B6", d80)
+    compare("window s_q=128 d=80, last split", "B6", d80,
+            tables=redirect_page(d80[4], [1536, 641], last_split=True,
+                                 window=True))
     # C18: d = 64, a width the paged checks had not run (16 heads), each
     # with a live page redirected to the trash page
     for tag, name, lens, s_q in (("decode d=64 (16 heads)", "B3", vicuna, 0),
@@ -1011,7 +1079,7 @@ def check_paged(gen):
         compare(tag, name, inputs)
         compare(tag, name, inputs, tables=redirect_page(inputs[4], lens))
 
-    def row(name, fn_name, inputs, slopes, plain, flops):
+    def timing(name, inputs, slopes, plain, flops):
         q, kp, vp, lens, tabs = inputs
         fn = fns[name]
         kw = {} if name == "B3" else {"alibi_slopes": slopes}
@@ -1026,18 +1094,27 @@ def check_paged(gen):
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
             f"({by}), library none; wrapper {host:.1f} us of host time a "
             f"call")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    host_us_per_call=host, shape=list(q.shape),
+                    lengths=lens.tolist())
+
+    def row(name, fn_name, inputs, slopes, plain, flops):
         return dict(name=f"{name} {fn_name}", route="cuda",
                     source=PAGED_SOURCE, replaces=PAGED_REPLACES[name],
-                    max_abs_err=max(errs[name]), ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=None,
-                    host_us_per_call=host, shape=list(q.shape))
+                    max_abs_err=max(errs[name]), library_ms=None,
+                    **timing(name, inputs, slopes, plain, flops))
 
-    # the route's reason: B6's 64-row tiles on the verify window's shape
+    # the route's reason: B6's 128-row tiles on the verify window's shape
     q, kp, vp, lens, tabs = win5
     b6_ms = time_ms(lambda: pa.paged_attention_multi_blocked(
         q, kp, vp, lens, tabs))
     log(f"B6 on B5's shape {tuple(q.shape)}: {b6_ms:.4f} ms")
-    return {
+    b6_path = [timing("B6", inputs, None, pa.paged_attention_multi_plain,
+                      window_flops(inputs[0], inputs[3]))
+               for inputs in path.values()]
+    b6_path.append(timing("B6", path_bc, s40, pa.paged_attention_multi_plain,
+                          window_flops(path_bc[0], path_bc[3])))
+    rows = {
         "B3": row("B3", "paged_attention_dma", dec_mha, None,
                   pa.paged_attention_plain,
                   4.0 * 32 * 128 * int(dec_mha[3].sum())),
@@ -1051,15 +1128,18 @@ def check_paged(gen):
                   pa.paged_attention_multi_plain,
                   window_flops(win128[0], win128[3])),
     }
+    rows["B6"]["path_shapes"] = b6_path
+    return rows
 
 
-def paged_q8_inputs(gen, b, h, hkv, d, lengths, s_q=0):
+def paged_q8_inputs(gen, b, h, hkv, d, lengths, s_q=0, page=128):
     """``paged_inputs`` with both pools quantized by the port's
     ``quantize_pages``: q, k values, k scales, v values, v scales, lengths,
     tables."""
     from merlin_tpu_torch.ops.paged_attention import quantize_pages
 
-    q, kp, vp, lens, tables = paged_inputs(gen, b, h, hkv, d, lengths, s_q)
+    q, kp, vp, lens, tables = paged_inputs(gen, b, h, hkv, d, lengths, s_q,
+                                           page=page)
     kv, ks = quantize_pages(kp, d)
     vv, vs = quantize_pages(vp, d)
     return q, kv, ks, vv, vs, lens, tables
@@ -1098,12 +1178,16 @@ def check_paged_q8(gen):
     def compare(tag, name, inputs, slopes=None, fault=None):
         q, kv, ks, vv, vs, lens, tabs = inputs
         got_in = list(inputs)
-        if fault in ("page", "last split page"):
+        if fault in ("page", "last split page", "first split page"):
             lengths = lens.tolist()
-            got_in[6] = redirect_page(tabs, lengths,
-                                      last_split=fault != "page")
-            what = ("a live page redirected to the trash page" +
-                    ("" if fault == "page" else ", in the last key split"))
+            page = kv.shape[1]
+            got_in[6] = redirect_page(tabs, lengths, page,
+                                      last_split=fault == "last split page",
+                                      window=name == "B8"
+                                      and fault != "page")
+            what = ("a live page redirected to the trash page" + {
+                "page": "", "last split page": ", in the last key split",
+                "first split page": ", in the first key split"}[fault])
         elif fault == "lanes":
             hkv = kv.shape[2] // q.shape[-1]
             got_in[2] = head_lane_scales(ks, hkv)
@@ -1197,8 +1281,49 @@ def check_paged_q8(gen):
     compare("decode d=64 (16 heads)", "B7", dec64, fault="lanes")
     compare("window s_q=128 d=64", "B8", win64)
     compare("window s_q=128 d=64", "B8", win64, fault="page")
+    # the engine's prefill windows over int8 pages (B8): one sequence,
+    # s_q = 128, keys split over CTAs; faults in the first and the last
+    # split, and the C11 lane fault
+    path = {n: paged_q8_inputs(gen, 1, 32, 32, 128, [n], s_q=128)
+            for n in WINDOW_PATH_LENGTHS}
+    for n, inputs in path.items():
+        compare(f"window (1,128,32,128) L={n}", "B8", inputs)
+    path_bc = paged_q8_inputs(gen, 1, 40, 40, 128, [640], s_q=128)
+    compare("window (1,128,40,128) L=640 baichuan-13b alibi", "B8", path_bc,
+            s40)
+    compare("window L=1536", "B8", path[1536], fault="first split page")
+    compare("window L=1536", "B8", path[1536], fault="last split page")
+    compare("window L=640 baichuan-13b", "B8", path_bc, s40, fault="lanes")
+    win_edges128 = paged_q8_inputs(gen, 6, 32, 32, 128, WINDOW_EDGES,
+                                   s_q=128)
+    compare(f"window s_q=128 lengths {WINDOW_EDGES} alibi", "B8",
+            win_edges128, s32)
+    # page sizes 16 and 256 for B8 and the few-rows kernel (B7 decode and
+    # windows), each with a page redirected in a last split
+    for page in (16, 256):
+        dec = paged_q8_inputs(gen, 4, 32, 32, 128, vicuna, page=page)
+        compare(f"decode page {page}", "B7", dec)
+        compare(f"decode page {page}", "B7", dec, fault="last split page")
+        w5 = paged_q8_inputs(gen, 4, 40, 40, 128, [5, 384, 1999, 901],
+                             s_q=5, page=page)
+        compare(f"window s_q=5 page {page} baichuan-13b alibi", "B7w", w5,
+                s40)
+        w128 = paged_q8_inputs(gen, 2, 32, 32, 128, [1536, 641], s_q=128,
+                               page=page)
+        compare(f"window s_q=128 page {page}", "B8", w128)
+        compare(f"window s_q=128 page {page}", "B8", w128,
+                fault="last split page")
+    # d = 72 (a head's int8 slice only 8-byte aligned: 8-byte copies, in
+    # both kernels) and d = 80 (16-byte copies, columns past d zero-filled)
+    for d in (72, 80):
+        w = paged_q8_inputs(gen, 2, 32, 32, d, [1536, 641], s_q=128)
+        compare(f"window s_q=128 d={d}", "B8", w)
+        compare(f"window s_q=128 d={d}", "B8", w, fault="last split page")
+        dec = paged_q8_inputs(gen, 4, 32, 32, d, vicuna)
+        compare(f"decode d={d}", "B7", dec)
+        compare(f"decode d={d}", "B7", dec, fault="last split page")
 
-    def row(name, fn_name, inputs, slopes, flops):
+    def timing(name, inputs, slopes, flops):
         q, kv, ks, vv, vs, lens, tabs = inputs
         fn = fns[name]
         ms = time_ms(lambda: fn(q, kv, ks, vv, vs, lens, tabs,
@@ -1217,13 +1342,21 @@ def check_paged_q8(gen):
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} "
             f"ms ({by}), library none; wrapper {host:.1f} us of host time a "
             f"call")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    host_us_per_call=host, shape=list(q.shape),
+                    lengths=lens.tolist())
+
+    def row(name, fn_name, inputs, slopes, flops):
         return dict(name=f"{name} {fn_name}", route="cuda",
                     source=PAGED_SOURCE, replaces=PAGED_REPLACES[name],
-                    max_abs_err=max(errs[name]), ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=None,
-                    host_us_per_call=host, shape=list(q.shape))
+                    max_abs_err=max(errs[name]), library_ms=None,
+                    **timing(name, inputs, slopes, flops))
 
-    return {
+    b8_path = [timing("B8", inputs, None, window_flops(inputs[0], inputs[5]))
+               for inputs in path.values()]
+    b8_path.append(timing("B8", path_bc, s40,
+                          window_flops(path_bc[0], path_bc[5])))
+    rows = {
         "B7": row("B7", "paged_attention_dma_q8", dec_mha, None,
                   4.0 * 32 * 128 * int(dec_mha[5].sum())),
         "B7w": row("B7w", "paged_attention_dma_multi_q8", win5_bc, s40,
@@ -1233,6 +1366,8 @@ def check_paged_q8(gen):
         "B9": row("B9", "paged_attention_quantized", dec_mha, None,
                   4.0 * 32 * 128 * int(dec_mha[5].sum())),
     }
+    rows["B8"]["path_shapes"] = b8_path
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2125,13 +2260,13 @@ def measure_c13(gen):
     return gaps
 
 
-# the wgmma kernels and the paged few-rows kernel, by a piece of their
-# (mangled) names: every instantiation must build with no spills (18 wgmma
-# ones; the few-rows kernel at d = 64 and 128, bf16 and int8 pages, ALiBi
-# being a run-time branch of each)
+# the wgmma kernels and the paged kernels, by a piece of their (mangled)
+# names: every instantiation must build with no spills (18 dense wgmma
+# ones; the paged few-rows and window kernels each at d = 64 and 128, bf16
+# and int8 pages, ALiBi being a run-time branch of each)
 SPILL_CHECKED = ("flash_attention_fwd_kernel", "onepass_attention_kernel",
-                 "flash_bwd_", "paged_rows_kernel")
-N_SPILL_CHECKED = 22
+                 "flash_bwd_", "paged_rows_kernel", "paged_window_kernel")
+N_SPILL_CHECKED = 26
 
 
 def ptxas_report(pieces=SPILL_CHECKED):
@@ -2199,7 +2334,7 @@ def main() -> int:
     if spilled or len(ptxas) < N_SPILL_CHECKED:
         raise AssertionError(f"ptxas: spills in {spilled}, or a checked "
                              f"kernel missing from {sorted(ptxas)}")
-    paged_ptxas = {n: i for n, i in ptxas.items() if "paged_rows" in n}
+    paged_ptxas = {n: i for n, i in ptxas.items() if "paged_" in n}
     fwd_ptxas = {n: i for n, i in ptxas.items() if "fwd" in n
                  or "onepass" in n}
     bwd_ptxas = {n: i for n, i in ptxas.items()
@@ -2253,8 +2388,10 @@ def main() -> int:
         row["launches"] = t1["counts"][row.get("counter", name)]
         row["ptxas"] = fwd_ptxas if name == "B12" else bwd_ptxas
     b1["ptxas"] = b2["ptxas"] = fwd_ptxas
-    for name in ("B3", "B4", "B5", "B7", "B7w", "B9"):
-        paged[name]["ptxas"] = paged_ptxas
+    for name in ("B3", "B4", "B5", "B6", "B7", "B7w", "B8", "B9"):
+        paged[name]["ptxas"] = {
+            n: i for n, i in paged_ptxas.items()
+            if ("window" in n) == (name in ("B6", "B8"))}
     rows = [b1, b2] + [paged[k] for k in ("B3", "B4", "B5", "B6", "B7",
                                           "B7w", "B8", "B9")] + [
         trained[k] for k in ("B10", "B11", "B12", "B13")]

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the dense attention forward
-// (attention_fwd.cu: B1, B2, B12) and the fused backward
-// (flash_attention_bwd.cu: B10, B11, B13):
+// (attention_fwd.cu: B1, B2, B12), the fused backward
+// (flash_attention_bwd.cu: B10, B11, B13) and the paged window kernel
+// (paged_attention.cu: B6, B8):
 //   * the 128-byte swizzled tile layout that wgmma's descriptors read, and
 //     a cp.async loader that fills it from a strided (b, s, h, d) tensor;
 //   * 16- and 4-byte cp.async with zero fill, commit and wait;

@@ -55,8 +55,9 @@ SIGNATURES = {
     # h, hkv, d, page_size, pages_per_seq, split_pages, scale, stream
     "merlin_paged_decode_bf16": [_P] * 9 + [_I] * 7 + [_F, _P],
     # q, k_pages, v_pages, lengths, tables, slopes, out, ws, counters, b,
-    # s_q, h, hkv, d, page_size, pages_per_seq, split_pages, scale,
-    # split_keys, stream
+    # s_q, h, hkv, d, page_size, pages_per_seq, split (few-rows kernel:
+    # pages a key split; window kernel: most key splits a row tile), scale,
+    # few_rows, stream
     "merlin_paged_window_bf16": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
     # q, k_pages, k_scales, v_pages, v_scales, lengths, tables, slopes, out,
     # ws, counters, b, h, hkv, d, page_size, pages_per_seq, scale_lanes,
@@ -64,7 +65,7 @@ SIGNATURES = {
     "merlin_paged_decode_q8": [_P] * 11 + [_I] * 8 + [_F, _P],
     # q, k_pages, k_scales, v_pages, v_scales, lengths, tables, slopes, out,
     # ws, counters, b, s_q, h, hkv, d, page_size, pages_per_seq,
-    # scale_lanes, split_pages, scale, split_keys, stream
+    # scale_lanes, split, scale, few_rows, stream
     "merlin_paged_window_q8": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
 }
 

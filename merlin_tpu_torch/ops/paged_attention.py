@@ -9,16 +9,17 @@ contiguous row, so a token's write is one row and a head's keys are a
 ``d``-wide column slice of each row.
 
 Four TPU kernels sit on the serving path; two CUDA kernels
-(``csrc/paged_attention.cu``) stand in for them:
+(``csrc/paged_attention.cu``) stand in for them, and both split each
+sequence's keys over CTAs and take any query group:
 
-  * the few-rows kernel, which splits each sequence's keys over CTAs and
-    takes any query group: paged decode, one query token per sequence,
+  * the few-rows kernel: paged decode, one query token per sequence,
     :func:`paged_attention_dma` (B3, no ALiBi) and :func:`paged_attention`
     (B4, ALiBi); and paged windows of up to :data:`WINDOW_SMALL_ROWS` query
     rows per kv head (speculative verify), :func:`paged_attention_dma_multi`
     (B5);
-  * the 64-row tile engine: paged windows, ``s_q`` queries per sequence,
-    causal from their true positions, for chunked prefill:
+  * the window kernel (wgmma, 128 query rows of a kv head a CTA at d >
+    64): paged windows, ``s_q`` queries per sequence, causal from their
+    true positions, for chunked prefill:
     :func:`paged_attention_multi_blocked` (B6).
     :func:`paged_window_attention` picks B5 or B6 from the window's shape.
 
@@ -31,7 +32,7 @@ TPU kernels:
     (B9), on the few-rows kernel;
   * int8 paged window: :func:`paged_attention_dma_multi_q8` (B7 windows,
     the few-rows kernel) and :func:`paged_attention_multi_blocked_q8` (B8,
-    64-row tiles). :func:`paged_window_attention_q8` picks one.
+    the window kernel). :func:`paged_window_attention_q8` picks one.
 
 Their plain versions (:func:`paged_attention_q8_plain`,
 :func:`paged_attention_multi_q8_plain`) copy the JAX decoder's CPU route:
@@ -65,7 +66,10 @@ WINDOW_SMALL_ROWS = 16
 # keys per CTA of the few-rows kernel, rounded down to whole pages (at least
 # one); the kernel takes at most 256 splits of a table row
 SPLIT_KEYS = 256
-_COUNTERS = {}    # device -> the few-rows kernel's int32 arrival counters
+# the window kernel's most key splits of a row tile (its kWindowMaxSplits)
+WINDOW_MAX_SPLITS = 16
+_COUNTERS = {}    # device -> both kernels' int32 arrival counters
+_SMS = {}         # device -> its SM count
 
 
 # ---------------------------------------------------------------------------
@@ -438,28 +442,82 @@ def _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
     return hkv
 
 
+def _counters(device, need: int) -> int:
+    """The device's arrival counters, at least ``need`` of them, shared by
+    both kernels on the port's one stream (each launch leaves them at 0):
+    zeroed once when allocated or grown, so no call launches a memset; two
+    streams must not share them. Returns their pointer."""
+    counters = _COUNTERS.get(device)
+    if counters is None or counters.numel() < need:
+        counters = torch.zeros(need, dtype=torch.int32, device=device)
+        _COUNTERS[device] = counters
+    return counters.data_ptr()
+
+
 def _split_workspace(q, b, rows, hkv, d, page_size, pps):
     """What the few-rows kernel needs to split each sequence's keys over
     CTAs: (pages per split, the workspace tensor, its pointer, the
     counters' pointer). With more than one split of ``SPLIT_KEYS`` keys,
     an f32 workspace for each split's (O, m, l) of each of the ``rows``
     query rows of a kv head (``torch.empty``: a split writes its rows
-    before the last one reads them), and the device's arrival counters,
-    one per (sequence, kv head, 16-row tile): zeroed once when allocated
-    or grown, and left at 0 by the kernel, so no call launches a memset.
-    The port runs one stream; two streams must not share the counters."""
+    before the last one reads them), and counters for each (sequence, kv
+    head, 16-row tile)."""
     split_pages = max(1, SPLIT_KEYS // page_size)
     n_splits = -(-pps // split_pages)
     if n_splits == 1:
         return split_pages, None, None, None
     ws = torch.empty(b * hkv * n_splits * rows * (d + 2),
                      dtype=torch.float32, device=q.device)
-    need = b * hkv * -(-rows // 16)
-    counters = _COUNTERS.get(q.device)
-    if counters is None or counters.numel() < need:
-        counters = torch.zeros(need, dtype=torch.int32, device=q.device)
-        _COUNTERS[q.device] = counters
-    return split_pages, ws, ws.data_ptr(), counters.data_ptr()
+    return (split_pages, ws, ws.data_ptr(),
+            _counters(q.device, b * hkv * -(-rows // 16)))
+
+
+def window_workspace_floats(b, rows, hkv, d, splits):
+    """The window kernel's f32 workspace for ``splits`` key splits a row
+    tile: each split of each (sequence, kv head, row tile) keeps its
+    CTA's O accumulators and its rows' (m, l), 4 floats a thread, in
+    fragment order (its tiles: 128 rows, 256 threads and 64 accumulators
+    a thread at d > 64; 64 rows, 128 threads and 32 at d <= 64)."""
+    tile, threads, acc = (128, 256, 64) if d > 64 else (64, 128, 32)
+    return b * hkv * -(-rows // tile) * splits * threads * (acc + 4)
+
+
+def window_plan(b, rows, hkv, d, page_size, pps, sms):
+    """The window kernel's key splits on a card of ``sms`` SMs: (most
+    splits of a row tile, workspace floats, counters). The grid holds
+    about one CTA for each SM (each CTA sizes its split from the lengths
+    so that the live ones fill the card about once; this caps the grid
+    and the workspace), at most ``WINDOW_MAX_SPLITS`` and one a key tile
+    of the table row for each (sequence, kv head, row tile) (the kernel's
+    tiles: 128 rows and 128 keys at d > 64, 64 and 64 at d <= 64); one
+    split takes no workspace. The counters are sized for 16-row tiles,
+    the few-rows kernel's, which covers the window kernel's too: both
+    share them."""
+    tile = 128 if d > 64 else 64
+    units = b * hkv * -(-rows // tile)
+    splits = max(1, min(WINDOW_MAX_SPLITS, -(-pps * page_size // tile),
+                        -(-sms // units)))
+    if splits == 1:
+        return 1, 0, 0
+    return (splits, window_workspace_floats(b, rows, hkv, d, splits),
+            b * hkv * -(-rows // 16))
+
+
+def _window_workspace(q, b, rows, hkv, d, page_size, pps):
+    """What the window kernel needs to split each sequence's keys over
+    CTAs: (most splits of a row tile, the workspace tensor, its pointer,
+    the counters' pointer), by :func:`window_plan` for q's card."""
+    sms = _SMS.get(q.device)
+    if sms is None:
+        sms = torch.cuda.get_device_properties(
+            q.device).multi_processor_count
+        _SMS[q.device] = sms
+    splits, ws_floats, need = window_plan(b, rows, hkv, d, page_size, pps,
+                                          sms)
+    if splits == 1:
+        return 1, None, None, None
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
+    return splits, ws, ws.data_ptr(), _counters(q.device, need)
 
 
 def _launch_decode(name, q, k_pages, v_pages, lengths, page_tables,
@@ -494,11 +552,11 @@ def _launch_decode(name, q, k_pages, v_pages, lengths, page_tables,
 
 
 def _launch_window(name, q, k_pages, v_pages, lengths, page_tables,
-                   alibi_slopes, scale, split_keys, k_scales=None,
+                   alibi_slopes, scale, few_rows, k_scales=None,
                    v_scales=None):
     """An s_q-token window per sequence: bf16 pages, or int8 pages with
-    their scale pages; the few-rows kernel with ``split_keys``, else the
-    64-row tile engine."""
+    their scale pages; the few-rows kernel with ``few_rows``, else the
+    window kernel."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (b, s_q, h, d), got "
                          f"{tuple(q.shape)}")
@@ -506,9 +564,9 @@ def _launch_window(name, q, k_pages, v_pages, lengths, page_tables,
                        alibi_slopes, k_scales, v_scales)
     b, s_q, h, d = q.shape
     page_size, pps = k_pages.shape[1], page_tables.shape[1]
-    split_pages, ws, ws_ptr, counters = (
-        _split_workspace(q, b, h // hkv * s_q, hkv, d, page_size, pps)
-        if split_keys else (1, None, None, None))
+    split, ws, ws_ptr, counters = (
+        _split_workspace if few_rows else _window_workspace)(
+            q, b, h // hkv * s_q, hkv, d, page_size, pps)
     out = torch.empty_like(q)
     common = (lengths.data_ptr(), page_tables.data_ptr(),
               alibi_slopes.data_ptr() if alibi_slopes is not None else None,
@@ -519,12 +577,12 @@ def _launch_window(name, q, k_pages, v_pages, lengths, page_tables,
     if k_scales is None:
         code = _build.lib().merlin_paged_window_bf16(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *common,
-            split_pages, scale, int(split_keys), stream)
+            split, scale, int(few_rows), stream)
     else:
         code = _build.lib().merlin_paged_window_q8(
             q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
             v_pages.data_ptr(), v_scales.data_ptr(), *common,
-            k_scales.shape[2], split_pages, scale, int(split_keys), stream)
+            k_scales.shape[2], split, scale, int(few_rows), stream)
     _build.check(code, name)
     return out
 
@@ -576,9 +634,9 @@ def paged_attention_dma_multi(q, k_pages, v_pages, lengths, page_tables, *,
 def paged_attention_multi_blocked(q, k_pages, v_pages, lengths, page_tables,
                                   *, alibi_slopes=None,
                                   scale: Optional[float] = None):
-    """B6: B5's contract in tiles of 64 query rows of a kv head, a warp
-    each 16, for large windows (chunked prefill). Returns
-    (b, s_q, h, d)."""
+    """B6: B5's contract on the window kernel, for large windows (chunked
+    prefill): tiles of 128 query rows of a kv head (64 at d <= 64), each
+    sequence's keys split over CTAs. Returns (b, s_q, h, d)."""
     if q.device.type == "cpu":
         return paged_attention_multi_plain(
             q, k_pages, v_pages, lengths, page_tables,
@@ -600,9 +658,8 @@ def paged_window_attention(q, k_pages, v_pages, lengths, page_tables, *,
                            alibi_slopes=None):
     """A window's attention, routed by its query rows per kv head
     (group * s_q): up to :data:`WINDOW_SMALL_ROWS` (a verify window) to
-    B5, whose CTAs split a long history between them; more (a prefill
-    window) to B6, whose 64-row tiles read each K/V tile once for 64
-    rows."""
+    B5, whose 16-row tiles suit a few rows; more (a prefill window) to
+    B6, whose wgmma tiles read each K/V tile once for 128 rows."""
     group = q.shape[2] // (k_pages.shape[2] // q.shape[3])
     fn = (paged_attention_dma_multi
           if group * q.shape[1] <= WINDOW_SMALL_ROWS
@@ -667,7 +724,7 @@ def paged_attention_multi_blocked_q8(q, k_values, k_scales, v_values,
                                      v_scales, lengths, page_tables, *,
                                      alibi_slopes=None,
                                      scale: Optional[float] = None):
-    """B8: B7's window contract in B6's 64-row tiles, for chunked-prefill
+    """B8: B7's window contract on B6's window kernel, for chunked-prefill
     windows over int8 pages. Returns (b, s_q, h, d)."""
     if q.device.type == "cpu":
         return paged_attention_multi_q8_plain(

@@ -1,22 +1,34 @@
-"""Ablations of the paged few-rows kernel (``csrc/paged_attention.cu``).
+"""Ablations of the paged kernels (``csrc/paged_attention.cu``).
 
-Builds variants of the kernel source, each with one textual change (one
-part of the work removed, another ring depth, a register cap for three
-CTAs an SM, or int8 pages in 8-byte copies), next to the unchanged build,
-and times them in turns, each at key splits of 1, 2 and 4 pages of
-128 keys, on the same inputs at the shapes ``chip_smoke.py`` times B3,
-B4, B5, B7 (decode) and B7 windows at. The variants' outputs are not
-checked (a variant that drops work is wrong by design); ``chip_smoke.py``
-holds the real kernel to its plain version. Prints the card, ptxas's
-registers and spill bytes per variant, one line per shape, and the
-readings as one JSON line.
+Builds variants of the kernel source, each with one textual change, next
+to the unchanged build, and times them in turns on the same inputs:
+
+  * the few-rows kernel (one part of the work removed, another ring
+    depth, a register cap for three CTAs an SM, or int8 pages in 8-byte
+    copies), each at key splits of 1, 2 and 4 pages of 128 keys, at the
+    shapes ``chip_smoke.py`` times B3, B4, B5, B7 (decode) and B7 windows
+    at;
+  * the window kernel (B6, B8) at the engine's prefill windows, (1, 128,
+    32, 128) at 256, 640 and 1536 keys and (1, 128, 40, 128) with ALiBi
+    at 640, and at ``chip_smoke.py``'s 4-sequence check shape, over bf16
+    and int8 pages: the unchanged build at the wrapper's grid and with no
+    split, fixed splits of 256, 512 and 1024 keys, no merge, the copies
+    alone, (int8) the copies and the dequantize alone, and the launch and
+    grid alone; beside them, at the one-sequence bf16 windows, the dense
+    forward (B2, non-causal) on the same keys in contiguous K/V.
+
+The variants' outputs are not checked (a variant that drops work is wrong
+by design); ``chip_smoke.py`` holds the real kernels to their plain
+versions. Prints the card, ptxas's registers and spill bytes per variant,
+one line per shape, and the readings as one JSON line. ``--window`` builds
+and times the window kernel's variants only.
 
 With ``--wrappers-only`` it times only the public wrappers of those rows
 (device ms a call, and the host's µs a call) through whichever
 ``merlin_tpu_torch`` is first on the path, so that two checkouts can be
 compared in one run:
 
-    python3 -m merlin_tpu_torch.utils.ablate_paged
+    python3 -m merlin_tpu_torch.utils.ablate_paged [--window]
     PYTHONPATH=<checkout> python3 merlin_tpu_torch/utils/ablate_paged.py \\
         --wrappers-only
 """
@@ -38,6 +50,7 @@ import torch
 from merlin_tpu_torch.models.layers import alibi_slopes
 from merlin_tpu_torch.ops import _build
 from merlin_tpu_torch.ops import paged_attention as pa
+from merlin_tpu_torch.ops.flash_attention import flash_attention
 
 SOURCE = _build.CSRC / "paged_attention.cu"
 PAGE = 128
@@ -64,12 +77,47 @@ VARIANTS = {
                     "    if (j >= 0) continue;\n"
                     "    const unsigned char* ks = ring + (j % kRowsStages) "
                     "* L::kStage;\n")],
+    # a third ring stage (bf16 at d = 128: 225 KB of shared memory)
+    "window stages3": ([("constexpr int kWindowStages = 2;",
+                         "constexpr int kWindowStages = 3;")], None),
     # every CTA returns at once: the launch and the grid alone
     "empty": [("  const int group = a.h / a.hkv;\n"
                "  const int rows = group * a.s_q;",
                "  if (a.b >= 0) return;\n"
                "  const int group = a.h / a.hkv;\n"
                "  const int rows = group * a.s_q;")],
+}
+
+# the window kernel's variants: textual edits, and the most key splits a
+# row tile its grid holds (None: the wrapper's)
+_PER = "const int per = window_split_tiles(a, KEYS, n_rt, tiles, gridDim.z);"
+_COMPUTE = ("    issue_s(j);\n    issue_pv(j - 1);\n    wgmma_wait<1>();  // S_j; "
+            "P_{j-1} V_{j-1} may still run\n    pin(s);\n    softmax(j);\n"
+            "    wgmma_wait<0>();\n    rescale_pack();\n")
+_DEQUANT = ("      dequant(j, false);\n      dequant(j - 1, true);\n"
+            "      sync_dequant();\n")
+WINDOW_VARIANTS = {
+    "window": ([], None),
+    "window no split": ([], 1),
+    # fixed splits of 2, 4 and 8 tiles of 128 keys
+    "window split 256": ([(_PER, "const int per = 2;")], 16),
+    "window split 512": ([(_PER, "const int per = 4;")], 16),
+    "window split 1024": ([(_PER, "const int per = 8;")], 16),
+    # every live split writes out directly: no workspace, no merge
+    "window no merge": ([("const bool direct = n_live == 1;",
+                          "const bool direct = true;")], None),
+    # the ring's copies (and over int8 pages the dequantize) without the
+    # products and the softmax of all tiles but the first and last
+    "window copies+dequant": ([(_COMPUTE, "")], None),
+    # the copies alone
+    "window copies": ([(_COMPUTE, ""), (_DEQUANT, "")], None),
+    # a third ring stage (bf16 at d = 128: 225 KB of shared memory)
+    "window stages3": ([("constexpr int kWindowStages = 2;",
+                         "constexpr int kWindowStages = 3;")], None),
+    # every CTA returns at once: the launch and the grid alone
+    "window empty": ([("  const int n_rt = (rows + ROWS - 1) / ROWS;\n",
+                       "  const int n_rt = (rows + ROWS - 1) / ROWS;\n"
+                       "  if (a.b >= 0) return;\n")], None),
 }
 
 ENTRIES = ("merlin_paged_decode_bf16", "merlin_paged_decode_q8",
@@ -83,6 +131,16 @@ ROWS = {
     "B7": (4, 0, 32, 32, [1, 256, 1937, 700], True, False),
     "B7w": (4, 5, 40, 40, [5, 384, 1999, 901], True, True),
 }
+# the window kernel's rows: the engine's one-sequence prefill windows, and
+# chip_smoke.py's 4-sequence check shape
+WINDOW_ROWS = {
+    f"{name} {tag}": (b, 128, h, h, lengths, name == "B8", alibi)
+    for name in ("B6", "B8")
+    for tag, b, h, lengths, alibi in (
+        ("L=256", 1, 32, [256], False), ("L=640", 1, 32, [640], False),
+        ("L=1536", 1, 32, [1536], False),
+        ("baichuan L=640", 1, 40, [640], True),
+        ("check", 4, 32, [128, 256, 1990, 700], False))}
 D = 128
 PPS = 16
 
@@ -98,7 +156,7 @@ def inputs(gen, row):
     """q, K/V pools (b * PPS + 1 random pages; page 0 the trash page),
     their scales (int8) or None, lengths, tables of permuted pages, and
     the slopes or None, as ``chip_smoke.paged_inputs`` makes them."""
-    b, s_q, h, hkv, lengths, q8, alibi = ROWS[row]
+    b, s_q, h, hkv, lengths, q8, alibi = {**ROWS, **WINDOW_ROWS}[row]
     total = b * PPS + 1
     pools = [torch.randn((total, PAGE, hkv * D), generator=gen,
                          device="cuda").to(torch.bfloat16) for _ in range(2)]
@@ -123,23 +181,31 @@ def wrapper(row, q, pools, scales, lens, tables, slopes):
     kw = {} if row == "B3" else {"alibi_slopes": slopes}
     fn = {"B3": pa.paged_attention_dma, "B4": pa.paged_attention,
           "B5": pa.paged_attention_dma_multi,
+          "B6": pa.paged_attention_multi_blocked,
           "B7": pa.paged_attention_dma_q8,
-          "B7w": pa.paged_attention_dma_multi_q8}[row]
+          "B7w": pa.paged_attention_dma_multi_q8,
+          "B8": pa.paged_attention_multi_blocked_q8}[row.split()[0]]
     if scales is None:
         return lambda: fn(q, pools[0], pools[1], lens, tables, **kw)
     return lambda: fn(q, pools[0], scales[0], pools[1], scales[1], lens,
                       tables, **kw)
 
 
-def launcher(lib, split_pages, q, pools, scales, lens, tables, slopes):
+def launcher(lib, split_pages, q, pools, scales, lens, tables, slopes,
+             window_splits=None):
     """One launch of a variant's few-rows kernel at ``split_pages`` pages
-    a split, with its own workspace and zeroed counters."""
+    a split (or, given ``window_splits``, of its window kernel at that
+    many key splits a row tile at most), with its own workspace and
+    zeroed counters."""
     b, h = q.shape[0], q.shape[-2]
     s_q = q.shape[1] if q.dim() == 4 else 1
     hkv = pools[0].shape[2] // D
     rows = h // hkv * s_q
-    n_splits = -(-PPS // split_pages)
-    ws = torch.empty(b * hkv * n_splits * rows * (D + 2), device="cuda")
+    n_splits = (window_splits if window_splits is not None
+                else -(-PPS // split_pages))
+    ws = torch.empty(b * hkv * n_splits * rows * (D + 2) if window_splits
+                     is None else pa.window_workspace_floats(
+                         b, rows, hkv, D, n_splits), device="cuda")
     counters = torch.zeros(b * hkv * -(-rows // 16), dtype=torch.int32,
                            device="cuda")
     out = torch.empty_like(q)
@@ -152,14 +218,15 @@ def launcher(lib, split_pages, q, pools, scales, lens, tables, slopes):
     scale = D ** -0.5
 
     def run():
+        split = split_pages if window_splits is None else window_splits
         if scales is None:
             pages = (q.data_ptr(), pools[0].data_ptr(), pools[1].data_ptr())
-            tail = (split_pages, scale)
+            tail = (split, scale)
         else:
             pages = (q.data_ptr(), pools[0].data_ptr(),
                      scales[0].data_ptr(), pools[1].data_ptr(),
                      scales[1].data_ptr())
-            tail = (scales[0].shape[2], split_pages, scale)
+            tail = (scales[0].shape[2], split, scale)
         if q.dim() == 3:
             entry = ("merlin_paged_decode_bf16" if scales is None
                      else "merlin_paged_decode_q8")
@@ -168,26 +235,26 @@ def launcher(lib, split_pages, q, pools, scales, lens, tables, slopes):
         else:
             entry = ("merlin_paged_window_bf16" if scales is None
                      else "merlin_paged_window_q8")
-            code = getattr(lib, entry)(*pages, *common, *shape, *tail, 1,
-                                       stream)
+            code = getattr(lib, entry)(*pages, *common, *shape, *tail,
+                                       int(window_splits is None), stream)
         if code:
             raise RuntimeError(f"{entry} failed: {code}")
     run.keep = (ws, counters, out)
     return run
 
 
-def build(tmp: Path):
-    """One library per variant, all compiled at once; returns {name:
-    (CDLL, ptxas report of the few-rows kernel)}."""
+def build(tmp: Path, variants):
+    """One library per variant ({name: edits}), all compiled at once;
+    returns {name: (CDLL, ptxas report of the paged kernels)}."""
     nvcc = _build._nvcc()
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         src = SOURCE.read_text()
         for old, new in edits:
             if old not in src:
                 raise RuntimeError(f"{name}: edit anchor not found")
             src = src.replace(old, new)
-        d = tmp / name
+        d = tmp / name.replace(" ", "_").replace("+", "_")
         shutil.copytree(_build.CSRC, d, ignore=shutil.ignore_patterns(
             "build", "*.cu"))
         (d / SOURCE.name).write_text(src)
@@ -198,13 +265,14 @@ def build(tmp: Path):
     libs = {}
     for name, proc in procs.items():
         out, _ = proc.communicate()
+        d = tmp / name.replace(" ", "_").replace("+", "_")
         if proc.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{out}")
         report, fn = {}, None
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = m.group(1) if "paged_rows" in m.group(1) else None
+                fn = m.group(1) if "paged_" in m.group(1) else None
                 if fn:
                     report[fn] = {}
             m = re.search(r"(\d+) bytes spill stores", line)
@@ -213,7 +281,7 @@ def build(tmp: Path):
             m = re.search(r"Used (\d+) registers", line)
             if m and fn:
                 report[fn]["registers"] = int(m.group(1))
-        lib = ctypes.CDLL(str(tmp / name / "lib.so"))
+        lib = ctypes.CDLL(str(d / "lib.so"))
         for entry in ENTRIES:
             getattr(lib, entry).argtypes = _build.SIGNATURES[entry]
             getattr(lib, entry).restype = ctypes.c_int
@@ -253,7 +321,7 @@ def wrappers_only(rounds: int = 3) -> dict:
     """Each row's public wrapper: median device ms and host µs a call."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     readings = {}
-    for row in ROWS:
+    for row in [*ROWS, *WINDOW_ROWS]:
         fn = wrapper(row, *inputs(gen, row))
         ms = sorted(time_ms(fn) for _ in range(rounds))[rounds // 2]
         us = sorted(host_us(fn) for _ in range(rounds))[rounds // 2]
@@ -263,29 +331,63 @@ def wrappers_only(rounds: int = 3) -> dict:
     return readings
 
 
-def variants(rounds: int = 3) -> dict:
+def timed_in_turns(runs, rounds):
+    """Median ms of each of ``runs`` ({name: fn}), timed in turns, the
+    order reversed each round."""
+    times = {n: [] for n in runs}
+    for i in range(rounds):
+        for n in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            times[n].append(time_ms(runs[n]))
+    return {n: sorted(t)[len(t) // 2] for n, t in times.items()}
+
+
+def variants(rounds: int = 3, window_only: bool = False) -> dict:
+    builds = {n: e for n, (e, _) in WINDOW_VARIANTS.items()}
+    if not window_only:
+        builds.update(VARIANTS)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         t0 = time.perf_counter()
-        libs = build(Path(tmp))
+        libs = build(Path(tmp), builds)
         print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} "
               f"s", flush=True)
         for name, (_, report) in libs.items():
             print(f"ptxas {name}: {report}", flush=True)
         gen = torch.Generator(device="cuda").manual_seed(0)
         readings = {}
-        for row in ROWS:
+        for row in ([] if window_only else ROWS):
             args = inputs(gen, row)
-            runs = {f"{n} split {sp * PAGE}": launcher(lib, sp, *args)
-                    for n, (lib, _) in libs.items() for sp in SPLIT_PAGES}
-            times = {n: [] for n in runs}
-            for i in range(rounds):  # in turns, the order reversed each round
-                for n in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
-                    times[n].append(time_ms(runs[n]))
-            med = {n: sorted(t)[len(t) // 2] for n, t in times.items()}
-            readings[row] = med
+            runs = {f"{n} split {sp * PAGE}": launcher(libs[n][0], sp, *args)
+                    for n in VARIANTS for sp in SPLIT_PAGES}
+            readings[row] = med = timed_in_turns(runs, rounds)
             print(f"{row} {ROWS[row]}: " + ", ".join(
                 f"{n} {t:.4f} ms" for n, t in med.items()), flush=True)
+        for row in WINDOW_ROWS:
+            args = inputs(gen, row)
+            q, pools = args[0], args[1]
+            b, s_q, h = q.shape[0], q.shape[1], q.shape[2]
+            hkv = pools[0].shape[2] // D
+            plan = pa.window_plan(
+                b, h // hkv * s_q, hkv, D, PAGE, PPS,
+                torch.cuda.get_device_properties(0).multi_processor_count)[0]
+            runs = {}
+            for n, (_, splits) in WINDOW_VARIANTS.items():
+                if "dequant" in n and args[2] is None:
+                    continue                 # bf16 pages have no dequantize
+                runs[n] = launcher(libs[n][0], 0, *args,
+                                   window_splits=splits or plan)
+            if b == 1 and args[2] is None:
+                # yardstick: the dense forward (B2, non-causal) on the same
+                # keys gathered into contiguous K/V, a CTA per 128 rows
+                n_keys = int(args[3][0])
+                kv = [p_[args[4][0].long()].reshape(1, -1, hkv, D)[:, :n_keys]
+                      .contiguous() for p_ in pools]
+                runs["dense B2 non-causal"] = (
+                    lambda q=q, kv=kv: flash_attention(q, *kv, causal=False))
+            readings[row] = med = timed_in_turns(runs, rounds)
+            print(f"{row} {WINDOW_ROWS[row]} (grid {plan} splits): " +
+                  ", ".join(f"{n} {t:.4f} ms" for n, t in med.items()),
+                  flush=True)
         ptxas = {n: r for n, (_, r) in libs.items()}
     return {"ms": readings, "ptxas": ptxas}
 
@@ -300,7 +402,8 @@ def main() -> dict:
     if "--wrappers-only" in sys.argv[1:]:
         result = {"card": name, "wrappers": wrappers_only()}
     else:
-        result = {"card": name, **variants()}
+        result = {"card": name,
+                  **variants(window_only="--window" in sys.argv[1:])}
     print(json.dumps(result), flush=True)
     return result
 

@@ -175,12 +175,35 @@ def test_window_plain_matches_jax_reference_f32(case):
     assert pa.paged_attention_multi_blocked.launches == 0
 
 
-@pytest.mark.parametrize("case", ["sq8_mha_alibi", "sq8_gqa"])
+# B6/B8's cases in interpret mode: name: (lengths, s_q, h, hkv, alibi, page,
+# pages per sequence); group * s_q a multiple of 8 sublanes, as JAX asserts
+B6_CASES = {
+    "sq8_mha_alibi": ([8, 16, 27, 9], 8, 4, 4, True, 8, 4),
+    "sq8_gqa": ([8, 24, 32], 8, 8, 2, False, 8, 4),
+    # the engine's form: one sequence, a window after a history
+    "engine_sq24": ([61], 24, 2, 2, False, 8, 8),
+    "engine_sq24_alibi": ([61], 24, 4, 4, True, 8, 8),
+    # a window spanning pages of 16 and of 64 keys
+    "page16_sq24": ([50, 70], 24, 2, 2, True, 16, 8),
+    "page64_sq40": ([100, 41], 40, 4, 2, False, 64, 4),
+    # 144 rows per kv head (group 2 x s_q 72): more than one 128-row tile
+    "rows144_g2": ([80, 126], 72, 4, 2, True, 16, 8),
+    # rows that see no key (length 12 < s_q 16: rows t < 4); the sequence
+    # fills its table, so JAX's average over the pages it visits is the
+    # plain version's over the table
+    "no_key_rows": ([12, 16], 16, 4, 2, False, 8, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(B6_CASES))
 def test_window_plain_matches_b6_pallas_interpret(case):
     """B6's Pallas kernel in interpret mode (it needs group * s_q to be a
-    multiple of 8 sublanes)."""
-    lengths, s_q, h, hkv, alibi = WINDOW_CASES[case]
-    q, kp, vp, lens, tables = _inputs(4, lengths, h, hkv, 16, s_q=s_q)
+    multiple of 8 sublanes), at the engine's one-sequence windows, pages of
+    8, 16 and 64 keys, more than 128 rows per kv head and rows that see no
+    key."""
+    lengths, s_q, h, hkv, alibi, page, pps = B6_CASES[case]
+    q, kp, vp, lens, tables = _inputs(4, lengths, h, hkv, 16, s_q=s_q,
+                                      page=page, pps=pps)
     slopes = np.asarray(j_alibi_slopes(h)) if alibi else None
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jpa.paged_attention_multi_blocked(
@@ -354,6 +377,104 @@ def test_kernels_take_every_query_group_jax_takes():
     # the guard still refuses what the kernels cannot take
     assert bad_shape(5, 2, 128, 0) and bad_shape(8, 2, 136, 0)
     assert bad_shape(8, 2, 60, 0) and bad_shape(256, 256, 64, 128)
+
+
+def _cu_constants():
+    """The integer constants of ``csrc/paged_attention.cu``."""
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    return {m.group(1): int(m.group(2)) for m in re.finditer(
+        r"constexpr int (\w+) = (\d+);", src)}
+
+
+def _bad_window():
+    """``bad_window`` of ``csrc/paged_attention.cu``, the window kernel's
+    launch guard, read from the source and evaluated in Python (a null
+    pointer is None)."""
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    m = re.search(r"bool bad_window\(([^)]*)\) \{\s*return (.*?);\s*\}",
+                  src, re.S)
+    params = [p_.split()[-1] for p_ in m.group(1).split(",")]
+    expr = " ".join(m.group(2).replace("||", " or ").replace("&&", " and ")
+                    .replace("nullptr", "None").split())
+    consts = _cu_constants()
+    return lambda *args: eval(expr, {}, {**consts,
+                                         **dict(zip(params, args))})
+
+
+def _window_tiles(dp):
+    """WindowTiles<dp> of ``csrc/paged_attention.cu`` (warpgroups, keys,
+    threads and rows of a CTA), its C ternaries evaluated in Python."""
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    body = re.search(r"struct WindowTiles \{(.*?)\};", src, re.S).group(1)
+    names = {"DP": dp}
+    for name, expr in re.findall(r"static constexpr int (\w+) = (.*?);",
+                                 body):
+        expr = re.sub(r"(.+?) \? (.+?) : (.+)", r"(\2) if (\1) else (\3)",
+                      expr).replace("W::", "")
+        names[name] = eval(expr, {}, names)
+    return names
+
+
+def test_window_kernel_takes_every_shape_jax_takes():
+    """JAX's B6/B8 take any page size and any group with group * s_q a
+    multiple of 8; the port's window wrapper and the C guards (bad_shape,
+    bad_window) must refuse none of them at the head dims the kernels take
+    (multiples of 8 up to 128), with the grid and workspace the wrapper
+    plans; and the wrapper's most splits is the kernel's."""
+    for fn in (pa._launch_window, pa._window_workspace, pa.window_plan,
+               pa.window_workspace_floats):
+        assert _group_limits(fn) == [], fn.__name__
+    assert pa.WINDOW_MAX_SPLITS == _cu_constants()["kWindowMaxSplits"]
+    bad_shape, bad_window = _bad_shape(), _bad_window()
+    for group, s_q in ((1, 128), (2, 72), (3, 8), (8, 16), (32, 8),
+                       (64, 1)):
+        for hkv in (1, 2, 40):
+            for d in range(8, 129, 8):
+                for page in (1, 8, 16, 32, 64, 128, 256, 1024):
+                    pps = max(1, 2048 // page)
+                    for s_lanes in (0, 128):
+                        assert not bad_shape(group * hkv, hkv, d, s_lanes)
+                    splits, ws, counters = pa.window_plan(
+                        1, group * s_q, hkv, d, page, pps, 132)
+                    live = object() if splits > 1 else None
+                    assert not bad_window(pps, splits, live, live), (
+                        group, s_q, hkv, d, page)
+    # the guard still refuses what the kernel cannot take
+    assert bad_window(8, 0, None, None) and bad_window(8, 2, None, None)
+    assert bad_window(8, pa.WINDOW_MAX_SPLITS + 1, 1, 1)
+
+
+@pytest.mark.parametrize("b,rows,hkv,d,page,pps", [
+    (1, 128, 32, 128, 128, 16), (4, 128, 32, 128, 128, 16),
+    (1, 128, 40, 128, 16, 128), (2, 144, 2, 64, 16, 8), (3, 72, 4, 80, 8, 4),
+    (1, 24, 2, 16, 8, 8), (1, 16, 2, 64, 256, 2), (8, 256, 1, 128, 32, 4)])
+def test_window_workspace_covers_every_split_and_counter(b, rows, hkv, d,
+                                                         page, pps):
+    """The window kernel's workspace holds, for every (sequence, kv head,
+    row tile, split) of the planned grid, each thread's O accumulators and
+    (m, l) where the kernel writes them (fragment order, float4s NT
+    apart); one split takes no workspace; and the shared counters cover
+    the window kernel's (sequence, kv head, row tile)s and the few-rows
+    kernel's 16-row tiles at the same shape."""
+    for sms in (1, 16, 132):
+        splits, ws, counters = pa.window_plan(b, rows, hkv, d, page, pps,
+                                              sms)
+        assert 1 <= splits <= pa.WINDOW_MAX_SPLITS
+        if splits == 1:
+            assert ws == 0 and counters == 0
+            continue
+        t = _window_tiles(64 if d <= 64 else 128)
+        dp, nt, n_rt = t["DP"], t["kThreads"], -(-rows // t["kRows"])
+        blobs = b * hkv * n_rt * splits
+        o_float4s = blobs * (dp // 8) * nt
+        # the last blob's last thread: its last O float4 and its (m, l)
+        assert (blobs - 1) * (dp // 8) * nt + (dp // 8 - 1) * nt + nt <= (
+            o_float4s)
+        assert 4 * (o_float4s + (blobs - 1) * nt + nt) == ws
+        assert b * hkv * n_rt <= counters
+        assert b * hkv * -(-rows // 16) <= counters
+    # at the engine's prefill window the card holds one wave of CTAs
+    assert pa.window_plan(1, 128, 32, 128, 128, 16, 132)[0] == 5
 
 
 def _pool_trace(pool_cls):

@@ -313,13 +313,33 @@ def test_b7_window_plain_matches_jax_reference_f32(case):
             pa.paged_attention_multi_blocked_q8.launches) == before
 
 
-@pytest.mark.parametrize("case", ["sq8_mha_alibi", "sq8_gqa"])
+# B8's cases in interpret mode: name: (lengths, s_q, h, hkv, alibi, page,
+# pages per sequence); group * s_q a multiple of 8 sublanes, as JAX asserts
+B8_CASES = {
+    "sq8_mha_alibi": ([8, 16, 27, 9], 8, 4, 4, True, 8, 4),
+    "sq8_gqa": ([8, 24, 32], 8, 8, 2, False, 8, 4),
+    # the engine's form: one sequence, a window after a history
+    "engine_sq24": ([61], 24, 2, 2, False, 8, 8),
+    # a window spanning pages of 16 and of 64 keys; hkv = 3 (scale stride
+    # 42)
+    "page16_sq24": ([50, 70], 24, 3, 3, True, 16, 8),
+    "page64_sq40": ([100, 41], 40, 4, 2, False, 64, 4),
+    # 144 rows per kv head (group 2 x s_q 72)
+    "rows144_g2": ([80, 126], 72, 4, 2, True, 16, 8),
+    # rows that see no key (length 12 < s_q 16), the table full
+    "no_key_rows": ([12, 16], 16, 4, 2, False, 8, 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(B8_CASES))
 def test_b8_plain_matches_pallas_interpret(case):
     """B8 (``_paged_multi_blocked_q8_kernel``) in interpret mode at bf16 q
-    (it needs group * s_q to be a multiple of 8 sublanes)."""
-    lengths, s_q, h, hkv, alibi = WINDOW_CASES[case]
+    (it needs group * s_q to be a multiple of 8 sublanes), at the engine's
+    one-sequence windows, pages of 8, 16 and 64 keys, more than 128 rows
+    per kv head and rows that see no key."""
+    lengths, s_q, h, hkv, alibi, page, pps = B8_CASES[case]
     q, kv, ks, vv, vs, lens, tables = _q8_inputs(23, lengths, h, hkv, 16,
-                                                 s_q=s_q)
+                                                 s_q=s_q, page=page, pps=pps)
     slopes = np.asarray(j_alibi_slopes(h)) if alibi else None
     with pltpu.force_tpu_interpret_mode():
         want = jpa.paged_attention_multi_blocked_q8(
