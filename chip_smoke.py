@@ -61,6 +61,31 @@ the LM quantized to int8) and of Baichuan-13B:
                   model, and a request's tokens read after another
                   request's prompt must fail that check. Prints tokens/s,
                   per-request TTFT and the KV pool's bytes.
+  W. front end  - the serving front end over HTTP on loopback: a Vicuna-7B
+                  + CLIP ViT-L/14-448 bundle built by ``parse_args([])``,
+                  ``build_model_tokenizer`` (the hub unreachable: the
+                  TinyTokenizer, primed so that every id is a word) and
+                  ``init_or_load_params`` (f32 weights, as the flax tree);
+                  a controller (shortest queue) and two workers on it. W1:
+                  4 concurrent text requests of 100-1100 words to the
+                  engine worker (B2 whole prompts, B6 chunked, B3 decode),
+                  a 2-image request there (``Generator.stream``: B1) and a
+                  1-image request to the speculative worker (k = 4: B1),
+                  every one through the controller's relay with the CLI's
+                  client; then ``EvalModel`` with 5 beams on 1 image. W2:
+                  the LM quantized to int8 (the tower untouched) behind an
+                  engine worker on int8 pages (B2, B8, B7). No chunk may
+                  carry an error and no worker may log a failure; each
+                  request's chunks must be prefixes of one another, its
+                  text must map back to ids, and each token must hold
+                  against a no-cache forward of its request (images
+                  included); the beam's score must equal the one a
+                  no-cache forward gives its sequence, and a cache
+                  gathered with the beam index rotated by one must fail
+                  that; B1 = 23 x the tower's calls and the engine kernels
+                  = 32 x the engine's calls of each kind, 0 elsewhere.
+                  Prints TTFT and tok/s per request (host clock at the
+                  client);
   7. backward   - the training kernels against their plain versions on the
                   card, each fed its forward kernel's out and LSE as on the
                   path: B2 then the fused backward (B10 dq + B11 dk, dv in
@@ -97,8 +122,8 @@ the LM quantized to int8) and of Baichuan-13B:
                   new-token embedding rows (2 steps): the LM stays
                   bit-identical but those rows, the tower and projector move.
 
-Prints the serving and training readings and the kernel table as JSON
-lines before the last, and as the last
+Prints the serving, front-end and training readings and the kernel table
+as JSON lines before the last, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs a CUDA card; exits 2 without one.
 
@@ -113,6 +138,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1889,6 +1915,558 @@ def serve_baichuan(rng):
 
 
 # ---------------------------------------------------------------------------
+# phase: the serving front end (controller -> model worker -> CLI over HTTP)
+# ---------------------------------------------------------------------------
+
+W_MAX_NEW = 32
+W_BEAM_NEW = 16
+W1_WORDS = (100, 300, 700, 1100)   # the first prompt <= 256 tokens: B2
+W2_WORDS = (200, 1100)             # one whole prompt (B2), one chunked (B8)
+W_REPEAT = 48                      # the segment one W1 prompt repeats
+BEAM_SCORE_TOL = 2e-3              # the beam's normalized log-prob score,
+                                   # search (cached, mha_reference) against
+                                   # a no-cache forward (B2), both bf16.
+                                   # Seen on an H100 80GB HBM3 at 700 W:
+                                   # 2.0e-4; the cache gathered with the
+                                   # beam index rotated by one 1.36e-2
+W_ENGINE = dict(use_engine=True, engine_slots=4, engine_max_len=2048,
+                engine_prefill_chunk=128, engine_prefill_chunk_min=256)
+W_QUESTION = "describe what the frame shows and where each object is"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def prime_tokenizer(tok, vocab: int, texts) -> list:
+    """Encode distinct words until every id up to ``vocab`` is a word: the
+    words of ``texts`` first (the template's, the questions'), then
+    fillers. Then an answer's text maps back to its token ids exactly.
+    Returns the fillers, from which the prompts are drawn."""
+    needed = dict.fromkeys(w for t in texts for w in tok.tokenize(t))
+    tok.encode(" ".join(w for w in needed
+                        if tok.convert_tokens_to_ids(w) == tok.unk_token_id),
+               add_special_tokens=False)
+    fillers = []
+    # ids are given in order: id vocab - 1 is the last one to fill
+    while tok.decode([vocab - 1]) == tok.unk_token:
+        fillers.append(f"w{len(fillers)}")
+        tok.encode(fillers[-1], add_special_tokens=False)
+    if tok.decode([vocab]) != tok.unk_token or not fillers:
+        raise AssertionError(f"priming failed at {len(fillers)} fillers")
+    return fillers
+
+
+def w_prompts(rng, fillers, n_words, repeat_first=False):
+    """Conversation prompts of ``n_words`` random primed words each (the
+    v1 template, as ``cli.chat`` sends them); with ``repeat_first`` the
+    last prompt repeats one ``W_REPEAT``-word segment."""
+    from merlin_tpu_torch.utils.conversation import conv_templates
+
+    out = []
+    for i, n in enumerate(n_words):
+        words = [fillers[j] for j in rng.integers(0, len(fillers), size=n)]
+        if repeat_first and i == len(n_words) - 1:
+            words = list(np.resize(words[:W_REPEAT], n))
+        conv = conv_templates["v1"].copy()
+        conv.append_message(conv.roles[0], " ".join(words))
+        conv.append_message(conv.roles[1], None)
+        out.append(conv.get_prompt())
+    return out
+
+
+def w_image_prompt(n_images: int) -> str:
+    from merlin_tpu_torch.utils.conversation import conv_templates
+
+    conv = conv_templates["v1"].copy()
+    conv.append_message(conv.roles[0], "<image>\n" * n_images + W_QUESTION)
+    conv.append_message(conv.roles[1], None)
+    return conv.get_prompt()
+
+
+def png_b64(frame) -> str:
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(frame).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def w_request(address, payload):
+    """One request through the controller's relay with the port's CLI
+    client: (chunks, seconds to each chunk from the send)."""
+    from merlin_tpu_torch.serve.cli import stream_request
+
+    t0 = time.perf_counter()
+    chunks, stamps = [], []
+    for chunk in stream_request(address, payload):
+        chunks.append(chunk)
+        stamps.append(time.perf_counter() - t0)
+    return chunks, stamps
+
+
+def answer_logits(model, prompt_ids, images, tail):
+    """(len(tail) + 1, V) f32 logits after ``prompt_ids`` + each prefix of
+    ``tail`` from one no-cache forward (B1 for the images, B2 for the LM);
+    image features splice into the prompt's patch tokens only, as the
+    decode steps embed generated ids as they are."""
+    from merlin_tpu_torch.models.mmgpt import splice_image_embeds
+
+    ids = torch.tensor(list(prompt_ids) + list(tail), device="cuda")[None]
+    with torch.no_grad():
+        embeds = model.lm.embed(ids)
+        if images is not None:
+            patch = ids == model.cfg.image_patch_id
+            patch[:, len(prompt_ids):] = False
+            feats = model.encode_images(images.reshape(
+                (-1,) + images.shape[2:])).reshape(
+                1, -1, model.cfg.lm.hidden_size)
+            embeds = splice_image_embeds(embeds, patch, feats)
+        logits, _ = model.lm(inputs_embeds=embeds)
+    return logits[0, len(prompt_ids) - 1:].float()
+
+
+def hold_answer(tag, model, tok, prompt_ids, images, text, n_tokens, tol):
+    """Map an answer's text back to ids and hold every token against one
+    no-cache forward of its request (the ``token_gap`` rule: max logit
+    minus the token's, of max |logit|, at most ``tol``). Ids that decode to
+    no text (special tokens) are invisible in the text: where the forward's
+    argmax is one of them and the text's token does not hold, it is taken
+    as emitted there; with ``n_tokens`` (a stream: one chunk a token) the
+    answer's tail is completed the same way, each such token an argmax
+    among the special ids or EOS. Returns (largest gap, tokens)."""
+    ids = tok.encode(text, add_special_tokens=False)
+    if tok.decode(ids) != text:
+        raise AssertionError(f"{tag}: the text does not map back to ids")
+    hidden = {tok.convert_tokens_to_ids(t) for t in tok.special_tokens}
+    seq = list(ids)
+    while True:
+        rows = answer_logits(model, prompt_ids, images, seq)
+        picked = rows[torch.arange(len(seq), device="cuda"),
+                      torch.tensor(seq, device="cuda").long()]
+        gaps = ((rows[:len(seq)].amax(-1) - picked)
+                / rows[:len(seq)].abs().amax(-1)).tolist()
+        bad = next((j for j, g in enumerate(gaps) if g > tol), None)
+        at = bad if bad is not None else len(seq)
+        if bad is None and (n_tokens is None or len(seq) >= n_tokens):
+            return max(gaps, default=0.0), seq
+        top = int(rows[at].argmax())
+        if top not in hidden or (n_tokens is not None
+                                 and len(seq) >= n_tokens):
+            raise AssertionError(f"{tag}: token {at} disagrees with the "
+                                 f"no-cache forward (gaps {gaps})")
+        seq.insert(at, top)
+
+
+def w_worker_log():
+    """Collect what the port's workers log, to find engine failures."""
+    import logging
+
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Keep()
+    logging.getLogger("merlin_tpu_torch.worker").addHandler(handler)
+    return records, handler
+
+
+def start_stack(bundle, workers):
+    """A controller (shortest queue) and one worker per (name, kwargs) in
+    ``workers``, all on loopback, serving from daemon threads. Returns
+    (controller address, {name: worker}, servers)."""
+    import threading
+
+    from merlin_tpu_torch.serve import controller as ctrl_mod
+    from merlin_tpu_torch.serve import worker as worker_mod
+    from merlin_tpu_torch.serve.protocol import http_json
+
+    servers = []
+
+    def run(server):
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        servers.append(server)
+
+    run(ctrl_mod.serve(host="127.0.0.1", port=free_port(),
+                       dispatch_method="shortest_queue"))
+    ctrl = f"http://127.0.0.1:{servers[0].server_address[1]}"
+    out = {}
+    for name, kw in workers:
+        server = worker_mod.serve(bundle, host="127.0.0.1", port=free_port(),
+                                  controller_address=ctrl,
+                                  model_names=[name], device="cuda", **kw)
+        run(server)
+        out[name] = server.worker
+    models = http_json("POST", ctrl + "/list_models")["models"]
+    if models != sorted(name for name, _ in workers):
+        raise AssertionError(f"/list_models gave {models}")
+    return ctrl, out, servers
+
+
+def stop_stack(servers, workers):
+    """Stop every server, worker (engine loop, heartbeats, the engine's
+    pool) and the controller's expiry thread."""
+    for server in servers:
+        server.shutdown()
+        server.server_close()
+    for worker in workers.values():
+        worker.stop()
+    servers[0].controller.stop()
+
+
+def engine_counter(worker, calls):
+    """Forward hooks counting a worker's engine model calls by kind, as
+    ``run_engine`` counts them; dense-cache calls (the per-request
+    generators) are counted apart by their token count."""
+    from merlin_tpu_torch.ops.paged_attention import WINDOW_SMALL_ROWS
+
+    cfg = worker.bundle.config.lm
+    group = cfg.num_heads // cfg.kv_heads
+
+    def hook(window):
+        def count(module, args, kwargs, output):
+            s = args[0].shape[1]
+            cache = kwargs.get("kv_cache")
+            if cache is None:
+                return
+            if "page_tables" not in cache:
+                calls[f"dense s={s}"] += 1
+            elif window:
+                small = group * s <= WINDOW_SMALL_ROWS
+                calls["window_small" if small else "window_large"] += 1
+            else:
+                calls["prefill" if s > 1 else "decode"] += 1
+        return count
+
+    hooks = [worker.bundle.model.register_forward_hook(hook(False),
+                                                       with_kwargs=True)]
+    if worker.engine is not None and worker.engine.multi_model is not None:
+        hooks.append(worker.engine.multi_model.register_forward_hook(
+            hook(True), with_kwargs=True))
+    return hooks
+
+
+def tower_counter(model, encoded):
+    """Counts the tower's calls and the images they encode: a call runs
+    all of a request's images as one batch, one B1 launch a layer."""
+    def count(module, args, output):
+        encoded[0] += 1
+        encoded[1] += args[0].shape[0]
+    return [model.vision_tower.register_forward_hook(count)]
+
+
+def w_readings(tag, chunks, stamps, smi):
+    texts = [c["text"] for c in chunks]
+    if not chunks or any(c.get("error_code") for c in chunks):
+        raise AssertionError(f"{tag}: an error chunk: {chunks[-1:]}")
+    if any(not b.startswith(a) for a, b in zip(texts, texts[1:])):
+        raise AssertionError(f"{tag}: a chunk is not a prefix of the next")
+    n = len(chunks)
+    read = dict(ttft_ms=round(stamps[0] * 1e3, 1),
+                total_ms=round(stamps[-1] * 1e3, 1), chunks=n)
+    if n > 1:
+        read["decode_tok_s"] = round((n - 1) / (stamps[-1] - stamps[0]), 2)
+    log(f"{tag}: TTFT {read['ttft_ms']} ms, answer in {read['total_ms']} "
+        f"ms, {n} chunks" + (f", {read['decode_tok_s']} tok/s after the "
+                             f"first" if n > 1 else "")
+        + f" (host clock at the client; card {smi})")
+    return read
+
+
+def decoded_images(frames, size):
+    """The images as the worker sees them: PNG-decoded, resized by
+    ``preprocess_pil``, (1, n, size, size, 3) uint8 on the card."""
+    from merlin_tpu_torch.data.images import preprocess_pil
+    from PIL import Image
+
+    arr = np.stack([preprocess_pil(Image.fromarray(f), size, "resize")
+                    for f in frames])
+    return torch.from_numpy(arr).to("cuda")[None]
+
+
+def w_check_launches(tag, counts, calls, n_layers, tower_calls, q8):
+    n = n_layers
+    if q8:
+        want = launches(B2=n * calls["prefill"], B7=n * calls["decode"],
+                        B7w=n * calls["window_small"],
+                        B8=n * calls["window_large"])
+        reached = {"B2", "B7", "B8"}
+    else:
+        want = launches(B1=23 * tower_calls, B2=n * calls["prefill"],
+                        B3=n * calls["decode"],
+                        B5=n * calls["window_small"],
+                        B6=n * calls["window_large"])
+        reached = {"B1", "B2", "B3", "B6"}
+    log(f"{tag} launches {counts}; model calls {dict(calls)}; tower "
+        f"calls {tower_calls}")
+    if counts != want or any((v > 0) != (k in reached)
+                             for k, v in counts.items()):
+        raise AssertionError(f"{tag}: launches {counts}, expected {want} "
+                             f"with {sorted(reached)} reached")
+
+
+def run_w1(bundle, rng, fillers, frames, smi):
+    """W1: a controller and two workers on one bf16-computing bundle, all
+    requests through the relay with the port's CLI client."""
+    import threading
+
+    from merlin_tpu_torch.eval.runner import EvalConfig, EvalModel
+    from merlin_tpu_torch.generate import beam as beam_mod
+    from merlin_tpu_torch.utils import constants as C
+
+    tok, model = bundle.tokenizer, bundle.model
+    placeholder = C.image_placeholder(bundle.config.image_token_len)
+    ctrl, workers, servers = start_stack(bundle, [
+        ("merlin-engine", W_ENGINE), ("merlin-spec", dict(speculative=4))])
+    records, handler = w_worker_log()
+    calls = collections.Counter()
+    encoded = [0, 0]                  # tower calls, images
+    hooks = engine_counter(workers["merlin-engine"], calls) \
+        + tower_counter(model, encoded)
+    base = dict(temperature=0.0, max_new_tokens=W_MAX_NEW, stop="</s>")
+    texts = w_prompts(rng, fillers, W1_WORDS, repeat_first=True)
+    results = [None] * len(texts)
+
+    def send(i):
+        results[i] = w_request(ctrl, dict(base, model="merlin-engine",
+                                          prompt=texts[i]))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(texts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    two = w_image_prompt(2)
+    results.append(w_request(ctrl, dict(
+        base, model="merlin-engine", prompt=two,
+        images=[png_b64(f) for f in frames[:2]])))
+    one = w_image_prompt(1)
+    results.append(w_request(ctrl, dict(
+        base, model="merlin-spec", prompt=one, images=[png_b64(frames[2])])))
+    spec_windows = calls[f"dense s={workers['merlin-spec'].speculative + 1}"]
+
+    from PIL import Image
+    em = EvalModel(bundle, EvalConfig(num_beams=5,
+                                      max_new_tokens=W_BEAM_NEW),
+                   device="cuda")
+    beam_frame = Image.fromarray(frames[3])
+    t0 = time.perf_counter()
+    beam_text = em.ask(W_QUESTION, images=[beam_frame])
+    beam_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for h in hooks:
+        h.remove()
+    stop_stack(servers, workers)
+    import logging
+    logging.getLogger("merlin_tpu_torch.worker").removeHandler(handler)
+    if any("engine step failed" in r or "generate failed" in r
+           for r in records):
+        raise AssertionError(f"W1: a worker logged a failure: {records}")
+    w_check_launches("W1", counts, calls, bundle.config.lm.num_layers,
+                     encoded[0], q8=False)
+    if encoded != [3, 4]:
+        raise AssertionError(f"W1: {encoded[1]} images in {encoded[0]} "
+                             "tower calls, not 4 in 3")
+
+    readings = {}
+    names = [f"text {n} words" for n in W1_WORDS] + [
+        "2 images (Generator.stream)", "1 image (speculative k=4)"]
+    gaps = []
+    for i, (name, (chunks, stamps)) in enumerate(zip(names, results)):
+        readings[name] = w_readings(f"W1 {name}", chunks, stamps, smi)
+        if i < len(texts):
+            prompt, images = texts[i], None
+        else:
+            n_img = 2 if i == len(texts) else 1
+            prompt = (two if n_img == 2 else one).replace("<image>",
+                                                          placeholder)
+            images = decoded_images(frames[:2] if n_img == 2
+                                    else frames[2:3],
+                                    bundle.config.vit.image_size)
+        ids = tok(prompt)["input_ids"][0]
+        spec = i == len(results) - 1
+        gap, seq = hold_answer(f"W1 {name}", model, tok, ids, images,
+                               chunks[-1]["text"],
+                               None if spec else len(chunks), GEN_RTOL)
+        readings[name].update(prompt_tokens=len(ids), tokens=len(seq),
+                              max_gap=gap)
+        gaps.append(gap)
+        if spec:
+            readings[name]["windows"] = spec_windows
+            log(f"W1 speculative: {len(seq)} tokens in {spec_windows} "
+                f"windows ({len(seq) / max(spec_windows, 1):.2f} tokens a "
+                f"window)")
+    log(f"W1 tokens vs a no-cache forward of each request: largest gap per "
+        f"request {[f'{g:.2e}' for g in gaps]} of max |logit| (tol "
+        f"{GEN_RTOL})")
+
+    # beam: the returned sequence's score, recomputed from a no-cache
+    # forward, equals the best score the search kept; a cache gathered with
+    # the beam index rotated by one must fail that
+    prompt = em.build_prompt(W_QUESTION, num_images=1)
+    ids = tok(prompt)["input_ids"][0]
+    image = em.preprocess_images([beam_frame])
+    seqs, scores = em._engine.search(np.asarray([ids]), images=image)
+    if em.decode_output(seqs[0]) != beam_text:
+        raise AssertionError("W1 beam: search() and ask() disagree")
+    image_t = torch.from_numpy(image).to("cuda")
+
+    def score_gap(seq, score):
+        seq = [int(t) for t in seq]
+        n = seq.index(tok.eos_token_id) + 1 if tok.eos_token_id in seq \
+            else len(seq)
+        rows = torch.log_softmax(answer_logits(model, ids, image_t,
+                                               seq[:n - 1]), -1)
+        lp = rows[torch.arange(n, device="cuda"),
+                  torch.tensor(seq[:n], device="cuda").long()].sum()
+        return abs(lp.item() / n - float(score))
+
+    honest = score_gap(seqs[0], scores[0])
+    gather = beam_mod._gather_beams
+    beam_mod._gather_beams = lambda cache, idx, b, k: gather(
+        cache, idx.roll(1, dims=1), b, k)
+    try:
+        bad_seqs, bad_scores = em._engine.search(np.asarray([ids]),
+                                                 images=image)
+    finally:
+        beam_mod._gather_beams = gather
+    planted = score_gap(bad_seqs[0], bad_scores[0])
+    log(f"W1 beam (5 beams, {W_BEAM_NEW} tokens, 1 image) in {beam_s:.3f} s: "
+        f"{beam_text!r}; score {float(scores[0]):.4f}, recomputed gap "
+        f"{honest:.3e} (tol {BEAM_SCORE_TOL}); planted fault (beam index "
+        f"rotated in the cache gather): gap {planted:.3e}, must exceed it")
+    if not honest <= BEAM_SCORE_TOL < planted:
+        raise AssertionError(f"W1 beam score check: {honest} {planted}")
+    readings["beam"] = dict(seconds=round(beam_s, 3), score_gap=honest,
+                            planted_gap=planted)
+    return counts, readings
+
+
+def run_w2(qbundle, rng, fillers, smi):
+    """W2: one worker on the int8-weight LM over int8 pages, hybrid."""
+    import threading
+
+    tok, model = qbundle.tokenizer, qbundle.model
+    ctrl, workers, servers = start_stack(qbundle, [
+        ("merlin-int8", dict(W_ENGINE, engine_cache_dtype="int8"))])
+    records, handler = w_worker_log()
+    calls = collections.Counter()
+    hooks = engine_counter(workers["merlin-int8"], calls)
+    texts = w_prompts(rng, fillers, W2_WORDS)
+    results = [None] * len(texts)
+
+    def send(i):
+        results[i] = w_request(ctrl, dict(
+            model="merlin-int8", prompt=texts[i], temperature=0.0,
+            max_new_tokens=W_MAX_NEW, stop="</s>"))
+
+    torch.cuda.synchronize()
+    reset_counts()
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(texts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for h in hooks:
+        h.remove()
+    stop_stack(servers, workers)
+    import logging
+    logging.getLogger("merlin_tpu_torch.worker").removeHandler(handler)
+    if any("failed" in r for r in records):
+        raise AssertionError(f"W2: a worker logged a failure: {records}")
+    w_check_launches("W2", counts, calls, qbundle.config.lm.num_layers, 0,
+                     q8=True)
+    readings, gaps = {}, []
+    for n, text, (chunks, stamps) in zip(W2_WORDS, texts, results):
+        name = f"text {n} words"
+        readings[name] = w_readings(f"W2 {name}", chunks, stamps, smi)
+        ids = tok(text)["input_ids"][0]
+        gap, seq = hold_answer(f"W2 {name}", model, tok, ids, None,
+                               chunks[-1]["text"], len(chunks), Q8_GEN_RTOL)
+        readings[name].update(prompt_tokens=len(ids), tokens=len(seq),
+                              max_gap=gap)
+        gaps.append(gap)
+    log(f"W2 tokens vs a no-cache forward of each request: largest gap per "
+        f"request {[f'{g:.2e}' for g in gaps]} of max |logit| (tol "
+        f"{Q8_GEN_RTOL})")
+    return counts, readings
+
+
+def serve_front(rng, smi):
+    """The W phase: the port's serving front end on a Vicuna-7B MMGPT built
+    by the user's entry points (``parse_args([])``, ``build_model_tokenizer``,
+    ``init_or_load_params``), bf16 compute (W1), then its LM quantized to
+    int8 (W2). Returns ({"W1": counts, "W2": counts}, readings)."""
+    from merlin_tpu_torch.models.builder import (
+        build_model_tokenizer, init_or_load_params, quantize_bundle_lm_int8)
+    from merlin_tpu_torch.train.arguments import parse_args
+    from merlin_tpu_torch.utils.conversation import conv_templates
+
+    t0 = time.perf_counter()
+    margs, dargs, targs = parse_args([])
+    bundle = build_model_tokenizer(margs, dargs, targs)
+    init_or_load_params(
+        bundle, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    torch.cuda.synchronize()
+    bundle.model.eval()
+    vocab = bundle.config.lm.vocab_size
+    n_params = sum(p.numel() for p in bundle.model.parameters())
+    log(f"W: {margs.model_name_or_path} + {margs.vision_tower} "
+        f"({dargs.image_size}, {margs.projector}): vocab {vocab}, "
+        f"{n_params / 1e9:.3f} B parameters "
+        f"({nbytes(*bundle.model.parameters()) / 1e9:.2f} GB, as the flax "
+        f"tree holds them) on the card in {time.perf_counter() - t0:.1f} s; "
+        f"tokenizer {type(bundle.tokenizer).__name__}")
+    if vocab != 32003 or type(bundle.tokenizer).__name__ != "TinyTokenizer":
+        raise AssertionError("W: not the name-built Vicuna with the "
+                             "fallback tokenizer")
+    conv = conv_templates["v1"].copy()
+    conv.append_message(conv.roles[0], W_QUESTION)
+    conv.append_message(conv.roles[1], None)
+    fillers = prime_tokenizer(bundle.tokenizer, vocab, [conv.get_prompt()])
+    frames = rng.integers(0, 256, size=(4, 480, 640, 3), dtype=np.uint8)
+
+    w1_counts, w1 = run_w1(bundle, rng, fillers, frames, smi)
+    free_cuda()
+    fc1 = "vision_tower.vit.layers_0.mlp.fc1.kernel"
+    tower = bundle.params[fc1]
+    qbundle = quantize_bundle_lm_int8(bundle)
+    del bundle
+    free_cuda()
+    q = qbundle.params
+    if not (q[fc1] is tower or q[fc1].data_ptr() == tower.data_ptr()) or \
+            q[fc1].dtype != tower.dtype or \
+            q["lm.layers_0.attn.q_proj.kernel_q8"].dtype != torch.int8 or \
+            q["lm.layers_31.mlp.down_proj.kernel_q8"].dtype != torch.int8:
+        raise AssertionError("W2: the quantizer touched the tower or left "
+                             "an LM projection unquantized (C12)")
+    lm_gb = nbytes(*qbundle.model.lm.parameters()) / 1e9
+    log(f"W2: LM quantized to int8 ({lm_gb:.2f} GB); tower fc1 untouched "
+        f"({tower.dtype})")
+    w2_counts, w2 = run_w2(qbundle, rng, fillers, smi)
+    del qbundle
+    free_cuda()
+    return {"W1": w1_counts, "W2": w2_counts}, {"W1": w1, "W2": w2}
+
+
+# ---------------------------------------------------------------------------
 # phases 10-12: training
 # ---------------------------------------------------------------------------
 
@@ -2315,6 +2893,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # nothing is fetched: the W phase's tokenizer load fails at once and
+    # falls back to the TinyTokenizer
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    os.environ["TRANSFORMERS_OFFLINE"] = "1"
     from merlin_tpu_torch.ops import _build
 
     smi = subprocess.run(
@@ -2360,6 +2942,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     served.update(serve_baichuan(rng))
+    free_cuda()                       # the W phase builds its own model
+    worker_counts, front = serve_front(np.random.default_rng(9), smi)
     free_cuda()                       # training starts from an empty card
     trained = check_flash_bwd(gen, b2)
     trained.update(check_onepass_train(gen))
@@ -2400,7 +2984,10 @@ def main() -> int:
         row["launches_serving"] = {e: served[e][0][key] for e in served}
         row["launches_training"] = t1["counts"][key]
         row["launches_training_frozen_lm"] = t2["counts"][key]
+        row["launches_worker"] = {w: worker_counts[w][key]
+                                  for w in worker_counts}
     log(json.dumps({"serving": {e: served[e][1] for e in served}}))
+    log(json.dumps({"front_end": front, "card": smi}))
     log(json.dumps({"training": {
         "T0": t0_reading, "C13": c13,
         "T1": {k: v for k, v in t1.items() if k != "counts"},

@@ -34,6 +34,9 @@ class GenerateConfig:
     temperature: float = 1.0
     top_k: int = 0
     top_p: float = 1.0
+    # > 1 selects beam search (generate/beam.BeamSearch); Generator ignores
+    # it, as JAX's does
+    num_beams: int = 1
     eos_id: int = 2
     pad_id: int = 0
     # extra single-token stop ids

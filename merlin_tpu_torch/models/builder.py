@@ -1,23 +1,43 @@
-"""The model bundle and the freeze matrix (counterpart of the training part
-of ``merlin_tpu/models/builder.py``).
+"""Model + tokenizer factory (counterpart of ``merlin_tpu/models/builder.py``).
 
-:class:`ModelBundle` carries what the trainer needs beside the module: its
-config, the vocabulary size before the multimodal tokens were added, and the
-freeze matrix from :func:`_freeze_masks` (``builder.py:129-160``): which
-parameter paths train, and which embedding rows may move while a frozen LM
-keeps the rest of its table. ``build_model_tokenizer`` and the checkpoint
-loaders come with the tokenizer and converter copies.
+  * :func:`build_model_tokenizer`: name-substring LM dispatch with the RoPE
+    scaling rewrite, the tokenizer (right padding, pad = unk, the
+    multimodal special tokens and the vocabulary grown to hold them), the
+    vision tower and projector, the tower geometry written back into the
+    data arguments, and the freeze matrix. The module is built on the
+    ``meta`` device: no weight exists until :func:`init_or_load_params`.
+  * :func:`_freeze_masks`: which parameter paths train, and which embedding
+    rows may move while a frozen LM keeps the rest of its table
+    (``builder.py:129-160``); :func:`make_bundle` applies it to a module
+    built elsewhere.
+  * :func:`init_or_load_params`: random parameters on the device with the
+    flax tree's names, shapes, dtypes and initializers. Loading checkpoints
+    waits for the converters (ROADMAP §A item 4).
+  * :func:`quantize_bundle_lm_int8`: weight-only int8 for the LM subtree
+    only (trap C12: CLIP's MLP shares the ``fc1``/``fc2`` names).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+import logging
+import math
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
+import torch
 from torch import nn
 
-from merlin_tpu_torch.models.mmgpt import MMGPTConfig
+from merlin_tpu_torch.models.families import config_from_name, tiny as tiny_lm
+from merlin_tpu_torch.models.mmgpt import MMGPT, MMGPTConfig
+from merlin_tpu_torch.models.vision_builder import (
+    default_vision_config, vision_kind_from_name)
+from merlin_tpu_torch.models.vit import tiny_vit
+from merlin_tpu_torch.utils import constants as C
+from merlin_tpu_torch.utils.tokenizer import (
+    MM_SPECIAL_TOKENS, SpecialIds, TinyTokenizer, load_tokenizer)
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -27,6 +47,88 @@ class ModelBundle:
     orig_vocab_size: int                   # rows before special tokens
     trainable_mask: Optional[Callable[[Tuple[str, ...]], bool]] = None
     embed_row_trainable: Optional[np.ndarray] = None  # per-row float mask
+    tokenizer: Any = None
+    special_ids: Optional[SpecialIds] = None
+    # the model's state_dict once its weights exist (None until init/load)
+    params: Optional[Dict[str, torch.Tensor]] = None
+
+
+def _tiny_tokenizer_with_mm_tokens(model_max_length):
+    tok = TinyTokenizer(model_max_length)
+    tok.add_tokens(MM_SPECIAL_TOKENS, special_tokens=True)
+    ids = SpecialIds(
+        pad=tok.pad_token_id, bos=tok.bos_token_id, eos=tok.eos_token_id,
+        unk=tok.unk_token_id,
+        image_patch=tok.convert_tokens_to_ids(C.DEFAULT_IM_PATCH_TOKEN),
+        im_start=tok.convert_tokens_to_ids(C.DEFAULT_IM_START_TOKEN),
+        im_end=tok.convert_tokens_to_ids(C.DEFAULT_IM_END_TOKEN))
+    return tok, ids, len(MM_SPECIAL_TOKENS)
+
+
+def build_model_tokenizer(model_args, data_args, training_args,
+                          *, tiny: bool = False) -> ModelBundle:
+    """The MMGPT definition and its tokenizer. ``tiny=True`` builds the
+    test-scale geometry with the :class:`TinyTokenizer`. The module is
+    built on the ``meta`` device; call :func:`init_or_load_params` next."""
+    dtype = torch.bfloat16 if getattr(training_args, "bf16", True) \
+        else torch.float32
+
+    if tiny:
+        lm_cfg = tiny_lm(remat=training_args.gradient_checkpointing,
+                         scan_layers=getattr(model_args, "scan_layers",
+                                             False))
+        vit_cfg = tiny_vit()
+        vision_kind = "clip"
+        tokenizer, ids, num_added = _tiny_tokenizer_with_mm_tokens(
+            training_args.model_max_length)
+        orig_vocab = lm_cfg.vocab_size - num_added
+    else:
+        lm_cfg = config_from_name(
+            model_args.model_name_or_path,
+            model_max_length=training_args.model_max_length,
+            dtype=dtype, remat=training_args.gradient_checkpointing)
+        if getattr(model_args, "scan_layers", False):
+            lm_cfg = dataclasses.replace(lm_cfg, scan_layers=True)
+        vision_kind = vision_kind_from_name(model_args.vision_tower or "clip")
+        vit_cfg = default_vision_config(vision_kind, data_args.image_size,
+                                        dtype=dtype)
+        try:
+            tokenizer, ids, num_added = load_tokenizer(
+                model_args.model_name_or_path,
+                model_max_length=training_args.model_max_length)
+        except Exception as e:
+            # as JAX: any failure to load falls back to the TinyTokenizer
+            logger.warning("tokenizer %r did not load (%s: %s); using the "
+                           "TinyTokenizer", model_args.model_name_or_path,
+                           type(e).__name__, e)
+            tokenizer, ids, num_added = _tiny_tokenizer_with_mm_tokens(
+                training_args.model_max_length)
+        orig_vocab = lm_cfg.vocab_size
+        new_vocab = max(lm_cfg.vocab_size, len(tokenizer))
+        if num_added:
+            new_vocab = max(new_vocab, orig_vocab + num_added)
+        lm_cfg = dataclasses.replace(lm_cfg, vocab_size=new_vocab)
+
+    cfg = MMGPTConfig(
+        lm=lm_cfg, vit=vit_cfg,
+        projector=model_args.projector, conv_stride=model_args.conv_stride,
+        vision_kind=vision_kind,
+        select_layer=model_args.mm_vision_select_layer,
+        select_feature=model_args.mm_vision_select_feature,
+        use_im_start_end=model_args.mm_use_im_start_end,
+        image_patch_id=ids.image_patch, im_start_id=ids.im_start,
+        im_end_id=ids.im_end)
+
+    # the tower geometry goes back into the data arguments
+    data_args.num_patches = cfg.image_token_len
+    data_args.image_size = vit_cfg.image_size
+
+    with torch.device("meta"):
+        model = MMGPT(cfg)
+    trainable, row_mask = _freeze_masks(model_args, cfg, orig_vocab)
+    return ModelBundle(model=model, config=cfg, orig_vocab_size=orig_vocab,
+                       trainable_mask=trainable, embed_row_trainable=row_mask,
+                       tokenizer=tokenizer, special_ids=ids)
 
 
 def _freeze_masks(model_args, cfg: MMGPTConfig, orig_vocab: int):
@@ -70,3 +172,87 @@ def make_bundle(model: nn.Module, model_args,
                        orig_vocab_size=orig_vocab_size,
                        trainable_mask=trainable,
                        embed_row_trainable=row_mask)
+
+
+# flax's initializer for each leaf name of the ported modules
+_ONES = ("scale", "kernel_scale")
+_ZEROS = ("bias", "kernel_q8")
+_NORMAL_002 = ("embedding", "class_embedding", "position_embedding")
+_LECUN = ("kernel", "lm_head_kernel")
+
+
+def _flax_like(name: str, shape, dtype: torch.dtype, generator, device):
+    """A fresh leaf as flax initializes it: ones, zeros, N(0, 0.02), or
+    lecun_normal (a normal truncated at 2 std, std sqrt(1 / fan_in) /
+    0.8796, fan_in = every axis but the last)."""
+    leaf = name.rpartition(".")[2]
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if leaf in _ONES:
+        return out.fill_(1)
+    if leaf in _ZEROS:
+        return out.zero_()
+    if leaf in _NORMAL_002:
+        return out.normal_(0.0, 0.02, generator=generator)
+    if leaf in _LECUN:
+        std = math.sqrt(1.0 / (math.prod(shape) // shape[-1])) \
+            / 0.87962566103423978
+        return nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std,
+                                     generator=generator)
+    raise ValueError(f"no flax initializer known for {name!r}")
+
+
+@torch.no_grad()
+def init_or_load_params(bundle: ModelBundle, *,
+                        generator: Optional[torch.Generator] = None,
+                        lm_checkpoint: Optional[str] = None,
+                        vision_checkpoint: Optional[str] = None,
+                        composite_checkpoint: Optional[str] = None,
+                        device: Union[str, torch.device] = "cuda"
+                        ) -> Dict[str, torch.Tensor]:
+    """Materialize the bundle's parameters on ``device`` and return its
+    ``state_dict`` (also kept as ``bundle.params``).
+
+    Every leaf takes the flax tree's dtype (f32; int8 for ``kernel_q8``) and
+    initializer, drawn leaf by leaf in ``named_parameters`` order from
+    ``generator`` (on ``device``; seed 0 if None), so the peak is the model
+    plus one leaf. Checkpoints are refused until the converters are ported
+    (ROADMAP §A item 4)."""
+    if lm_checkpoint or vision_checkpoint or composite_checkpoint:
+        raise NotImplementedError(
+            "loading checkpoints needs the converters, which are not ported "
+            "yet (ROADMAP §A item 4)")
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    model = bundle.model
+    for name, param in list(model.named_parameters()):
+        owner = model.get_submodule(name.rpartition(".")[0])
+        dtype = torch.int8 if name.endswith("kernel_q8") else torch.float32
+        fresh = _flax_like(name, param.shape, dtype, generator, device)
+        setattr(owner, name.rpartition(".")[2],
+                nn.Parameter(fresh, requires_grad=param.requires_grad))
+    bundle.params = model.state_dict()
+    return bundle.params
+
+
+@torch.no_grad()
+def quantize_bundle_lm_int8(bundle: ModelBundle) -> ModelBundle:
+    """Serving-time weight-only quantization of the LM half of a bundle.
+
+    Returns a NEW bundle whose model has ``weight_dtype='int8'`` on the
+    decoder: its kernels become int8 with per-output-channel scales, made
+    on their device. The vision tower and the projector stay as they are
+    and share their tensors with the input bundle (trap C12). Needs
+    materialized parameters."""
+    from merlin_tpu_torch.models.convert import quantize_decoder_params_int8
+
+    if bundle.params is None:
+        raise ValueError("load params before quantizing")
+    cfg = dataclasses.replace(bundle.config, lm=dataclasses.replace(
+        bundle.config.lm, weight_dtype="int8"))
+    with torch.device("meta"):
+        model = MMGPT(cfg)
+    model.load_state_dict(quantize_decoder_params_int8(
+        bundle.model.state_dict(), prefix="lm."), strict=True, assign=True)
+    return dataclasses.replace(bundle, model=model, config=cfg,
+                               params=model.state_dict())

@@ -19,8 +19,12 @@ import pytest
 import torch
 
 import merlin_tpu_torch
+from merlin_tpu_torch.eval.runner import EvalModel
+from merlin_tpu_torch.generate.beam import BeamSearch
 from merlin_tpu_torch.generate.decode import Generator
+from merlin_tpu_torch.generate.speculative import SpeculativeGenerator
 from merlin_tpu_torch.models.bridge import init_params
+from merlin_tpu_torch.models.builder import init_or_load_params
 from merlin_tpu_torch.models.decoder import CausalLM, init_kv_cache
 from merlin_tpu_torch.models.families import tiny
 from merlin_tpu_torch.ops import _build
@@ -29,6 +33,7 @@ from merlin_tpu_torch.ops import flash_attention as fa
 from merlin_tpu_torch.ops import onepass_attention as oa
 from merlin_tpu_torch.ops import paged_attention as pa
 from merlin_tpu_torch.ops.image_ops import preprocess_images
+from merlin_tpu_torch.serve import worker as serve_worker
 from merlin_tpu_torch.serve.engine import ServingEngine
 from merlin_tpu_torch.train.trainer import Trainer
 
@@ -59,7 +64,12 @@ def test_port_imports_nothing_of_jax(path):
 
 @pytest.mark.parametrize("fn", [init_params, init_kv_cache,
                                 preprocess_images, Generator.__init__,
-                                ServingEngine.__init__, Trainer.__init__],
+                                ServingEngine.__init__, Trainer.__init__,
+                                serve_worker.ModelWorker.__init__,
+                                serve_worker.serve, EvalModel.__init__,
+                                BeamSearch.__init__,
+                                SpeculativeGenerator.__init__,
+                                init_or_load_params],
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
