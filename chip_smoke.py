@@ -86,6 +86,29 @@ the LM quantized to int8) and of Baichuan-13B:
                   = 32 x the engine's calls of each kind, 0 elsewhere.
                   Prints TTFT and tok/s per request (host clock at the
                   client);
+  K. checkpoints - K1: a composite checkpoint at full width, made by HF
+                  modules on the card (``LlamaForCausalLM`` at Vicuna-7B's
+                  widths, all 32 layers; ``CLIPVisionModel`` ViT-L/14-448;
+                  conv projector weights) and written as sharded bf16
+                  safetensors with an index in a temporary directory, is
+                  loaded as the worker loads ``--pretrain_model``
+                  (``parse_args``, ``build_model_tokenizer``,
+                  ``init_or_load_params``): every leaf must equal the f32
+                  of HF's tensor under the relayout; the no-cache logits
+                  (B2) must hold against HF's forward on 512 ids, and the
+                  same with every o_proj loaded without its head relayout
+                  must not; the tower's features (B1) against HF's
+                  hidden_states[-2]; one text and one 1-image request
+                  through an engine worker, each token held against a
+                  no-cache forward. K2: the other towers at full width and
+                  depth, random bf16 weights: MetaCLIP ViT-H/14-448 (B1 at
+                  d = 80) against HF ``CLIPVisionModel``, Qwen-VL
+                  ViT-bigG-448 (B1 at d = 104) against itself on
+                  ``mha_reference`` and its resampler's (1, 256, 4096), SAM
+                  ViT-B/16-1024 (no kernel) against HF
+                  ``SamVisionEncoder``; one MMGPT forward per new tower kind
+                  with its projector and a 2-layer Vicuna-7B; B1 timed at
+                  d = 80 and 104 against SDPA, and each tower's encode;
   7. backward   - the training kernels against their plain versions on the
                   card, each fed its forward kernel's out and LSE as on the
                   path: B2 then the fused backward (B10 dq + B11 dk, dv in
@@ -122,8 +145,8 @@ the LM quantized to int8) and of Baichuan-13B:
                   new-token embedding rows (2 steps): the LM stays
                   bit-identical but those rows, the tower and projector move.
 
-Prints the serving, front-end and training readings and the kernel table
-as JSON lines before the last, and as the last
+Prints the serving, front-end, checkpoint and training readings and the
+kernel table as JSON lines before the last, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs a CUDA card; exits 2 without one.
 
@@ -2193,19 +2216,20 @@ def decoded_images(frames, size):
     return torch.from_numpy(arr).to("cuda")[None]
 
 
-def w_check_launches(tag, counts, calls, n_layers, tower_calls, q8):
+def w_check_launches(tag, counts, calls, n_layers, tower_calls, q8,
+                     reached=None):
     n = n_layers
     if q8:
         want = launches(B2=n * calls["prefill"], B7=n * calls["decode"],
                         B7w=n * calls["window_small"],
                         B8=n * calls["window_large"])
-        reached = {"B2", "B7", "B8"}
+        reached = reached or {"B2", "B7", "B8"}
     else:
         want = launches(B1=23 * tower_calls, B2=n * calls["prefill"],
                         B3=n * calls["decode"],
                         B5=n * calls["window_small"],
                         B6=n * calls["window_large"])
-        reached = {"B1", "B2", "B3", "B6"}
+        reached = reached or {"B1", "B2", "B3", "B6"}
     log(f"{tag} launches {counts}; model calls {dict(calls)}; tower "
         f"calls {tower_calls}")
     if counts != want or any((v > 0) != (k in reached)
@@ -2464,6 +2488,720 @@ def serve_front(rng, smi):
     del qbundle
     free_cuda()
     return {"W1": w1_counts, "W2": w2_counts}, {"W1": w1, "W2": w2}
+
+
+# ---------------------------------------------------------------------------
+# phase K: checkpoints and the other towers
+# ---------------------------------------------------------------------------
+
+K_SHARD_BYTES = 4 << 30      # safetensors shards of at most 4 GiB, as HF
+K_TEXT_IDS = 512
+K_VS_F32 = 1.5               # the port (bf16) against HF's forward in f32
+                             # on the same weights: its error, of the f32
+                             # output's max |value|, at most 1.5 times HF's
+                             # own bf16 forward's from the same f32 one ...
+K_MIN_TOL = 1e-2             # ... and never held tighter than 1%. A random
+                             # 32-layer Llama at HF's init (std 0.02) is
+                             # that sensitive to roundings: HF bf16 sat
+                             # 7.17e-2 from HF f32, the port 6.41e-2 (H100
+                             # 80GB HBM3, 700 W); every o_proj loaded
+                             # without its relayout 1.34
+K_TOWER_RTOL = 5e-2          # Qwen-bigG's features through B1 against the
+                             # same tower on mha_reference, both bf16, of
+                             # max |feature|
+K_WORDS = 120                # the K1 text request: a whole-prompt prefill
+
+
+def hf_to_official_sam(sd):
+    """HF ``SamVisionEncoder`` names -> SAM's official image-encoder names,
+    which ``sam_params_from_torch`` reads (as the JAX package's SAM test
+    maps them)."""
+    out = {}
+    for k, v in sd.items():
+        k = k.replace("neck.conv1", "neck.0").replace("neck.layer_norm1",
+                                                      "neck.1")
+        k = k.replace("neck.conv2", "neck.2").replace("neck.layer_norm2",
+                                                      "neck.3")
+        k = k.replace("layers.", "blocks.")
+        k = k.replace("patch_embed.projection", "patch_embed.proj")
+        k = k.replace("layer_norm1", "norm1").replace("layer_norm2", "norm2")
+        out[k] = v
+    return out
+
+
+def hf_on_card(build, seed):
+    """An HF model built from its config on the card with random weights
+    from ``seed``, in bf16, for inference. It is built with bf16 as the
+    default dtype, as ``from_pretrained(torch_dtype=torch.bfloat16)``
+    builds it: a ``.to(torch.bfloat16)`` afterwards would also round
+    Llama's rotary ``inv_freq`` buffer to bf16 and turn the angles of late
+    positions by up to a radian (seen: 62% of max |logit| at 512 ids)."""
+    torch.manual_seed(seed)
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.bfloat16)
+    try:
+        with torch.device("cuda"):
+            model = build()
+    finally:
+        torch.set_default_dtype(prev)
+    low = [n for n, b in model.named_buffers() if "inv_freq" in n
+           and b.dtype != torch.float32]
+    if low:
+        raise AssertionError(f"HF rotary buffers not in f32: {low}")
+    return model.eval()
+
+
+def write_composite(path, tensors):
+    """``tensors`` (name -> tensor on the card) as sharded bf16 safetensors
+    with a ``model.safetensors.index.json``, one shard in host memory at a
+    time. Returns (bytes written, seconds)."""
+    from safetensors.torch import save_file
+
+    t0 = time.perf_counter()
+    shards, size = [[]], 0
+    for name in tensors:
+        n = tensors[name].numel() * 2
+        if shards[-1] and size + n > K_SHARD_BYTES:
+            shards.append([])
+            size = 0
+        shards[-1].append(name)
+        size += n
+    weight_map, total = {}, 0
+    for i, names in enumerate(shards):
+        file = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        chunk = {k: tensors[k].to(torch.bfloat16).contiguous().cpu()
+                 for k in names}
+        save_file(chunk, os.path.join(path, file),
+                  metadata={"format": "pt"})
+        total += sum(t.numel() * 2 for t in chunk.values())
+        weight_map.update(dict.fromkeys(names, file))
+        del chunk
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    return total, time.perf_counter() - t0
+
+
+def expected_leaves(hf_lm, hf_tower, proj, lm_cfg, n_tower_layers):
+    """Every leaf the composite should load, name -> f32 tensor, written
+    out again here from the HF modules (not by the port's converters): the
+    decoder's (in, heads, d) / (heads, d, out) einsum layouts and (in, out)
+    kernels, the tower's HWIO patch kernel, and the conv projector's."""
+    h, d, e = lm_cfg.num_heads, lm_cfg.head_size, lm_cfg.hidden_size
+    hf = {k: v for k, v in hf_lm.state_dict().items()}
+    want = {"lm.embed_tokens.embedding": hf["model.embed_tokens.weight"],
+            "lm.final_norm.scale": hf["model.norm.weight"],
+            "lm.lm_head.kernel": hf["lm_head.weight"].T}
+    for i in range(lm_cfg.num_layers):
+        src, dst = f"model.layers.{i}.", f"lm.layers_{i}."
+        for m in ("q_proj", "k_proj", "v_proj"):
+            want[dst + f"attn.{m}.kernel"] = \
+                hf[src + f"self_attn.{m}.weight"].T.reshape(e, h, d)
+        want[dst + "attn.o_proj.kernel"] = \
+            hf[src + "self_attn.o_proj.weight"].T.reshape(h, d, e)
+        for m in ("gate_proj", "up_proj", "down_proj"):
+            want[dst + f"mlp.{m}.kernel"] = hf[src + f"mlp.{m}.weight"].T
+        want[dst + "input_norm.scale"] = hf[src + "input_layernorm.weight"]
+        want[dst + "post_attn_norm.scale"] = \
+            hf[src + "post_attention_layernorm.weight"]
+    vm = hf_tower.vision_model
+    tc = hf_tower.config
+    th, td = tc.num_attention_heads, tc.hidden_size // tc.num_attention_heads
+    want["vision_tower.vit.class_embedding"] = vm.embeddings.class_embedding
+    want["vision_tower.vit.position_embedding"] = \
+        vm.embeddings.position_embedding.weight
+    want["vision_tower.vit.patch_embed.kernel"] = \
+        vm.embeddings.patch_embedding.weight.permute(2, 3, 1, 0)
+    want["vision_tower.vit.pre_norm.scale"] = vm.pre_layrnorm.weight
+    want["vision_tower.vit.pre_norm.bias"] = vm.pre_layrnorm.bias
+    for i in range(n_tower_layers):
+        layer, dst = vm.encoder.layers[i], f"vision_tower.vit.layers_{i}."
+        at = layer.self_attn
+        for m in ("q_proj", "k_proj", "v_proj"):
+            lin = getattr(at, m)
+            want[dst + f"{m}.kernel"] = lin.weight.T.reshape(
+                tc.hidden_size, th, td)
+            want[dst + f"{m}.bias"] = lin.bias.reshape(th, td)
+        want[dst + "o_proj.kernel"] = at.out_proj.weight.T.reshape(
+            th, td, tc.hidden_size)
+        want[dst + "o_proj.bias"] = at.out_proj.bias
+        for m in ("fc1", "fc2"):
+            want[dst + f"mlp.{m}.kernel"] = getattr(layer.mlp, m).weight.T
+            want[dst + f"mlp.{m}.bias"] = getattr(layer.mlp, m).bias
+        for m, src in (("norm1", layer.layer_norm1),
+                       ("norm2", layer.layer_norm2)):
+            want[dst + f"{m}.scale"] = src.weight
+            want[dst + f"{m}.bias"] = src.bias
+    want["projector.conv.kernel"] = proj["conv.weight"].permute(2, 3, 1, 0)
+    want["projector.conv.bias"] = proj["conv.bias"]
+    return want
+
+
+def against_hf(tag, ours, hf_bf16, hf_f32, planted=None):
+    """The port's output against HF's f32 forward on the same weights, its
+    error held to ``K_VS_F32`` times HF's own bf16 forward's (at least
+    ``K_MIN_TOL``), each of the f32 output's max |value|; a planted fault's
+    output must exceed that bound."""
+    scale = hf_f32.float().abs().max()
+
+    def gap(x):
+        return ((x.float() - hf_f32.float()).abs().max() / scale).item()
+
+    read = dict(err=gap(ours), hf_bf16_err=gap(hf_bf16),
+                vs_hf_bf16=((ours.float() - hf_bf16.float()).abs().max()
+                            / scale).item(), max_abs=scale.item())
+    read["tol"] = max(K_VS_F32 * read["hf_bf16_err"], K_MIN_TOL)
+    text = (f"{tag}: error {read['err']:.3e} of max |value| "
+            f"{read['max_abs']:.3e} from HF's f32 forward (HF's bf16 "
+            f"{read['hf_bf16_err']:.3e}; tol {read['tol']:.3e}); "
+            f"{read['vs_hf_bf16']:.3e} from HF's bf16")
+    if planted is not None:
+        read["planted"] = gap(planted)
+        text += (f"; planted fault (every o_proj without its head relayout)"
+                 f" {read['planted']:.3e}, must exceed the tol")
+    log(text)
+    return read
+
+
+def hf_features(hf, pixels, layer=-2, drop_cls=True):
+    """An HF CLIP tower's hidden_states[layer] (CLS dropped) in bf16 and
+    then in f32 (the tower is left in f32)."""
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        hf.to(dtype)
+        hs = hf(pixels.permute(0, 3, 1, 2).to(dtype),
+                output_hidden_states=True).hidden_states[layer]
+        out.append((hs[:, 1:] if drop_cls else hs).float())
+        del hs
+    return out
+
+
+def k_text_ids(rng, vocab):
+    ids = rng.integers(10, min(vocab, 32000), size=(1, K_TEXT_IDS))
+    ids[0, 0] = 1
+    return torch.from_numpy(ids).cuda()
+
+
+def k1_composite(rng, smi):
+    """K1: a Vicuna-7B (all 32 layers) + CLIP ViT-L/14-448 + conv projector
+    composite, made by HF modules on the card and saved as sharded bf16
+    safetensors, loaded as the worker loads ``--pretrain_model``; every leaf
+    exact, logits and tower features against HF, a planted relayout fault,
+    and one text and one image request through an engine worker."""
+    import shutil
+    import tempfile
+
+    from transformers import (CLIPVisionConfig, CLIPVisionModel,
+                              LlamaConfig, LlamaForCausalLM)
+
+    from merlin_tpu_torch.models.builder import (
+        build_model_tokenizer, init_or_load_params)
+    from merlin_tpu_torch.ops.image_ops import preprocess_images
+    from merlin_tpu_torch.train.arguments import parse_args
+    from merlin_tpu_torch.utils.conversation import conv_templates
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="merlin_k1_")
+    try:
+        # the bundle the worker builds; its config sets the HF widths
+        margs, dargs, targs = parse_args(["--pretrain_model", tmp])
+        bundle = build_model_tokenizer(margs, dargs, targs)
+        lm_cfg, vit_cfg = bundle.config.lm, bundle.config.vit
+        if (lm_cfg.rope_theta, lm_cfg.rope_linear_scale) != (10000.0, 1.0):
+            raise AssertionError("K1: not HF Llama's default RoPE")
+        t0 = time.perf_counter()
+        hf_lm = hf_on_card(lambda: LlamaForCausalLM(LlamaConfig(
+            vocab_size=lm_cfg.vocab_size, hidden_size=lm_cfg.hidden_size,
+            intermediate_size=lm_cfg.intermediate_size,
+            num_hidden_layers=lm_cfg.num_layers,
+            num_attention_heads=lm_cfg.num_heads,
+            num_key_value_heads=lm_cfg.kv_heads,
+            max_position_embeddings=lm_cfg.max_position_embeddings,
+            rms_norm_eps=lm_cfg.norm_eps, tie_word_embeddings=False)),
+            seed=11)
+        hf_tower = hf_on_card(lambda: CLIPVisionModel(CLIPVisionConfig(
+            image_size=448, patch_size=14, hidden_size=1024,
+            intermediate_size=4096, num_hidden_layers=24,
+            num_attention_heads=16, hidden_act="quick_gelu")), seed=12)
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        proj = {"conv.weight": torch.randn(
+                    lm_cfg.hidden_size, vit_cfg.hidden_size, 3, 3,
+                    generator=gen, device="cuda").mul_(0.02).bfloat16(),
+                "conv.bias": torch.randn(lm_cfg.hidden_size, generator=gen,
+                                         device="cuda").mul_(0.02).bfloat16()}
+        tensors = {k: v for k, v in hf_lm.state_dict().items()
+                   if v.is_floating_point()}
+        tensors.update({"model.vision_tower." + k.replace("vision_model.", "",
+                                                          1): v
+                        for k, v in hf_tower.state_dict().items()
+                        if v.is_floating_point()})
+        tensors.update({"model.projector." + k: v for k, v in proj.items()})
+        torch.cuda.synchronize()
+        out["hf_build_s"] = round(time.perf_counter() - t0, 2)
+        size, write_s = write_composite(tmp, tensors)
+        del tensors
+        out.update(checkpoint_gb=round(size / 1e9, 3),
+                   write_s=round(write_s, 2))
+        log(f"K1: composite of {len(os.listdir(tmp)) - 1} bf16 safetensors "
+            f"shards, {size / 1e9:.3f} GB, written in {write_s:.1f} s "
+            f"(HF modules built on the card in {out['hf_build_s']} s)")
+
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        init_or_load_params(bundle, composite_checkpoint=margs.pretrain_model,
+                            device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        model = bundle.model.eval()
+        model_bytes = nbytes(*model.parameters())
+        over = torch.cuda.max_memory_allocated() - base - model_bytes
+        out.update(load_s=round(load_s, 2),
+                   model_gb=round(model_bytes / 1e9, 3),
+                   load_peak_over_model_gb=round(over / 1e9, 3))
+        log(f"K1: parse_args(--pretrain_model) -> build_model_tokenizer -> "
+            f"init_or_load_params: {model_bytes / 1e9:.2f} GB of f32 leaves "
+            f"on the card in {load_s:.1f} s (card {smi}); the load's peak "
+            f"over the model {over / 1e9:.3f} GB")
+
+        # every leaf, exactly
+        want = expected_leaves(hf_lm, hf_tower, proj, lm_cfg,
+                               model.vision_tower.vit.n_layers)
+        got = bundle.params
+        exact = [n for n in got if n in want and torch.equal(
+            got[n], want[n].float())]
+        if sorted(want) != sorted(got) or len(exact) != len(got):
+            bad = sorted(set(got) - set(exact))[:6]
+            raise AssertionError(f"K1: {len(exact)} of {len(got)} leaves "
+                                 f"exact (first others {bad})")
+        out["leaves_exact"] = len(exact)
+        log(f"K1: all {len(exact)} leaves equal the f32 of HF's tensors "
+            f"under the relayout, none left at its random init")
+        del want, got, exact
+
+        # logits against HF (bf16, and f32 as the reference), and a
+        # planted relayout fault
+        ids = k_text_ids(rng, lm_cfg.vocab_size)
+        with torch.no_grad():
+            theirs = hf_lm(ids).logits.float()
+            reset_counts()
+            ours, _ = model.lm(ids)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            hf_lm.float()
+            exact = hf_lm(ids).logits.float()
+        if counts != launches(B2=lm_cfg.num_layers):
+            raise AssertionError(f"K1 logits: launches {counts}")
+        h, d, e = lm_cfg.num_heads, lm_cfg.head_size, lm_cfg.hidden_size
+        loaded = [getattr(model.lm, f"layers_{i}").attn.o_proj.kernel.data
+                  for i in range(lm_cfg.num_layers)]
+        for i in range(lm_cfg.num_layers):
+            w = hf_lm.model.layers[i].self_attn.o_proj.weight
+            # the relayout skipped: HF's (out, in) read as (in, out)
+            getattr(model.lm, f"layers_{i}").attn.o_proj.kernel.data = \
+                w.float().reshape(h, d, e)
+        with torch.no_grad():
+            bad, _ = model.lm(ids)
+        for i, k in enumerate(loaded):
+            getattr(model.lm, f"layers_{i}").attn.o_proj.kernel.data = k
+        del loaded
+        read = against_hf(f"K1 logits, port no-cache (B2) vs HF "
+                          f"LlamaForCausalLM, {K_TEXT_IDS} ids", ours,
+                          theirs, exact, planted=bad)
+        out["logits"] = read
+        if not read["err"] <= read["tol"] < read["planted"]:
+            raise AssertionError(f"K1 logits: {read}")
+        del theirs, ours, bad, exact
+
+        # the tower's features against HF's hidden_states[-2], CLS dropped
+        frames = rng.integers(0, 256, size=(2, 480, 640, 3), dtype=np.uint8)
+        pixels = preprocess_images(frames, image_size=448, device="cuda")
+        with torch.no_grad():
+            reset_counts()
+            feats = model.vision_tower(pixels)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            theirs, exact = hf_features(hf_tower, pixels)
+        read = against_hf("K1 tower (B1, d = 64) vs HF CLIPVisionModel "
+                          "hidden_states[-2][:, 1:], 2 frames", feats,
+                          theirs, exact)
+        out["tower"] = read
+        log(f"K1 tower launches {counts}")
+        if not read["err"] <= read["tol"] or counts != launches(B1=23):
+            raise AssertionError(f"K1 tower: {read} {counts}")
+        del hf_lm, hf_tower, feats, theirs, exact
+        free_cuda()
+
+        # one text and one 1-image request through an engine worker
+        conv = conv_templates["v1"].copy()
+        conv.append_message(conv.roles[0], W_QUESTION)
+        conv.append_message(conv.roles[1], None)
+        fillers = prime_tokenizer(bundle.tokenizer, lm_cfg.vocab_size,
+                                  [conv.get_prompt()])
+        out["requests"], out["counts"] = k1_requests(bundle, rng, fillers,
+                                                     frames, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def k1_requests(bundle, rng, fillers, frames, smi):
+    from merlin_tpu_torch.utils import constants as C
+
+    tok, model = bundle.tokenizer, bundle.model
+    ctrl, workers, servers = start_stack(bundle, [("merlin-ckpt", W_ENGINE)])
+    records, handler = w_worker_log()
+    calls = collections.Counter()
+    encoded = [0, 0]
+    hooks = engine_counter(workers["merlin-ckpt"], calls) \
+        + tower_counter(model, encoded)
+    base = dict(model="merlin-ckpt", temperature=0.0,
+                max_new_tokens=W_MAX_NEW, stop="</s>")
+    text = w_prompts(rng, fillers, (K_WORDS,))[0]
+    one = w_image_prompt(1)
+    torch.cuda.synchronize()
+    reset_counts()
+    results = [w_request(ctrl, dict(base, prompt=text)),
+               w_request(ctrl, dict(base, prompt=one,
+                                    images=[png_b64(frames[0])]))]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for hk in hooks:
+        hk.remove()
+    stop_stack(servers, workers)
+    import logging
+    logging.getLogger("merlin_tpu_torch.worker").removeHandler(handler)
+    if any("failed" in r for r in records):
+        raise AssertionError(f"K1: a worker logged a failure: {records}")
+    w_check_launches("K1", counts, calls, bundle.config.lm.num_layers,
+                     encoded[0], q8=False, reached={"B1", "B2", "B3"})
+    if encoded != [1, 1]:
+        raise AssertionError(f"K1: tower calls {encoded}")
+    readings = {}
+    placeholder = C.image_placeholder(bundle.config.image_token_len)
+    for name, prompt, images, (chunks, stamps) in (
+            ("text", text, None, results[0]),
+            ("1 image", one.replace("<image>", placeholder),
+             decoded_images(frames[:1], bundle.config.vit.image_size),
+             results[1])):
+        readings[name] = w_readings(f"K1 {name}", chunks, stamps, smi)
+        ids = tok(prompt)["input_ids"][0]
+        gap, seq = hold_answer(f"K1 {name}", model, tok, ids, images,
+                               chunks[-1]["text"], len(chunks), GEN_RTOL)
+        readings[name].update(prompt_tokens=len(ids), tokens=len(seq),
+                              max_gap=gap)
+    gaps = ", ".join(f"{r['max_gap']:.2e}" for r in readings.values())
+    log(f"K1 answers vs a no-cache forward: largest gaps {gaps} of max "
+        f"|logit| (tol {GEN_RTOL})")
+    return readings, counts
+
+
+def load_tree(module, tree):
+    """Assign a converter's tree to ``module`` (built on ``meta``): every
+    parameter must come from it; layers the tower does not build may be
+    left over."""
+    from merlin_tpu_torch.models.convert import flat_state_dict
+
+    import re
+
+    flat = flat_state_dict(tree)
+    result = module.load_state_dict(flat, strict=False, assign=True)
+    extra = [k for k in result.unexpected_keys
+             if not re.match(r"(.*\.)?layers_\d+\.", k)]
+    if result.missing_keys or extra:
+        raise AssertionError(f"load_tree: missing {result.missing_keys[:4]}"
+                             f", unexpected {extra[:4]}")
+    return module.eval()
+
+
+def tower_time(tag, fn, smi):
+    """One warm call of ``fn`` (a tower's encode): the card's busy time, its
+    kernels' and copies' time summed under ``torch.profiler`` (one stream,
+    so they do not overlap), and the host-clock time of an unprofiled
+    call. A tower issues tens of small ops a layer, so the host may set the
+    wall time; the idle share says how far."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    busy = sum(ev.self_device_time_total for ev in rows) / 1e3
+    n = sum(ev.count for ev in rows)
+    if busy <= 0:
+        raise AssertionError(f"{tag}: the trace holds no device time")
+    log(f"K2 {tag}: card busy {busy:.3f} ms in {n} kernels and copies, "
+        f"wall {wall:.3f} ms (host clock), idle share {1 - busy / wall:.3f}"
+        f" (card {smi})")
+    return dict(busy_ms=busy, wall_ms=wall, device_launches=n,
+                idle_share=1 - busy / wall)
+
+
+def feature_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def b1_at(gen, shape):
+    """B1's time at a tower's shape, against SDPA (as ``check_b1``), with
+    its bound and the plain version's time."""
+    from merlin_tpu_torch.ops.onepass_attention import (
+        onepass_attention, onepass_attention_plain)
+
+    q, k, v = (layer_normed(shape, gen) for _ in range(3))
+    out = onepass_attention(q, k, v)
+    b, s, h, d = shape
+    lib_for, qkv = sdpa_fwd(q, k, v)
+    p = vs_sdpa(lambda: onepass_attention(q, k, v), lib_for, *qkv)
+    plain = time_ms(lambda: onepass_attention_plain(q, k, v), iters=5)
+    bms, by = bound_ms(4.0 * b * h * s * s * d, nbytes(q, k, v, out))
+    log(f"B1 {shape} bf16: " + sdpa_text(p) + f", plain {plain:.4f} ms, "
+        f"bound {bms:.4f} ms ({by})")
+    return dict(shape=list(shape), plain_ms=plain, bound_ms=bms,
+                bound_by=by, **sdpa_fields(p))
+
+
+def k2_towers(rng, gen, smi):
+    """K2: MetaCLIP ViT-H/14-448 and SAM ViT-B/16-1024 against HF, Qwen-VL
+    ViT-bigG-448 through B1 at d = 104 against its own plain attention,
+    the resampler's shape, one MMGPT forward per new tower kind with a
+    2-layer Vicuna-7B, and B1 timed at d = 80 and 104."""
+    from transformers import (CLIPVisionConfig, CLIPVisionModel,
+                              SamVisionConfig)
+    from transformers.models.sam.modeling_sam import SamVisionEncoder
+
+    from merlin_tpu_torch.models import vit as vit_mod
+    from merlin_tpu_torch.models.projectors import (
+        Resampler, default_resampler_heads, resampler_params_from_torch)
+    from merlin_tpu_torch.models.sam_vit import (
+        SAMViTConfig, sam_params_from_torch)
+    from merlin_tpu_torch.models.vision_builder import build_vision_tower
+    from merlin_tpu_torch.ops.attention import mha_reference
+    from merlin_tpu_torch.ops.image_ops import preprocess_images
+
+    out = {"encode": {}, "launches": {}}
+    frames = rng.integers(0, 256, size=(1, 480, 640, 3), dtype=np.uint8)
+    px448 = preprocess_images(frames, image_size=448, device="cuda")
+
+    # MetaCLIP ViT-H/14-448 against HF's CLIPVisionModel (B1, d = 80)
+    mcfg = vit_mod.metaclip_vit_h14(448)
+    hf = hf_on_card(lambda: CLIPVisionModel(CLIPVisionConfig(
+        image_size=448, patch_size=14, hidden_size=1280,
+        intermediate_size=5120, num_hidden_layers=32,
+        num_attention_heads=16, hidden_act="gelu")), seed=21)
+    with torch.device("meta"):
+        tower = build_vision_tower("metaclip", mcfg)
+    load_tree(tower.vit, vit_mod.vit_params_from_hf(hf.state_dict(), mcfg))
+    with torch.no_grad():
+        reset_counts()
+        ours = tower(px448)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out["encode"]["metaclip_h14_448"] = tower_time(
+            "MetaCLIP ViT-H/14-448 encode, 1 frame", lambda: tower(px448),
+            smi)
+        theirs, exact = hf_features(hf, px448)
+    read = out["metaclip"] = against_hf(
+        "K2 MetaCLIP ViT-H/14-448 (B1, d = 80) vs HF CLIPVisionModel "
+        "hidden_states[-2][:, 1:]", ours, theirs, exact)
+    out["launches"]["metaclip"] = counts["B1"]
+    log(f"K2 MetaCLIP launches {counts}")
+    if not read["err"] <= read["tol"] or counts != launches(B1=31):
+        raise AssertionError(f"K2 MetaCLIP: {read} {counts}")
+    del hf, tower, ours, theirs, exact
+    free_cuda()
+
+    # Qwen-VL ViT-bigG-448 + the qwen_sampler resampler, from a state dict
+    # in the reference's layout (no HF class holds this tower)
+    qcfg = vit_mod.qwen_vit_bigG(448, pos_embed="learned")
+    w, nl, inter = qcfg.hidden_size, qcfg.num_layers, qcfg.intermediate_size
+
+    def r(*shape, std=0.02):
+        return torch.randn(shape, generator=gen, device="cuda").mul_(
+            std).bfloat16()
+
+    sd = {"conv1.weight": r(w, 3, 14, 14), "positional_embedding": r(256, w),
+          "ln_pre.weight": 1 + r(w), "ln_pre.bias": r(w)}
+    for i in range(nl):
+        lb = f"transformer.resblocks.{i}."
+        sd.update({lb + "ln_1.weight": 1 + r(w), lb + "ln_1.bias": r(w),
+                   lb + "ln_2.weight": 1 + r(w), lb + "ln_2.bias": r(w),
+                   # interleaved per head: rows [q_n | k_n | v_n]
+                   lb + "attn.in_proj.weight": r(3 * w, w),
+                   lb + "attn.in_proj.bias": r(3 * w),
+                   lb + "attn.out_proj.weight": r(w, w),
+                   lb + "attn.out_proj.bias": r(w),
+                   lb + "mlp.c_fc.weight": r(inter, w),
+                   lb + "mlp.c_fc.bias": r(inter),
+                   lb + "mlp.c_proj.weight": r(w, inter),
+                   lb + "mlp.c_proj.bias": r(w)})
+    lm_width = 4096
+    pool = {"attn_pool.query": r(256, w), "attn_pool.pos_embed": r(256, w),
+            "attn_pool.kv_proj.weight": r(w, w),
+            "attn_pool.ln_q.weight": 1 + r(w), "attn_pool.ln_q.bias": r(w),
+            "attn_pool.ln_kv.weight": 1 + r(w), "attn_pool.ln_kv.bias": r(w),
+            "attn_pool.attn.in_proj_weight": r(3 * w, w),
+            "attn_pool.attn.in_proj_bias": r(3 * w),
+            "attn_pool.attn.out_proj.weight": r(w, w),
+            "attn_pool.attn.out_proj.bias": r(w),
+            "ln_post.weight": 1 + r(w), "ln_post.bias": r(w),
+            "proj": r(w, lm_width)}
+    with torch.device("meta"):
+        tower = build_vision_tower("qwen", qcfg)
+    load_tree(tower.vit, vit_mod.qwen_vit_params_from_torch(sd, qcfg))
+    del sd
+    heads = default_resampler_heads(w)
+    with torch.device("meta"):
+        resampler = Resampler(w, lm_width, embed_dim=w, num_heads=heads)
+    load_tree(resampler, resampler_params_from_torch(pool, dim=w,
+                                                     num_heads=heads))
+    with torch.no_grad():
+        reset_counts()
+        ours = tower(px448)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        tokens = resampler(ours)
+        shared = vit_mod.shared_attention
+        vit_mod.shared_attention = lambda q, k, v, causal: mha_reference(
+            q, k, v, causal=causal)
+        try:
+            plain = tower(px448)
+        finally:
+            vit_mod.shared_attention = shared
+        err = feature_err(ours, plain)
+        out["encode"]["qwen_bigG_448"] = tower_time(
+            "Qwen-VL ViT-bigG-448 encode, 1 frame", lambda: tower(px448),
+            smi)
+        out["encode"]["qwen_sampler"] = tower_time(
+            "qwen_sampler resampler, 1 frame", lambda: resampler(ours), smi)
+    out["qwen_err"] = err
+    out["launches"]["qwen"] = counts["B1"]
+    shape_ok = tuple(tokens.shape) == (1, 256, lm_width) and bool(
+        torch.isfinite(tokens.float()).all())
+    log(f"K2 Qwen-VL ViT-bigG-448 (B1, d = 104, s = 1024) vs the same tower "
+        f"on mha_reference: error {err:.3e} of max |feature| (tol "
+        f"{K_TOWER_RTOL}), launches {counts}; qwen_sampler ({heads} heads) "
+        f"-> {tuple(tokens.shape)}, finite {shape_ok}")
+    if not err <= K_TOWER_RTOL or counts != launches(B1=nl) or not shape_ok:
+        raise AssertionError(f"K2 Qwen: {err} {counts} {tokens.shape}")
+    del tower, resampler, ours, plain, tokens, pool
+    free_cuda()
+
+    # SAM ViT-B/16-1024 against HF's SamVisionEncoder (no kernel)
+    hf = hf_on_card(lambda: SamVisionEncoder(SamVisionConfig()), seed=31)
+    with torch.no_grad():
+        # every weight drawn here from the seed, whatever HF's init gives
+        # (transformers 5.5.0's left the output at ~1e-12): N(0, 0.02),
+        # norm scales 1 + N(0, 0.02); the position table too, which HF
+        # starts at 0. The relative tables stay 0: where they are not,
+        # JAX's W bias, which the port keeps, departs from SAM's (C28)
+        for name, p in hf.named_parameters():
+            if "rel_pos" in name:
+                p.zero_()
+            else:
+                p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                        * 0.02 + ("layer_norm" in name
+                                  and name.endswith("weight")))
+    scfg = SAMViTConfig()
+    with torch.device("meta"):
+        tower = build_vision_tower("sam", scfg)
+    load_tree(tower, sam_params_from_torch(
+        hf_to_official_sam(hf.state_dict()), scfg))
+    px1024 = preprocess_images(frames, image_size=1024, device="cuda")
+    with torch.no_grad():
+        reset_counts()
+        ours = tower(px1024)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out["encode"]["sam_b16_1024"] = tower_time(
+            "SAM ViT-B/16-1024 encode, 1 frame", lambda: tower(px1024), smi)
+        hf_out = []
+        for dtype in (torch.bfloat16, torch.float32):
+            hf.to(dtype)
+            last = hf(px1024.permute(0, 3, 1, 2).to(dtype)).last_hidden_state
+            hf_out.append(last.permute(0, 2, 3, 1).reshape(
+                1, -1, scfg.out_chans).float())
+    read = out["sam"] = against_hf(
+        "K2 SAM ViT-B/16-1024 (no kernel) vs HF SamVisionEncoder "
+        "last_hidden_state", ours, *hf_out)
+    log(f"K2 SAM launches {counts}")
+    if not read["err"] <= read["tol"] or counts != launches():
+        raise AssertionError(f"K2 SAM: {read} {counts}")
+    del hf, tower, ours, hf_out
+    free_cuda()
+
+    out["mmgpt"] = k2_mmgpt(rng, mcfg, scfg, smi)
+    free_cuda()
+    out["b1"] = {"d80": b1_at(gen, (1, 1025, 16, 80)),
+                 "d104": b1_at(gen, (1, 1024, 16, 104))}
+    return out
+
+
+def k2_mmgpt(rng, mcfg, scfg, smi):
+    """One MMGPT forward per new tower kind with its projector and Vicuna-7B
+    cut to 2 layers, random bf16 weights: B1 = the layers the tower runs,
+    B2 = 2 (one no-cache LM call)."""
+    from merlin_tpu_torch.models.bridge import init_params
+    from merlin_tpu_torch.models.families import vicuna_7b
+    from merlin_tpu_torch.models.mmgpt import MMGPT, MMGPTConfig
+    from merlin_tpu_torch.models.vit import qwen_vit_bigG
+    from merlin_tpu_torch.ops.image_ops import preprocess_images
+
+    lm = dataclasses.replace(vicuna_7b(), vocab_size=32128, num_layers=2)
+    out = {}
+    for kind, vit, proj, b1 in (("metaclip", mcfg, "conv", 31),
+                                ("qwen", qwen_vit_bigG(448), "qwen_sampler",
+                                 48),
+                                ("sam", scfg, "sam", 0)):
+        cfg = MMGPTConfig(lm=lm, vit=vit, projector=proj, vision_kind=kind,
+                          image_patch_id=PATCH_ID, im_start_id=START_ID,
+                          im_end_id=END_ID)
+        with torch.device("meta"):
+            model = MMGPT(cfg)
+        init_params(model, torch.Generator(device="cuda").manual_seed(41),
+                    dtype=torch.bfloat16, device="cuda")
+        model.eval()
+        size = getattr(vit, "image_size", None) or vit.img_size
+        frames = rng.integers(0, 256, size=(1, 480, 640, 3), dtype=np.uint8)
+        images = preprocess_images(frames, image_size=size, device="cuda")
+        ids = torch.from_numpy(prompt(rng, 200, 1, cfg.image_token_len)
+                               ).cuda()[None]
+        with torch.no_grad():
+            reset_counts()
+            logits, _ = model(ids, images=images[:, None])
+            torch.cuda.synchronize()
+            counts = read_counts()
+        ok = (tuple(logits.shape) == (1, ids.shape[1], lm.vocab_size)
+              and bool(torch.isfinite(logits.float()).all()))
+        log(f"K2 MMGPT {kind} + {proj} + Vicuna-7B (2 layers): logits "
+            f"{tuple(logits.shape)}, {cfg.image_token_len} image tokens, "
+            f"finite {ok}, launches {counts}")
+        if not ok or counts != launches(B1=b1, B2=2):
+            raise AssertionError(f"K2 MMGPT {kind}: {ok} {counts}")
+        out[kind] = dict(launches=counts, image_tokens=cfg.image_token_len)
+        del model, logits
+        free_cuda()
+    return out
+
+
+def checkpoints_and_towers(rng, gen, smi):
+    """Phase K: K1 then K2, the card freed between them."""
+    k1 = k1_composite(rng, smi)
+    free_cuda()
+    k2 = k2_towers(rng, gen, smi)
+    free_cuda()
+    return k1, k2
 
 
 # ---------------------------------------------------------------------------
@@ -2944,6 +3682,8 @@ def main() -> int:
     served.update(serve_baichuan(rng))
     free_cuda()                       # the W phase builds its own model
     worker_counts, front = serve_front(np.random.default_rng(9), smi)
+    free_cuda()
+    k1, k2 = checkpoints_and_towers(np.random.default_rng(10), gen, smi)
     free_cuda()                       # training starts from an empty card
     trained = check_flash_bwd(gen, b2)
     trained.update(check_onepass_train(gen))
@@ -2957,6 +3697,13 @@ def main() -> int:
     free_cuda()
     b1["launches"], b2["launches"] = fwd_counts["B1"], fwd_counts["B2"]
     b1["launches_generation"] = g["counts"]["B1"]
+    # B1 inside the new towers (phase K2): launches of one encode, and its
+    # times at their shapes
+    b1["towers"] = {
+        "metaclip_h14_448 (d = 80)": dict(launches=k2["launches"]["metaclip"],
+                                          **k2["b1"]["d80"]),
+        "qwen_bigG_448 (d = 104)": dict(launches=k2["launches"]["qwen"],
+                                        **k2["b1"]["d104"])}
     b2["launches_generation"] = g["counts"]["B2"]
     # a paged kernel's launches come from the engine run of its path; B9
     # is on no path (the decoder's int8 token step calls B7 at s_q = 1,
@@ -2986,8 +3733,13 @@ def main() -> int:
         row["launches_training_frozen_lm"] = t2["counts"][key]
         row["launches_worker"] = {w: worker_counts[w][key]
                                   for w in worker_counts}
+        row["launches_checkpoint"] = k1["counts"][key]
     log(json.dumps({"serving": {e: served[e][1] for e in served}}))
     log(json.dumps({"front_end": front, "card": smi}))
+    log(json.dumps({"checkpoint": {k: v for k, v in k1.items()
+                                   if k != "counts"},
+                    "towers": {k: v for k, v in k2.items() if k != "b1"},
+                    "card": smi}))
     log(json.dumps({"training": {
         "T0": t0_reading, "C13": c13,
         "T1": {k: v for k, v in t1.items() if k != "counts"},

@@ -10,9 +10,13 @@
     rows may move while a frozen LM keeps the rest of its table
     (``builder.py:129-160``); :func:`make_bundle` applies it to a module
     built elsewhere.
-  * :func:`init_or_load_params`: random parameters on the device with the
-    flax tree's names, shapes, dtypes and initializers. Loading checkpoints
-    waits for the converters (ROADMAP §A item 4).
+  * :func:`init_or_load_params`: the parameters on the device, from
+    checkpoints (an HF LM, an HF CLIP tower, or a composite MMGPT save
+    with its tower and projector under ``model.vision_tower.`` and
+    ``model.projector.``) where given, else random with the flax tree's
+    names, shapes, dtypes and initializers. Two JAX behaviours are kept on
+    purpose: a composite's tower always goes through the CLIP converter
+    (trap C25), and ``family`` defaults to "llama" (trap C26).
   * :func:`quantize_bundle_lm_int8`: weight-only int8 for the LM subtree
     only (trap C12: CLIP's MLP shares the ``fc1``/``fc2`` names).
 """
@@ -28,14 +32,20 @@ import numpy as np
 import torch
 from torch import nn
 
+from merlin_tpu_torch.models.convert import (
+    decoder_params_from_hf, drop_prefixes, extract_by_prefix,
+    flat_state_dict, load_torch_state_dict)
 from merlin_tpu_torch.models.families import config_from_name, tiny as tiny_lm
 from merlin_tpu_torch.models.mmgpt import MMGPT, MMGPTConfig
+from merlin_tpu_torch.models.projectors import (
+    default_resampler_heads, resampler_params_from_torch, resampler_pos_init)
 from merlin_tpu_torch.models.vision_builder import (
     default_vision_config, vision_kind_from_name)
-from merlin_tpu_torch.models.vit import tiny_vit
+from merlin_tpu_torch.models.vit import tiny_vit, vit_params_from_hf
 from merlin_tpu_torch.utils import constants as C
 from merlin_tpu_torch.utils.tokenizer import (
-    MM_SPECIAL_TOKENS, SpecialIds, TinyTokenizer, load_tokenizer)
+    MM_SPECIAL_TOKENS, SpecialIds, TinyTokenizer, load_tokenizer,
+    resize_embeddings_mean_init)
 
 logger = logging.getLogger(__name__)
 
@@ -121,7 +131,8 @@ def build_model_tokenizer(model_args, data_args, training_args,
 
     # the tower geometry goes back into the data arguments
     data_args.num_patches = cfg.image_token_len
-    data_args.image_size = vit_cfg.image_size
+    data_args.image_size = getattr(vit_cfg, "image_size",
+                                   getattr(vit_cfg, "img_size", 448))
 
     with torch.device("meta"):
         model = MMGPT(cfg)
@@ -137,8 +148,11 @@ def _freeze_masks(model_args, cfg: MMGPTConfig, orig_vocab: int):
     A path is a parameter name split at '.', the flax path the port keeps
     (``vision_tower.vit.layers_3.q_proj.kernel``). The last ViT layer never
     trains; a frozen LM keeps only its new-token embedding rows trainable
-    when ``tune_im_start_end`` (base_mmgpt.py:78-97)."""
-    last_layer = f"layers_{cfg.vit.num_layers - 1}"
+    when ``tune_im_start_end`` (base_mmgpt.py:78-97). The SAM encoder has
+    no ``num_layers`` (JAX raises there, trap C27): it runs every block,
+    so none is held back."""
+    last_layer = (f"layers_{cfg.vit.num_layers - 1}"
+                  if hasattr(cfg.vit, "num_layers") else None)
 
     def trainable(path: Tuple[str, ...]) -> bool:
         if path[0] == "vision_tower":
@@ -176,15 +190,18 @@ def make_bundle(model: nn.Module, model_args,
 
 # flax's initializer for each leaf name of the ported modules
 _ONES = ("scale", "kernel_scale")
-_ZEROS = ("bias", "kernel_q8")
-_NORMAL_002 = ("embedding", "class_embedding", "position_embedding")
+_ZEROS = ("bias", "kernel_q8", "rel_pos_h", "rel_pos_w")
+_NORMAL_002 = ("embedding", "class_embedding", "position_embedding", "proj")
 _LECUN = ("kernel", "lm_head_kernel")
+_TRUNC_002 = ("query",)
 
 
 def _flax_like(name: str, shape, dtype: torch.dtype, generator, device):
-    """A fresh leaf as flax initializes it: ones, zeros, N(0, 0.02), or
+    """A fresh leaf as flax initializes it: ones, zeros, N(0, 0.02),
     lecun_normal (a normal truncated at 2 std, std sqrt(1 / fan_in) /
-    0.8796, fan_in = every axis but the last)."""
+    0.8796, fan_in = every axis but the last), truncated_normal(0.02) for
+    the resampler's queries, and ``pos_embed``: the resampler's sin-cos
+    table, SAM's zeros."""
     leaf = name.rpartition(".")[2]
     out = torch.empty(shape, dtype=dtype, device=device)
     if leaf in _ONES:
@@ -193,12 +210,65 @@ def _flax_like(name: str, shape, dtype: torch.dtype, generator, device):
         return out.zero_()
     if leaf in _NORMAL_002:
         return out.normal_(0.0, 0.02, generator=generator)
-    if leaf in _LECUN:
-        std = math.sqrt(1.0 / (math.prod(shape) // shape[-1])) \
+    if leaf in _LECUN or leaf in _TRUNC_002:
+        std = (0.02 if leaf in _TRUNC_002
+               else math.sqrt(1.0 / (math.prod(shape) // shape[-1]))) \
             / 0.87962566103423978
         return nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=generator)
+    if leaf == "pos_embed":
+        if len(shape) == 2:
+            return out.copy_(resampler_pos_init(*shape))
+        return out.zero_()
     raise ValueError(f"no flax initializer known for {name!r}")
+
+
+def _tower_tree(sd, cfg: MMGPTConfig) -> Dict[str, Any]:
+    """A tower's HF CLIP weights as the vision_tower subtree. JAX sends any
+    tower kind through the CLIP converter (``builder.py:206-207``, trap
+    C25), so a SAM tower fails here and a Qwen one needs CLIP's keys."""
+    return {"vit": vit_params_from_hf(sd, cfg.vit)}
+
+
+def _load_tree(bundle: ModelBundle, *, lm_checkpoint, vision_checkpoint,
+               composite_checkpoint, family: str, device
+               ) -> Dict[str, torch.Tensor]:
+    """The checkpoints' weights as ``state_dict`` entries on ``device``
+    (``merlin_tpu/models/builder.py:185-233``)."""
+    cfg = bundle.config
+    tree: Dict[str, Any] = {}
+    if composite_checkpoint:
+        sd = load_torch_state_dict(composite_checkpoint, device=device)
+        tree["lm"] = decoder_params_from_hf(
+            drop_prefixes(sd, ("model.vision_tower", "model.projector")),
+            cfg.lm, family=family)
+        tower_sd = extract_by_prefix(sd, "model.vision_tower.")
+        if tower_sd:
+            tree["vision_tower"] = _tower_tree(tower_sd, cfg)
+        proj_sd = extract_by_prefix(sd, "model.projector.")
+        if proj_sd:
+            tree["projector"] = _projector_params_from_torch(proj_sd, cfg)
+        return flat_state_dict(tree)
+    if lm_checkpoint:
+        sd = load_torch_state_dict(lm_checkpoint, device=device)
+        lm = decoder_params_from_hf(sd, cfg.lm, family=family)
+        v = cfg.lm.vocab_size
+        emb = lm["embed_tokens"]
+        emb["embedding"] = resize_embeddings_mean_init(emb["embedding"], v)
+        if not cfg.lm.tie_word_embeddings and "lm_head" in lm:
+            head = lm["lm_head"]
+            head["kernel"] = resize_embeddings_mean_init(head["kernel"].T,
+                                                         v).T
+        if "lm_head_kernel" in lm:
+            # NormHead (Baichuan2) keeps a bare (H, V) kernel: the new
+            # special-token columns are mean-initialized like the rows
+            lm["lm_head_kernel"] = resize_embeddings_mean_init(
+                lm["lm_head_kernel"].T, v).T
+        tree["lm"] = lm
+    if vision_checkpoint:
+        sd = load_torch_state_dict(vision_checkpoint, device=device)
+        tree["vision_tower"] = _tower_tree(sd, cfg)
+    return flat_state_dict(tree)
 
 
 @torch.no_grad()
@@ -207,32 +277,97 @@ def init_or_load_params(bundle: ModelBundle, *,
                         lm_checkpoint: Optional[str] = None,
                         vision_checkpoint: Optional[str] = None,
                         composite_checkpoint: Optional[str] = None,
+                        family: str = "llama",
                         device: Union[str, torch.device] = "cuda"
                         ) -> Dict[str, torch.Tensor]:
     """Materialize the bundle's parameters on ``device`` and return its
     ``state_dict`` (also kept as ``bundle.params``).
 
-    Every leaf takes the flax tree's dtype (f32; int8 for ``kernel_q8``) and
-    initializer, drawn leaf by leaf in ``named_parameters`` order from
-    ``generator`` (on ``device``; seed 0 if None), so the peak is the model
-    plus one leaf. Checkpoints are refused until the converters are ported
-    (ROADMAP §A item 4)."""
-    if lm_checkpoint or vision_checkpoint or composite_checkpoint:
-        raise NotImplementedError(
-            "loading checkpoints needs the converters, which are not ported "
-            "yet (ROADMAP §A item 4)")
+    ``composite_checkpoint`` is a whole MMGPT save: the LM (HF ``family``
+    keys, "llama" unless told otherwise, as JAX's worker never tells it:
+    trap C26) plus ``model.vision_tower.*`` / ``model.projector.*``.
+    Otherwise ``lm_checkpoint`` (an HF decoder; the embedding, an untied
+    head and a NormHead grown to the vocabulary with mean-initialized
+    rows) and ``vision_checkpoint`` (an HF CLIP tower) each replace their
+    subtree. Checkpoint tensors arrive in f32 on ``device`` one at a time,
+    so the peak is the model plus one leaf. A leaf no checkpoint holds
+    takes the flax tree's dtype (f32; int8 for ``kernel_q8``) and
+    initializer, drawn in ``named_parameters`` order from ``generator``
+    (on ``device``; seed 0 if None). A checkpoint leaf of another shape
+    than the model's, or of a name the model lacks, is refused."""
     device = torch.device(device)
+    loaded = _load_tree(bundle, lm_checkpoint=lm_checkpoint,
+                        vision_checkpoint=vision_checkpoint,
+                        composite_checkpoint=composite_checkpoint,
+                        family=family, device=device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     model = bundle.model
-    for name, param in list(model.named_parameters()):
+    params = dict(model.named_parameters())
+    # the tower builds only the layers its selection runs; the converter,
+    # as JAX's, maps them all
+    vit = getattr(model.vision_tower, "vit", None)
+    if vit is not None:
+        skipped = tuple(f"vision_tower.vit.layers_{i}."
+                        for i in range(vit.n_layers, vit.cfg.num_layers))
+        loaded = {k: v for k, v in loaded.items()
+                  if not k.startswith(skipped)}
+    unknown = sorted(set(loaded) - set(params))
+    if unknown:
+        raise KeyError(f"checkpoint leaves the model does not have: "
+                       f"{unknown[:8]}")
+    for name, param in params.items():
         owner = model.get_submodule(name.rpartition(".")[0])
-        dtype = torch.int8 if name.endswith("kernel_q8") else torch.float32
-        fresh = _flax_like(name, param.shape, dtype, generator, device)
+        fresh = loaded.pop(name, None)
+        if fresh is None:
+            dtype = torch.int8 if name.endswith("kernel_q8") \
+                else torch.float32
+            fresh = _flax_like(name, param.shape, dtype, generator, device)
+        elif fresh.shape != param.shape:
+            raise ValueError(f"{name}: checkpoint shape {tuple(fresh.shape)}"
+                             f", model {tuple(param.shape)}")
         setattr(owner, name.rpartition(".")[2],
                 nn.Parameter(fresh, requires_grad=param.requires_grad))
     bundle.params = model.state_dict()
     return bundle.params
+
+
+def _projector_params_from_torch(sd, cfg: MMGPTConfig) -> Dict[str, Any]:
+    """A reference projector's weights as the projector subtree
+    (``merlin_tpu/models/builder.py:241-287``): conv, mlp/linear, the bare
+    Qwen matrix, SAM's conv stack + linear, and the Qwen resampler
+    (``attn_pool.*`` + ``ln_post`` + ``proj``)."""
+    def t(name):
+        return sd[name].float()
+
+    hwio = (2, 3, 1, 0)          # torch conv OIHW -> flax HWIO
+    if cfg.projector == "conv":
+        return {"conv": {"kernel": t("conv.weight").permute(*hwio),
+                         "bias": t("conv.bias")}}
+    if cfg.projector in ("mlp", "linear"):
+        name = "projector" if "projector.weight" in sd else "proj"
+        return {"proj": {"kernel": t(name + ".weight").T,
+                         "bias": t(name + ".bias")}}
+    if cfg.projector == "qwen":
+        # nn.Parameter (vision_hidden, lm_hidden), applied as x @ projector
+        return {"proj": t("projector")}
+    if cfg.projector == "sam":
+        return {
+            "conv1": {"kernel": t("projector.0.weight").permute(*hwio)},
+            "conv2": {"kernel": t("projector.1.weight").permute(*hwio)},
+            "proj": {"kernel": t("mlp.weight").T, "bias": t("mlp.bias")},
+        }
+    if cfg.projector in ("qwen_sampler", "resampler"):
+        # the attention width from the packed (3E, E) in_proj; the heads by
+        # the reference's rule, as build_projector picks them
+        name = ("attn_pool.attn.in_proj_weight"
+                if "attn_pool.attn.in_proj_weight" in sd
+                else "attn.in_proj_weight")
+        dim = sd[name].shape[1]
+        return resampler_params_from_torch(
+            sd, dim=dim, num_heads=default_resampler_heads(dim))
+    raise NotImplementedError(
+        f"torch import for projector {cfg.projector!r} not implemented")
 
 
 @torch.no_grad()

@@ -29,7 +29,7 @@ from merlin_tpu_torch.utils.constants import IGNORE_INDEX
 @dataclasses.dataclass(frozen=True)
 class MMGPTConfig:
     lm: DecoderConfig
-    vit: Any  # ViTConfig
+    vit: Any  # ViTConfig or SAMViTConfig, per vision_kind
     projector: str = "conv"
     conv_stride: int = 2
     vision_kind: str = "clip"
@@ -42,14 +42,25 @@ class MMGPTConfig:
 
     @property
     def vision_grid(self) -> int:
-        return self.vit.grid_size
+        return getattr(self.vit, "grid_size", None) or self.vit.grid
+
+    @property
+    def vision_width(self) -> int:
+        """The tower's output channels: its width, or SAM's neck."""
+        return getattr(self.vit, "hidden_size", None) or self.vit.out_chans
 
     @property
     def image_token_len(self) -> int:
-        """Tokens per image after projection."""
+        """Tokens per image after projection: the conv's grid, the
+        resampler's 256 queries, SAM's two stride-2 convs, else one token
+        a patch."""
         if self.projector == "conv":
             side = self.vision_grid // self.conv_stride
             return side * side
+        if self.projector in ("qwen_sampler", "resampler"):
+            return 256
+        if self.projector == "sam":
+            return (self.vision_grid // 4) ** 2
         return self.vision_grid ** 2
 
 
@@ -75,9 +86,15 @@ class MMGPT(nn.Module):
         self.vision_tower = build_vision_tower(
             cfg.vision_kind, cfg.vit, select_layer=cfg.select_layer,
             select_feature=cfg.select_feature)
+        # the resampler kinds attend at the VISION width, and only their
+        # final proj maps to the LM width (merlin_tpu/models/mmgpt.py:96-104)
+        embed_dim = (getattr(cfg.vit, "hidden_size", None)
+                     if cfg.projector in ("qwen_sampler", "resampler")
+                     else None)
         self.projector = build_projector(
-            cfg.projector, cfg.vit.hidden_size, cfg.lm.hidden_size,
-            conv_stride=cfg.conv_stride, dtype=cfg.lm.dtype)
+            cfg.projector, cfg.vision_width, cfg.lm.hidden_size,
+            conv_stride=cfg.conv_stride, dtype=cfg.lm.dtype,
+            embed_dim=embed_dim)
         self.lm = CausalLM(cfg.lm)
 
     def encode_images(self, images: torch.Tensor) -> torch.Tensor:

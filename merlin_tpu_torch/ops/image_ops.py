@@ -11,7 +11,9 @@ The bicubic resize is written out here (trap C1): ``jax.image.resize(...,
 "bicubic")`` uses the Keys kernel with a = -0.5 and, when it downscales,
 widens the kernel by 1/scale (antialiasing), while
 ``F.interpolate(mode="bicubic")`` uses a = -0.75 with no antialiasing. The
-separable weight matrices below follow JAX's ``compute_weight_mat``.
+separable weight matrices below follow JAX's ``compute_weight_mat``, for
+the cubic kernel and for the triangle kernel of ``method="linear"`` (SAM's
+relative-position tables, antialiased the same way when they shrink).
 """
 
 from __future__ import annotations
@@ -42,9 +44,16 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
-def resize_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
-    """(in_size, out_size) f32 weights of a 1-D antialiased bicubic resize,
-    as JAX's ``compute_weight_mat`` builds them (translation 0)."""
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def resize_weights(in_size: int, out_size: int, device=None,
+                   method: str = "cubic") -> torch.Tensor:
+    """(in_size, out_size) f32 weights of a 1-D antialiased resize, cubic
+    (Keys) or linear (triangle), as JAX's ``compute_weight_mat`` builds
+    them (translation 0)."""
+    kernel = {"cubic": _keys_cubic, "linear": _triangle}[method]
     scale = out_size / in_size
     inv_scale = 1.0 / scale
     kernel_scale = max(inv_scale, 1.0)
@@ -53,7 +62,7 @@ def resize_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
     x = (sample_f[None, :] - torch.arange(in_size, dtype=torch.float32,
                                           device=device)[:, None]
          ).abs() / kernel_scale
-    w = _keys_cubic(x)
+    w = kernel(x)
     total = w.sum(dim=0, keepdim=True)
     eps = 1000.0 * float(np.finfo(np.float32).eps)
     w = torch.where(total.abs() > eps,

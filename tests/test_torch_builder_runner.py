@@ -7,7 +7,7 @@
     packages, so no test reaches the network.
   * ``init_or_load_params``: the flax tree's names (joined by '.'), shapes
     and dtypes, the constant leaves equal, the random ones at flax's
-    scales; checkpoint arguments are refused.
+    scales; a checkpoint that does not exist is refused.
   * ``quantize_bundle_lm_int8``: JAX's int8 leaves and scales, the tower
     untouched (trap C12).
   * ``EvalModel``: ``build_prompt``, ``ask`` and ``ask_batch`` give JAX's
@@ -169,10 +169,14 @@ def test_init_gives_the_flax_tree(tiny_pair):
 @pytest.mark.parametrize("which", ["lm_checkpoint", "vision_checkpoint",
                                    "composite_checkpoint"])
 def test_checkpoints_are_refused(which):
+    """A checkpoint that is not there is refused before any weight exists
+    (loading real ones is held in ``test_torch_checkpoint_load.py``)."""
     tb = t_builder.build_model_tokenizer(*parse_args([]), tiny=True)
-    with pytest.raises(NotImplementedError, match="§A item 4"):
+    with pytest.raises(FileNotFoundError):
         t_builder.init_or_load_params(tb, device="cpu",
                                       **{which: "/nonexistent"})
+    assert tb.params is None
+    assert all(p.device.type == "meta" for p in tb.model.parameters())
 
 
 def test_quantize_bundle_lm_int8_matches_jax(tiny_pair):

@@ -1,7 +1,9 @@
 """Structural checks on the port (``merlin_tpu_torch`` and ``chip_smoke.py``):
 
   * nothing imports jax, flax, optax or merlin_tpu;
-  * the entry points default to the card (``device="cuda"``);
+  * the entry points default to the card (``device="cuda"``), the
+    checkpoint reader too, and a checkpoint read for another device never
+    lands on the CPU;
   * the decoder refuses only the options still to be ported
     (``scan_layers``), and builds with int8 weights and with ``remat``;
   * a kernel wrapper, or the attention dispatcher, given a tensor that is
@@ -25,6 +27,7 @@ from merlin_tpu_torch.generate.decode import Generator
 from merlin_tpu_torch.generate.speculative import SpeculativeGenerator
 from merlin_tpu_torch.models.bridge import init_params
 from merlin_tpu_torch.models.builder import init_or_load_params
+from merlin_tpu_torch.models.convert import load_torch_state_dict
 from merlin_tpu_torch.models.decoder import CausalLM, init_kv_cache
 from merlin_tpu_torch.models.families import tiny
 from merlin_tpu_torch.ops import _build
@@ -69,10 +72,44 @@ def test_port_imports_nothing_of_jax(path):
                                 serve_worker.serve, EvalModel.__init__,
                                 BeamSearch.__init__,
                                 SpeculativeGenerator.__init__,
-                                init_or_load_params],
+                                init_or_load_params, load_torch_state_dict],
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_checkpoint_reads_land_on_the_device_asked_for(tmp_path):
+    """A checkpoint read for a device other than the CPU never hands back a
+    CPU tensor: the meta device stands in for the card, and every tensor,
+    looked up alone or loaded through ``init_or_load_params`` with a
+    checkpoint, lands there (no quiet load to the CPU)."""
+    from merlin_tpu_torch.models.builder import build_model_tokenizer
+    from merlin_tpu_torch.models.families import tiny as tiny_lm
+    from merlin_tpu_torch.train.arguments import parse_args
+
+    lm = tiny_lm()
+    sd = {"model.embed_tokens.weight": torch.ones(lm.vocab_size, 32),
+          "model.norm.weight": torch.ones(32),
+          "lm_head.weight": torch.ones(lm.vocab_size, 32)}
+    for i in range(lm.num_layers):
+        for name, shape in (("self_attn.q_proj", (32, 32)),
+                            ("self_attn.k_proj", (32, 32)),
+                            ("self_attn.v_proj", (32, 32)),
+                            ("self_attn.o_proj", (32, 32)),
+                            ("mlp.gate_proj", (64, 32)),
+                            ("mlp.up_proj", (64, 32)),
+                            ("mlp.down_proj", (32, 64)),
+                            ("input_layernorm", (32,)),
+                            ("post_attention_layernorm", (32,))):
+            sd[f"model.layers.{i}.{name}.weight"] = torch.ones(shape)
+    torch.save(sd, tmp_path / "pytorch_model.bin")
+    ck = load_torch_state_dict(str(tmp_path), device="meta")
+    assert all(ck[k].device.type == "meta" and ck[k].dtype == torch.float32
+               for k in ck)
+    bundle = build_model_tokenizer(*parse_args([]), tiny=True)
+    params = init_or_load_params(bundle, lm_checkpoint=str(tmp_path),
+                                 generator=torch.Generator(), device="meta")
+    assert params and all(t.device.type == "meta" for t in params.values())
 
 
 @pytest.mark.parametrize("wrapper,plain", [
