@@ -86,6 +86,32 @@ the LM quantized to int8) and of Baichuan-13B:
                   = 32 x the engine's calls of each kind, 0 elsewhere.
                   Prints TTFT and tok/s per request (host clock at the
                   client);
+  V. evaluation - between W1 and W2, on the same bf16-computing bundle
+                  (its tokenizer primed with every word the harness
+                  prompts hold, C20), every harness of
+                  ``merlin_tpu_torch.eval`` through its own ``run`` on
+                  input files written from a seed into a temporary
+                  directory: MMBench (a TSV of 3 questions x 2 circular
+                  shifts, one row with a hint, one with numeric options and
+                  D empty, 640x480 noise JPEGs in base64 cells over csv's
+                  default field limit; 5 beams x 16 tokens, then greedy in
+                  batches of 3; its JSON, xlsx and scores), MM-Vet (2
+                  questions), DocVQA (2 at 1000x800, ANLS), tracking (2
+                  LaSOT-layout videos of 4 frames at 640x360, 24 tokens,
+                  serial and in 2 chunks merged: equal), single-image QA
+                  (sampled twice: one answer, C32; then greedy), the demo
+                  in Track mode (a 2-frame turn and a text turn) and the
+                  box REPL, each with scripted input; then ``python -m
+                  merlin_tpu_torch.engine.eval --merge-chunks`` in a
+                  subprocess and ``main`` with ``--tiny --device cuda``.
+                  Every greedy answer holds against a no-cache forward of
+                  its prompt with its images, every beam score against the
+                  one that forward gives its sequence, each tracking prompt
+                  carries the box the previous answer left (or the last
+                  good one); B1 = 23 x the tower's calls around each
+                  harness and every other kernel 0; an MM-Vet answer held
+                  with the other question's image must fail. Prints
+                  seconds per answer and tok/s per harness;
   K. checkpoints - K1: a composite checkpoint at full width, made by HF
                   modules on the card (``LlamaForCausalLM`` at Vicuna-7B's
                   widths, all 32 layers; ``CLIPVisionModel`` ViT-L/14-448;
@@ -145,8 +171,8 @@ the LM quantized to int8) and of Baichuan-13B:
                   new-token embedding rows (2 steps): the LM stays
                   bit-identical but those rows, the tower and projector move.
 
-Prints the serving, front-end, checkpoint and training readings and the
-kernel table as JSON lines before the last, and as the last
+Prints the serving, front-end, evaluation, checkpoint and training
+readings and the kernel table as JSON lines before the last, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs a CUDA card; exits 2 without one.
 
@@ -2088,6 +2114,19 @@ def hold_answer(tag, model, tok, prompt_ids, images, text, n_tokens, tol):
         seq.insert(at, top)
 
 
+def beam_score_gap(model, tok, ids, images, seq, score) -> float:
+    """|the beam's normalized score - the mean log-prob that a no-cache
+    forward gives its sequence up to its stop token|."""
+    seq = [int(t) for t in seq]
+    n = seq.index(tok.eos_token_id) + 1 if tok.eos_token_id in seq \
+        else len(seq)
+    rows = torch.log_softmax(answer_logits(model, ids, images, seq[:n - 1]),
+                             -1)
+    lp = rows[torch.arange(n, device="cuda"),
+              torch.tensor(seq[:n], device="cuda").long()].sum()
+    return abs(lp.item() / n - float(score))
+
+
 def w_worker_log():
     """Collect what the port's workers log, to find engine failures."""
     import logging
@@ -2347,18 +2386,7 @@ def run_w1(bundle, rng, fillers, frames, smi):
     if em.decode_output(seqs[0]) != beam_text:
         raise AssertionError("W1 beam: search() and ask() disagree")
     image_t = torch.from_numpy(image).to("cuda")
-
-    def score_gap(seq, score):
-        seq = [int(t) for t in seq]
-        n = seq.index(tok.eos_token_id) + 1 if tok.eos_token_id in seq \
-            else len(seq)
-        rows = torch.log_softmax(answer_logits(model, ids, image_t,
-                                               seq[:n - 1]), -1)
-        lp = rows[torch.arange(n, device="cuda"),
-                  torch.tensor(seq[:n], device="cuda").long()].sum()
-        return abs(lp.item() / n - float(score))
-
-    honest = score_gap(seqs[0], scores[0])
+    honest = beam_score_gap(model, tok, ids, image_t, seqs[0], scores[0])
     gather = beam_mod._gather_beams
     beam_mod._gather_beams = lambda cache, idx, b, k: gather(
         cache, idx.roll(1, dims=1), b, k)
@@ -2367,7 +2395,8 @@ def run_w1(bundle, rng, fillers, frames, smi):
                                                  images=image)
     finally:
         beam_mod._gather_beams = gather
-    planted = score_gap(bad_seqs[0], bad_scores[0])
+    planted = beam_score_gap(model, tok, ids, image_t, bad_seqs[0],
+                             bad_scores[0])
     log(f"W1 beam (5 beams, {W_BEAM_NEW} tokens, 1 image) in {beam_s:.3f} s: "
         f"{beam_text!r}; score {float(scores[0]):.4f}, recomputed gap "
         f"{honest:.3e} (tol {BEAM_SCORE_TOL}); planted fault (beam index "
@@ -2432,11 +2461,482 @@ def run_w2(qbundle, rng, fillers, smi):
     return counts, readings
 
 
+# ---------------------------------------------------------------------------
+# phase V: evaluation (the harnesses, their evaluators and engine/eval)
+# ---------------------------------------------------------------------------
+
+V_NEW = 16                         # new tokens a greedy or beam answer
+V_TRACK_NEW = 24                   # ... a tracking answer
+V_BEAMS = 5
+V_BEAM_SCORE_TOL = 5e-2            # a beam's normalized log-prob score
+                                   # (cached, bf16 cache) against a
+                                   # no-cache forward (B2) at V's MMBench
+                                   # prompts: ~1.1% of their mean max
+                                   # |logit| (4.4), where the greedy holds
+                                   # allow 5%. Seen on an H100 80GB HBM3
+                                   # at 700 W: up to 1.85e-2. W1's prompt
+                                   # reads 2.0e-4: BEAM_SCORE_TOL is its own
+V_MMB = [("which shape is drawn in the frame",
+          ("circle", "square", "triangle", "star"), "look at the centre"),
+         ("what colour is the sky", ("red", "blue", "green", "grey"), None),
+         ("how many dots are there", ("1", "2", "4", None), None)]
+V_OPEN = ["what is shown here", "describe the picture in detail",
+          "what is the total amount due", "which date is printed on it",
+          "track the object"]
+V_FRAME_WH = (640, 360)
+V_TRACK_GT = {"car-1": [(100, 80, 160, 90), (110, 84, 160, 90),
+                        (124, 90, 158, 92), (140, 95, 156, 92)],
+              "dog-2": [(400, 200, 120, 100), (396, 204, 122, 100),
+                        (390, 206, 124, 98), (384, 210, 124, 98)]}
+
+
+def v_texts():
+    """Every word a V prompt can hold, to prime the tokenizer with before
+    the W phase fills the rest of its ids (C20): the MMBench instruction,
+    option letters and rows, the questions, and the tracking prompt with
+    every box it can carry (0-1000 in each place)."""
+    from merlin_tpu_torch.eval import mmbench, tracking
+
+    out = [mmbench.PROMPT_EN, "A. B. C. D.", *V_OPEN,
+           tracking.TRACK_PROMPT.replace("<image>", " ")]
+    for q, opts, hint in V_MMB:
+        out += [q, " ".join(o for o in opts if o), hint or ""]
+    out += [f"image0:<Id1>[{n:03d}, {n:03d}, {n:03d}]</Id1>"
+            for n in range(1001)]
+    return out
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def v_jpeg(path_or_buf, frame, quality=95):
+    from PIL import Image
+
+    Image.fromarray(frame).save(path_or_buf, format="JPEG", quality=quality)
+
+
+def v_inputs(root, rng):
+    """The harnesses' input files under ``root``, drawn from ``rng``:
+    an MMBench TSV (3 questions x 2 circular shifts, 640x480 noise JPEGs in
+    base64 cells over csv's 131072-character default limit), MM-Vet (a
+    noise image and a black one), DocVQA (1000x800, with answers), two
+    LaSOT-layout videos of 4 frames at 640x360, and two loose frames."""
+    import base64
+    import csv
+    import io
+
+    def noise(w, h):
+        return rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+
+    rows = []
+    for q, (question, opts, hint) in enumerate(V_MMB):
+        n = sum(1 for o in opts if o)
+        for shift in (0, 1):
+            rot = [opts[(j + shift) % n] for j in range(n)] + list(opts[n:])
+            buf = io.BytesIO()
+            v_jpeg(buf, noise(640, 480))
+            cell = base64.b64encode(buf.getvalue()).decode()
+            if len(cell) <= 131072:
+                raise AssertionError("V: the JPEG cell is under csv's limit")
+            rows.append([q + 1 + shift * 10 ** 6, question, hint or "",
+                         *(o or "" for o in rot), "ABCD"[(q - shift) % n],
+                         f"c{q % 2}", "perception", cell])
+    with open(os.path.join(root, "mmbench_dev_en.tsv"), "w", newline="") as f:
+        w = csv.writer(f, delimiter="\t", lineterminator="\n")
+        w.writerow(["index", "question", "hint", "A", "B", "C", "D", "answer",
+                    "category", "l2-category", "image"])
+        w.writerows(rows)
+    img = os.path.join(root, "images")
+    os.makedirs(img)
+    v_jpeg(os.path.join(img, "noise.jpg"), noise(640, 480))
+    v_jpeg(os.path.join(img, "black.jpg"), np.zeros((480, 640, 3), np.uint8))
+    for i in range(2):
+        v_jpeg(os.path.join(img, f"doc{i}.jpg"), noise(1000, 800))
+        v_jpeg(os.path.join(img, f"frame{i}.jpg"), noise(*V_FRAME_WH))
+    with open(os.path.join(root, "mmvet.json"), "w") as f:
+        json.dump({"v1_0": {"imagename": "noise.jpg", "question": V_OPEN[0]},
+                   "v1_1": {"imagename": "black.jpg",
+                            "question": V_OPEN[1]}}, f)
+    with open(os.path.join(root, "docvqa.json"), "w") as f:
+        json.dump({"data": [
+            {"questionId": 1, "question": V_OPEN[2], "image": "doc0.jpg",
+             "answers": ["$42", "42 dollars"]},
+            {"questionId": 2, "question": V_OPEN[3], "image": "doc1.jpg",
+             "answers": ["10 may"]}]}, f)
+    for name, boxes in V_TRACK_GT.items():
+        os.makedirs(os.path.join(root, "videos", name, "img"))
+        for i in range(len(boxes)):
+            v_jpeg(os.path.join(root, "videos", name, "img",
+                                f"{i + 1:08d}.jpg"), noise(*V_FRAME_WH))
+        with open(os.path.join(root, "videos", name, "groundtruth.txt"),
+                  "w") as f:
+            f.write("".join(",".join(map(str, b)) + "\n" for b in boxes))
+
+
+class VRecorder:
+    """Records every decode ``EvalModel`` runs (its ids, mask, images and
+    tokens, and a beam search's sequences and scores), while installed."""
+
+    def __init__(self):
+        from merlin_tpu_torch.eval.runner import EvalModel
+        from merlin_tpu_torch.generate.beam import BeamSearch
+
+        self.calls, self.scores = [], []
+        self._run, self._search = EvalModel._run, BeamSearch.search
+        run, search = self._run, self._search
+
+        def record_run(em, ids, images, generator, **kw):
+            out = run(em, ids, images, generator, **kw)
+            beam = self.scores.pop() if em.cfg.num_beams > 1 else None
+            self.calls.append(dict(em=em, ids=np.asarray(ids),
+                                   mask=kw.get("attention_mask"),
+                                   images=images, out=np.asarray(out),
+                                   beam=beam))
+            return out
+
+        def record_search(beam, *a, **kw):
+            seqs, scores = search(beam, *a, **kw)
+            self.scores.append((seqs, scores))
+            return seqs, scores
+
+        EvalModel._run, BeamSearch.search = record_run, record_search
+
+    def close(self):
+        from merlin_tpu_torch.eval.runner import EvalModel
+        from merlin_tpu_torch.generate.beam import BeamSearch
+
+        EvalModel._run, BeamSearch.search = self._run, self._search
+
+
+def v_rows(call):
+    """One decode's rows: (prompt ids, images as (1, n, S, S, 3) on the
+    card or None, tokens)."""
+    ids, mask, images, out = call["ids"], call["mask"], call["images"], \
+        call["out"]
+    for i in range(ids.shape[0]):
+        n = int(np.asarray(mask[i]).sum()) if mask is not None \
+            else ids.shape[1]
+        img = None if images is None else \
+            torch.from_numpy(np.asarray(images[i:i + 1])).to("cuda")
+        yield ids[i, :n].tolist(), img, out[i]
+
+
+def answer_tokens(tokens, eos: int, pad: int) -> int:
+    """Tokens an answer took: up to its stop token, or the non-pad ones."""
+    toks = [int(t) for t in tokens]
+    return toks.index(eos) + 1 if eos in toks else sum(t != pad for t in toks)
+
+
+def v_harness(tag, fn, rec, encoded, readings, total):
+    """One harness call with the launches counted around it (added to
+    ``total``): B1 must equal 23 x the tower's calls, at least one, and
+    every other kernel 0. Puts its readings in ``readings[tag]``; returns
+    (its result, its decodes)."""
+    start = len(rec.calls)
+    encoded[:] = [0, 0]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    calls = rec.calls[start:]
+    if counts != launches(B1=23 * encoded[0]) or not encoded[0]:
+        raise AssertionError(f"V {tag}: launches {counts} for {encoded[0]} "
+                             "tower calls")
+    tokens = answers = 0
+    for call in calls:
+        tk = call["em"].tokenizer
+        for _, _, out in v_rows(call):
+            answers += 1
+            tokens += answer_tokens(out, tk.eos_token_id, tk.pad_token_id)
+    read = dict(seconds=round(seconds, 3), answers=answers,
+                s_per_answer=round(seconds / max(answers, 1), 3),
+                tokens=tokens, tok_s=round(tokens / seconds, 2),
+                tower_calls=encoded[0], images=encoded[1], B1=counts["B1"])
+    log(f"V {tag}: {answers} answers, {tokens} tokens in {seconds:.3f} s "
+        f"({read['s_per_answer']} s an answer, {read['tok_s']} tok/s); "
+        f"{encoded[0]} tower calls ({encoded[1]} images), B1 {counts['B1']}")
+    total.update(counts)
+    readings[tag] = read
+    return result, calls
+
+
+def v_hold(tag, model, tok, calls):
+    """Every greedy answer held against a no-cache forward of its prompt
+    with its images (``hold_answer``), every beam answer's score against
+    the one that forward gives its sequence. Returns the largest greedy
+    gap, every beam's score gap and the beams' mean max |logit|."""
+    gaps, beam_gaps, texts, scale = [], [], [], []
+    for call in calls:
+        em = call["em"]
+        if em.cfg.do_sample:
+            continue
+        for j, (ids, images, out) in enumerate(v_rows(call)):
+            if em.cfg.num_beams > 1:
+                seqs, scores = call["beam"]
+                if not np.array_equal(seqs[j], out):
+                    raise AssertionError(f"V {tag}: search() and the answer "
+                                         "disagree")
+                beam_gaps.append(beam_score_gap(model, tok, ids, images,
+                                                out, scores[j]))
+                scale.append(answer_logits(model, ids, images, out[:-1])
+                             .abs().amax(-1).mean().item())
+                if beam_gaps[-1] > V_BEAM_SCORE_TOL:
+                    raise AssertionError(f"V {tag}: beam score gap "
+                                         f"{beam_gaps[-1]}")
+            texts.append(em.decode_output(out))
+            if em.cfg.num_beams == 1:
+                gap, _ = hold_answer(f"V {tag}", model, tok, ids, images,
+                                     texts[-1], None, GEN_RTOL)
+                gaps.append(gap)
+    if not any(texts):
+        raise AssertionError(f"V {tag}: every answer is empty (C20)")
+    return max(gaps, default=0.0), beam_gaps, np.mean(scale or [0.0])
+
+
+def v_track_prompts(tag, tok, calls, videos_dir, n_frames):
+    """Each tracking prompt carries the box the previous answer left (a
+    parsed box), or the last good one: the loop's prompts rebuilt from the
+    answers, video by video, equal the prompts decoded."""
+    from PIL import Image
+
+    from merlin_tpu_torch.eval import tracking
+
+    it = iter(calls)
+    parsed = 0
+    for name in sorted(V_TRACK_GT):
+        frames, gt = tracking.load_lasot_video(
+            os.path.join(videos_dir, name))
+        w, h = Image.open(frames[0]).size
+        last = gt[0]
+        for _ in range(1, n_frames):
+            call = next(it)
+            em = call["em"]
+            q = tracking.TRACK_PROMPT.format(
+                *tracking.serialize_norm_box(last, w, h))
+            want = tok(em.build_prompt(q, 2))["input_ids"][0]
+            if call["ids"][0].tolist() != list(want):
+                raise AssertionError(f"V {tag}: {name}'s prompt does not "
+                                     f"carry the box {last}")
+            box = tracking.parse_predicted_box(em.decode_output(call["out"][0]))
+            if box is not None:
+                parsed += 1
+                last = tracking.de_norm_box_xyxy([c / 1000 for c in box],
+                                                 w=w, h=h)
+    if next(it, None) is not None:
+        raise AssertionError(f"V {tag}: more decodes than frame pairs")
+    return parsed
+
+
+def run_v(bundle, smi):
+    """V: every harness of ``merlin_tpu_torch.eval`` through its own ``run``
+    on the W bundle (bf16 compute), its input files written from a seed
+    into a temporary directory, then the CLI. Prints its readings; returns
+    the launches summed over its harness calls."""
+    import pickle
+    import tempfile
+
+    from merlin_tpu_torch.eval import (
+        box_eval, demo, docvqa, mmbench, mmvet, single, tracking)
+    from merlin_tpu_torch.eval.runner import EvalConfig
+    from merlin_tpu_torch.utils.xlsx import read_xlsx
+
+    tok, model = bundle.tokenizer, bundle.model
+    rec = VRecorder()
+    encoded = [0, 0]
+    hooks = tower_counter(model, encoded)
+    readings, total = {}, collections.Counter()
+    greedy = EvalConfig(max_new_tokens=V_NEW)
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            v_inputs(root, np.random.default_rng(11))
+            out = os.path.join(root, "out")
+
+            def harness(tag, fn):
+                return v_harness(tag, fn, rec, encoded, readings, total)
+
+            tsv = os.path.join(root, "mmbench_dev_en.tsv")
+            res, calls = harness("mmbench beam5", lambda: mmbench.run(
+                bundle, tsv, os.path.join(out, "mmb_beam.json"),
+                EvalConfig(num_beams=V_BEAMS, max_new_tokens=V_NEW),
+                device="cuda"))
+            _, gaps, scale = v_hold("mmbench beam5", model, tok, calls)
+            readings["mmbench beam5"].update(beam_score_gaps=gaps,
+                                             mean_max_logit=scale)
+            res2, calls = harness("mmbench greedy batch 3", lambda: mmbench.run(
+                bundle, tsv, os.path.join(out, "mmb.json"), greedy,
+                batch_size=3, device="cuda"))
+            readings["mmbench greedy batch 3"]["max_gap"] = v_hold(
+                "mmbench greedy", model, tok, calls)[0]
+            for name, result in (("mmb_beam", res), ("mmb", res2)):
+                preds = read_json(os.path.join(out, f"{name}.json"))
+                back = read_xlsx(os.path.join(out, f"{name}.xlsx"))
+                scores = read_json(os.path.join(out, f"{name}_scores.json"))
+                if len(preds) != 6 or len(back) != 6 or any(
+                        b.get(k) != v for p, b in zip(preds, back)
+                        for k, v in p.items()) or \
+                        set(scores) != {"overall", "l2", "leaf"} or \
+                        scores["overall"] != result["overall"] or \
+                        "D" in preds[4] or preds[4]["C"] != "4":
+                    raise AssertionError(f"V mmbench {name}: the files")
+            readings["mmbench greedy batch 3"]["overall"] = res2["overall"]
+
+            img_dir = os.path.join(root, "images")
+            answers, calls = harness("mmvet", lambda: mmvet.run(
+                bundle, os.path.join(root, "mmvet.json"), img_dir,
+                os.path.join(out, "mmvet.json"), greedy, device="cuda"))
+            readings["mmvet"]["max_gap"] = v_hold("mmvet", model, tok,
+                                                  calls)[0]
+            # planted fault: the first answer held against its prompt with
+            # the other question's image (black, where it saw noise)
+            (ids0, _, out0), = v_rows(calls[0])
+            (_, img1, _), = v_rows(calls[1])
+            try:
+                hold_answer("V mmvet planted", model, tok, ids0, img1,
+                            calls[0]["em"].decode_output(out0), None,
+                            GEN_RTOL)
+            except AssertionError as e:
+                log(f"V mmvet planted fault (the other question's image) "
+                    f"fails as it must: {str(e)[:160]}")
+            else:
+                raise AssertionError("V mmvet: the answer held with the "
+                                     "other question's image")
+
+            scores, calls = harness("docvqa", lambda: docvqa.run(
+                bundle, os.path.join(root, "docvqa.json"), img_dir,
+                os.path.join(out, "docvqa.json"), greedy, device="cuda"))
+            readings["docvqa"]["max_gap"] = v_hold("docvqa", model, tok,
+                                                   calls)[0]
+            if scores["n"] != 2 or read_json(os.path.join(
+                    out, "docvqa_scores.json"))["n"] != 2:
+                raise AssertionError(f"V docvqa: scores {scores}")
+            readings["docvqa"]["anls"] = scores["overall"]
+
+            videos = os.path.join(root, "videos")
+            track_cfg = EvalConfig(max_new_tokens=V_TRACK_NEW)
+            serial, calls = harness("tracking", lambda: tracking.run(
+                bundle, videos, os.path.join(out, "serial"), track_cfg,
+                device="cuda"))
+            readings["tracking"]["max_gap"] = v_hold("tracking", model, tok,
+                                                     calls)[0]
+            readings["tracking"]["boxes_parsed"] = v_track_prompts(
+                "tracking", tok, calls, videos, 4)
+            chunks = os.path.join(out, "chunks")
+
+            def chunked():
+                for idx in range(2):
+                    tracking.run(bundle, videos, chunks, track_cfg,
+                                 num_chunks=2, chunk_idx=idx, device="cuda")
+                return tracking.merge_chunks(chunks)
+
+            merged, ccalls = harness("tracking 2 chunks", chunked)
+            pk = {}
+            for d in ("serial", "chunks"):
+                for name in sorted(os.listdir(os.path.join(out, d))):
+                    with open(os.path.join(out, d, name), "rb") as f:
+                        pk.setdefault(d, {})[name] = pickle.load(f)
+            if merged != serial or serial["videos"] != 2 or \
+                    pk["serial"] != pk["chunks"] or len(ccalls) != len(calls) \
+                    or any(not np.array_equal(a["out"], b["out"])
+                           for a, b in zip(calls, ccalls)):
+                raise AssertionError(f"V tracking: chunks merged {merged} "
+                                     f"!= serial {serial}")
+            readings["tracking"]["summary"] = serial
+
+            frame = os.path.join(img_dir, "frame0.jpg")
+            sampled = EvalConfig(do_sample=True, temperature=1.0,
+                                 max_new_tokens=V_NEW)
+            twice, _ = harness("single sampled x2", lambda: [
+                single.run(bundle, frame, V_OPEN[0], sampled, device="cuda")
+                for _ in range(2)])
+            if twice[0] != twice[1] or not twice[0]:
+                raise AssertionError(f"V single: sampled answers {twice}")
+            one, calls = harness("single greedy", lambda: single.run(
+                bundle, frame, V_OPEN[0], greedy, device="cuda"))
+            readings["single greedy"]["max_gap"] = v_hold(
+                "single", model, tok, calls)[0]
+
+            def scripted(lines):
+                it = iter(lines)
+
+                def read(prompt):
+                    line = next(it, None)
+                    if line is None:
+                        raise EOFError
+                    return line
+                return read
+
+            shown = []
+            f1 = os.path.join(img_dir, "frame1.jpg")
+            _, calls = harness("demo Track", lambda: demo.run_demo(
+                bundle, task_mode="Track", eval_cfg=greedy,
+                input_fn=scripted([f"{frame},{f1} ; {V_OPEN[4]}",
+                                   V_OPEN[0]]),
+                print_fn=shown.append, max_turns=2, device="cuda"))
+            readings["demo Track"]["max_gap"] = v_hold("demo", model, tok,
+                                                       calls)[0]
+            if len(calls) != 2 or calls[1]["images"].shape[1] != 2 or \
+                    not all(s.startswith("ASSISTANT: ") for s in shown
+                            if not s.startswith("[boxes")):
+                raise AssertionError(f"V demo: {len(calls)} turns, {shown}")
+            _, calls = harness("box repl", lambda: box_eval.run_repl(
+                bundle, greedy, scripted([f"{frame} ; {V_OPEN[0]}"]),
+                shown.append, device="cuda"))
+            readings["box repl"]["max_gap"] = v_hold("box", model, tok,
+                                                     calls)[0]
+            readings["cli"] = v_cli(root, chunks, merged)
+    finally:
+        rec.close()
+        for h in hooks:
+            h.remove()
+    log(json.dumps({"V": readings, "card": smi}))
+    return dict(total)
+
+
+def v_cli(root, chunks, merged):
+    """The eval CLI: ``python -m merlin_tpu_torch.engine.eval --benchmark
+    tracking --merge-chunks`` in a subprocess must print the merge V made,
+    and ``main`` with ``--tiny --device cuda`` runs DocVQA on the card with
+    no kernel (the tiny model's attention is too short for one)."""
+    from merlin_tpu_torch.engine import eval as eval_cli
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "merlin_tpu_torch.engine.eval", "--benchmark",
+         "tracking", "--merge-chunks", "--eval_output", chunks],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    merge_s = time.perf_counter() - t0
+    if proc.returncode or f"tracking merged: {merged}" not in proc.stderr:
+        raise AssertionError(f"V cli --merge-chunks: {proc.stderr[-800:]}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = eval_cli.main([
+        "--benchmark", "docvqa", "--tiny", "--device", "cuda", "--limit", "1",
+        "--eval_file", os.path.join(root, "docvqa.json"),
+        "--eval_image_dir", os.path.join(root, "images"),
+        "--eval_output", os.path.join(root, "out", "tiny_docvqa.json")])
+    torch.cuda.synchronize()
+    tiny_s = time.perf_counter() - t0
+    if scores["n"] != 1 or read_counts() != launches():
+        raise AssertionError(f"V cli --tiny: {scores}, {read_counts()}")
+    log(f"V cli: --merge-chunks in a subprocess {merge_s:.2f} s; --tiny "
+        f"--device cuda DocVQA (1 item, sampled) {tiny_s:.2f} s, no kernel")
+    return dict(merge_subprocess_s=round(merge_s, 2),
+                tiny_docvqa_s=round(tiny_s, 2))
+
+
 def serve_front(rng, smi):
     """The W phase: the port's serving front end on a Vicuna-7B MMGPT built
     by the user's entry points (``parse_args([])``, ``build_model_tokenizer``,
-    ``init_or_load_params``), bf16 compute (W1), then its LM quantized to
-    int8 (W2). Returns ({"W1": counts, "W2": counts}, readings)."""
+    ``init_or_load_params``), bf16 compute (W1), the eval harnesses on the
+    same bundle (V), then its LM quantized to int8 (W2). Returns ({"W1":
+    counts, "W2": counts}, readings, V's launches)."""
     from merlin_tpu_torch.models.builder import (
         build_model_tokenizer, init_or_load_params, quantize_bundle_lm_int8)
     from merlin_tpu_torch.train.arguments import parse_args
@@ -2464,10 +2964,13 @@ def serve_front(rng, smi):
     conv = conv_templates["v1"].copy()
     conv.append_message(conv.roles[0], W_QUESTION)
     conv.append_message(conv.roles[1], None)
-    fillers = prime_tokenizer(bundle.tokenizer, vocab, [conv.get_prompt()])
+    fillers = prime_tokenizer(bundle.tokenizer, vocab,
+                              [conv.get_prompt()] + v_texts())
     frames = rng.integers(0, 256, size=(4, 480, 640, 3), dtype=np.uint8)
 
     w1_counts, w1 = run_w1(bundle, rng, fillers, frames, smi)
+    free_cuda()
+    v_counts = run_v(bundle, smi)
     free_cuda()
     fc1 = "vision_tower.vit.layers_0.mlp.fc1.kernel"
     tower = bundle.params[fc1]
@@ -2487,7 +2990,7 @@ def serve_front(rng, smi):
     w2_counts, w2 = run_w2(qbundle, rng, fillers, smi)
     del qbundle
     free_cuda()
-    return {"W1": w1_counts, "W2": w2_counts}, {"W1": w1, "W2": w2}
+    return {"W1": w1_counts, "W2": w2_counts}, {"W1": w1, "W2": w2}, v_counts
 
 
 # ---------------------------------------------------------------------------
@@ -3681,7 +4184,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     served.update(serve_baichuan(rng))
     free_cuda()                       # the W phase builds its own model
-    worker_counts, front = serve_front(np.random.default_rng(9), smi)
+    worker_counts, front, v_counts = serve_front(np.random.default_rng(9),
+                                                 smi)
     free_cuda()
     k1, k2 = checkpoints_and_towers(np.random.default_rng(10), gen, smi)
     free_cuda()                       # training starts from an empty card
@@ -3733,6 +4237,7 @@ def main() -> int:
         row["launches_training_frozen_lm"] = t2["counts"][key]
         row["launches_worker"] = {w: worker_counts[w][key]
                                   for w in worker_counts}
+        row["launches_eval"] = v_counts.get(key, 0)
         row["launches_checkpoint"] = k1["counts"][key]
     log(json.dumps({"serving": {e: served[e][1] for e in served}}))
     log(json.dumps({"front_end": front, "card": smi}))

@@ -112,6 +112,11 @@ class Generator:
                                    kv_cache=cache)
         return logits[:, 0], cache
 
+    def _default_generator(self) -> torch.Generator:
+        """A fresh generator seeded 0: the same request samples the same
+        tokens on every call, as JAX's ``jax.random.key(0)`` default gives."""
+        return torch.Generator(device=self.device).manual_seed(0)
+
     def _pick(self, logits, generator):
         cfg = self.cfg
         return sample_token(logits, generator=generator,
@@ -122,8 +127,11 @@ class Generator:
     def __call__(self, input_ids, *, images=None, attention_mask=None,
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
         """Batch generation. Returns (b, max_new_tokens) int32, pad-filled
-        after a stop token (which is included)."""
+        after a stop token (which is included). Without ``generator`` a
+        sampled call draws from a fresh one seeded 0."""
         cfg = self.cfg
+        if generator is None:
+            generator = self._default_generator()
         logits, cache, lengths = self._start(input_ids, images, attention_mask)
         b = logits.shape[0]
         stop_ids = torch.tensor((cfg.eos_id,) + tuple(cfg.stop_token_ids),
@@ -148,8 +156,11 @@ class Generator:
                generator: Optional[torch.Generator] = None, tokenizer=None,
                keywords: Sequence[str] = ()) -> Iterator[np.ndarray]:
         """Step-by-step generation for serving: yields (b,) token ids each
-        step; stops on EOS/stop ids everywhere or a keyword hit."""
+        step; stops on EOS/stop ids everywhere or a keyword hit. Seeded as
+        :meth:`__call__` is."""
         cfg = self.cfg
+        if generator is None:
+            generator = self._default_generator()
         logits, cache, lengths = self._start(input_ids, images, attention_mask)
         b = logits.shape[0]
         done = np.zeros((b,), bool)

@@ -21,6 +21,9 @@ import pytest
 import torch
 
 import merlin_tpu_torch
+from merlin_tpu_torch.engine import eval as eval_cli
+from merlin_tpu_torch.eval import (
+    box_eval, demo, docvqa, mmbench, mmvet, single, tracking)
 from merlin_tpu_torch.eval.runner import EvalModel
 from merlin_tpu_torch.generate.beam import BeamSearch
 from merlin_tpu_torch.generate.decode import Generator
@@ -76,6 +79,41 @@ def test_port_imports_nothing_of_jax(path):
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("fn", [mmbench.run, mmvet.run, docvqa.run,
+                                single.run, tracking.run, box_eval.run_repl,
+                                demo.run_demo],
+                         ids=lambda f: f"{f.__module__.rpartition('.')[2]}."
+                                       f"{f.__qualname__}")
+def test_eval_harnesses_default_to_the_card(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("cli,argv", [
+    (eval_cli, ["--benchmark", "single", "--tiny"]),
+    (demo, ["--tiny"])], ids=["engine.eval", "eval.demo"])
+def test_eval_clis_default_to_the_card(monkeypatch, cli, argv):
+    """``--device`` left out, the CLI loads the model onto the card."""
+    asked = []
+
+    class Stop(Exception):
+        pass
+
+    def load(bundle, **kw):
+        asked.append(kw["device"])
+        raise Stop
+
+    # the demo imports the loader when it runs, the eval CLI when imported
+    from merlin_tpu_torch.models import builder
+    monkeypatch.setattr(builder if cli is demo else cli,
+                        "init_or_load_params", load)
+    # the eval CLI's logger setup would stop the package's records reaching
+    # the root logger (caplog) in this worker's later tests
+    monkeypatch.setattr(eval_cli, "setup_logger", lambda *a: None)
+    with pytest.raises(Stop):
+        cli.main(argv)
+    assert asked == ["cuda"]
 
 
 def test_checkpoint_reads_land_on_the_device_asked_for(tmp_path):

@@ -55,3 +55,46 @@ def test_sampling_reproducible_and_inside_the_nucleus():
     kept = ts.apply_top_p(ts.apply_top_k(x / 1.3, 10), 0.9) > ts.NEG_INF
     for d in draws:
         assert kept[torch.arange(4), d].all()
+
+
+@pytest.fixture(scope="module")
+def sampler():
+    """A tiny random CausalLM (std 1 weights, so sampling at temperature 1
+    spreads over many tokens) behind a sampled ``Generator``."""
+    from merlin_tpu_torch.generate.decode import GenerateConfig, Generator
+    from merlin_tpu_torch.models.bridge import init_params
+    from merlin_tpu_torch.models.decoder import CausalLM
+    from merlin_tpu_torch.models.families import tiny
+
+    model = CausalLM(tiny()).eval()
+    init_params(model, torch.Generator().manual_seed(3), std=1.0,
+                dtype=torch.float32, device="cpu")
+    cfg = GenerateConfig(max_new_tokens=12, do_sample=True, temperature=1.0,
+                         eos_id=-1, prompt_bucket=0)
+    return Generator(model, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("how", ["call", "stream"])
+def test_sampled_decode_without_a_generator_is_seeded_0(sampler, how):
+    """C32: with no generator a sampled decode draws from one seeded 0, as
+    JAX's takes ``jax.random.key(0)``: the same prompts give the same tokens
+    whatever the global random state, and the tokens a generator seeded 0
+    gives; another seed gives others."""
+    ids = np.random.default_rng(4).integers(3, 120, size=(2, 9))
+
+    def run(**kw):
+        if how == "call":
+            return sampler(ids, **kw)
+        return np.stack(list(sampler.stream(ids, **kw)), axis=1)
+
+    torch.manual_seed(1)
+    first = run()
+    torch.manual_seed(2)
+    assert np.array_equal(run(), first)
+    assert np.array_equal(run(generator=torch.Generator().manual_seed(0)),
+                          first)
+    assert not np.array_equal(
+        run(generator=torch.Generator().manual_seed(1)), first)
+    assert len(set(first.reshape(-1).tolist())) > 6    # it did sample
+    assert np.array_equal(np.stack(list(sampler.stream(ids)), axis=1),
+                          sampler(ids))
