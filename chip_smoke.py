@@ -170,8 +170,24 @@ the LM quantized to int8) and of Baichuan-13B:
  10. T2         - the same at all 32 LM layers with the LM frozen but its
                   new-token embedding rows (2 steps): the LM stays
                   bit-identical but those rows, the tower and projector move.
+  D. data       - the data pipeline and the training entry point: tar
+                  shards (pair, tracking and detection frames) and a
+                  conversation set with boxes, written from a seed and
+                  registered under the recipe's names; the reference's
+                  pretraining command line through
+                  ``merlin_tpu_torch.engine.train.train`` at Vicuna-7B (32
+                  layers, frozen) + CLIP ViT-L/14-448 width: D1 takes 3
+                  steps (launches exactly T2's per step, the first loss an
+                  untrained head's, the LM bit-identical but its trainable
+                  rows), D1r resumes from checkpoint-3 with its data cursor
+                  and takes one; every batch's shapes and image blocks, a
+                  fresh pipeline's families and rate against the step rate,
+                  checkpoint-3's cursor against an uninterrupted pipeline's
+                  4th batch (the cursor with one sample dropped must fail),
+                  and the native tar loader, built by the host compiler,
+                  against the Python tar path.
 
-Prints the serving, front-end, evaluation, checkpoint and training
+Prints the serving, front-end, evaluation, checkpoint, training and data
 readings and the kernel table as JSON lines before the last, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs a CUDA card; exits 2 without one.
@@ -186,6 +202,7 @@ import copy
 import dataclasses
 import gc
 import json
+import logging
 import math
 import os
 import subprocess
@@ -4055,6 +4072,542 @@ def run_t2(rng):
                 mfu=seen[-1]["mfu"], profile=prof)
 
 
+# --- phase D: the data pipeline and the training entry point ---------------
+
+D_STEPS = 3                  # D1's steps; D1r resumes to D_STEPS + 1
+D_CKPT_BYTES = 6e9           # one checkpoint: the trainable tensors (0.46
+                             # B, f32) and their AdamW moments; the frozen
+                             # LM is kept as fingerprints
+# (recipe name, family, shards, samples a shard, merge round); each spec's
+# size is its shards' real sample count
+D_SETS = (("laion2b_10m_6merge", "pair", 2, 24, 6),
+          ("track_1m_v2_2merge", "interpair", 2, 8, 2),
+          ("det_5m_v1_en_4merge", "interpair", 2, 16, 4))
+D_CONV = "d_conversations"   # the conversation set's registry name
+D_N_CONV = 8
+# a word only that family's texts hold: which family a packed row came from
+D_MARKERS = {"laion2b_10m_6merge": "laion", "track_1m_v2_2merge": "track",
+             "det_5m_v1_en_4merge": "Detect", D_CONV: "where"}
+D_PIPE_BATCHES = 8           # batches timed through batch_iterator alone
+D_RAW_SAMPLES = 2000         # raw tar samples timed on each loader route
+
+
+def d_jpeg(rng, w, h) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    v_jpeg(buf, rng.integers(0, 256, (h, w, 3), dtype=np.uint8), quality=75)
+    return buf.getvalue()
+
+
+def d_box(rng, w, h):
+    x1, y1 = int(rng.integers(0, w // 2)), int(rng.integers(0, h // 2))
+    return [x1, y1, x1 + int(rng.integers(20, w // 2)),
+            y1 + int(rng.integers(20, h // 2))]
+
+
+def d_sample(rng, name, key, i, s):
+    """One tar sample's members: a 640x480 noise JPEG and its caption
+    (pair); ``frame0``/``frame1`` at 640x360 and the tracking template's
+    JSON (track); one 640x480 frame and a detection prompt (det)."""
+    if name.startswith("laion"):
+        return {"jpg": d_jpeg(rng, 640, 480),
+                "txt": f"a laion photo number {i} of shard {s}".encode()}
+    if name.startswith("track"):
+        a, b = d_box(rng, 640, 360), d_box(rng, 640, 360)
+        return {"frame0.jpg": d_jpeg(rng, 640, 360),
+                "frame1.jpg": d_jpeg(rng, 640, 360),
+                "json": json.dumps({
+                    "image_name_list": [f"{key}-frame0", f"{key}-frame1"],
+                    "prompt": f"Given image0<image> and image1<image>, track "
+                              f"image0:<Id1>{a}</Id1> in image1.",
+                    "txt": f"<Id1>{b}</Id1>"}).encode()}
+    boxes = [d_box(rng, 640, 480) for _ in range(2)]
+    return {"frame0.jpg": d_jpeg(rng, 640, 480),
+            "json": json.dumps({
+                "image_name_list": [f"{key}-frame0"],
+                "prompt": "<image>\nDetect all objects in the image.",
+                "txt": " ".join(f"<Id{k + 1}>{b}</Id{k + 1}>"
+                                for k, b in enumerate(boxes))}).encode()}
+
+
+def d_write_data(root, rng):
+    """D's tar shards and conversation set, written from ``rng`` under
+    ``root`` and registered in the port's registry under the recipe's
+    names (det_/track_ in both the pair and the interpair family, as the
+    registry holds them). Returns {name: shard paths}."""
+    import io
+    import tarfile
+
+    from merlin_tpu_torch.data import registry
+
+    shards = {}
+    for name, family, n_shards, n, merge in D_SETS:
+        paths = []
+        for s in range(n_shards):
+            path = os.path.join(root, f"{name}-{s:02d}.tar")
+            with tarfile.open(path, "w") as tf:
+                for i in range(n):
+                    key = f"{name.split('_')[0]}{s}{i:04d}"
+                    for ext, data in d_sample(rng, name, key, i, s).items():
+                        info = tarfile.TarInfo(f"{key}.{ext}")
+                        info.size = len(data)
+                        tf.addfile(info, io.BytesIO(data))
+            paths.append(path)
+        spec = registry.WebdataSpec(path=paths, size=n_shards * n,
+                                    merge_round=merge)
+        registry.register(family, name, spec)
+        if family == "interpair":
+            registry.register("pair", name, spec)
+        shards[name] = paths
+    images = os.path.join(root, "conversation_images")
+    os.makedirs(images)
+    ann = []
+    for i in range(D_N_CONV):
+        with open(os.path.join(images, f"conv{i}.jpg"), "wb") as f:
+            f.write(d_jpeg(rng, 640, 480))
+        ann.append({"image": f"conv{i}.jpg", "conversations": [
+            {"from": "human",
+             "value": "<image>\nwhere is the <box> in this frame ?"},
+            {"from": "gpt", "value": f"object {i} is at <box> now"}],
+            "boxes": [d_box(rng, 640, 480), d_box(rng, 640, 480)]})
+    with open(os.path.join(root, "conversations.json"), "w") as f:
+        json.dump(ann, f)
+    registry.register("conversation", D_CONV, registry.ConversationSpec(
+        annotations=os.path.join(root, "conversations.json"),
+        images=images))
+    return shards
+
+
+def d_argv(out_dir, steps):
+    """The reference's pretraining command line on D's data, the LM frozen
+    (f32 AdamW over an unfrozen 7B does not fit one card); the rest is
+    pretrain.sh's recipe, as ``train_args()``."""
+    return ["--pair_datasets", "laion2b_10m_6merge",
+            "--interpair_datasets", "track_1m_v2_2merge+det_5m_v1_en_4merge",
+            "--conversation_datasets", D_CONV,
+            "--freeze_lm_model", "True", "--tune_im_start_end", "True",
+            "--group_by_modality_length", "True",
+            "--per_device_train_batch_size", "1",
+            "--gradient_accumulation_steps", "2",
+            "--model_max_length", "2048", "--num_train_steps", str(steps),
+            "--save_steps", "0", "--output_dir", out_dir,
+            "--learning_rate", "5e-5", "--adam_beta2", "0.95",
+            "--weight_decay", "0.05", "--max_grad_norm", "1.0",
+            "--warmup_ratio", "0.01", "--lr_scheduler_type", "cosine",
+            "--gradient_checkpointing", "True", "--bf16", "True",
+            "--llrd", "True", "--logging_steps", "1"]
+
+
+class DTap:
+    """Around one ``train()`` call: the entry point's ``Trainer`` and
+    ``batch_iterator`` wrapped to record the trainer, the batches it
+    received, each step's metrics, and the checkpoint's load and save
+    seconds; undone after, and the package logger restored
+    (``setup_logger`` stops its propagation)."""
+
+    def __enter__(self):
+        from merlin_tpu_torch.engine import train as engine
+
+        self.engine = engine
+        self.saved = (engine.Trainer, engine.batch_iterator)
+        pkg = logging.getLogger("merlin_tpu_torch")
+        self.logger_state = (pkg.handlers[:], pkg.propagate, pkg.level)
+        self.batches, self.steps, self.trainer = [], [], None
+        self.resumed, self.load_s = 0, None
+        tap, (base, iterate) = self, self.saved
+
+        class Tapped(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                tap.trainer = self
+
+            def maybe_resume(self):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tap.resumed = super().maybe_resume()
+                torch.cuda.synchronize()
+                tap.load_s = time.perf_counter() - t0
+                return tap.resumed
+
+            def train(self, batches, **kw):
+                return super().train(
+                    batches, log_fn=lambda s, m: tap.steps.append(m), **kw)
+
+            def save_final(self):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tap.checkpoint = super().save_final()
+                tap.save_s = time.perf_counter() - t0
+                return tap.checkpoint
+
+        def tapped(*a, **kw):
+            for batch in iterate(*a, **kw):
+                tap.batches.append(batch)
+                yield batch
+
+        engine.Trainer, engine.batch_iterator = Tapped, tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.engine.Trainer, self.engine.batch_iterator = self.saved
+        pkg = logging.getLogger("merlin_tpu_torch")
+        for h in pkg.handlers:
+            if h not in self.logger_state[0]:
+                h.close()
+        pkg.handlers[:], pkg.propagate, pkg.level = self.logger_state
+
+
+def d_train(tag, argv):
+    """``merlin_tpu_torch.engine.train.train(argv)`` on the card, the launch
+    counts set to 0 just before and read just after."""
+    from merlin_tpu_torch.engine.train import train
+
+    with DTap() as tap:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        tap.metrics = train(argv)
+        torch.cuda.synchronize()
+        tap.wall_s = time.perf_counter() - t0
+        tap.counts = read_counts()
+        tap.peak = torch.cuda.max_memory_allocated()
+    for m in tap.steps:
+        log(f"{tag} step: loss {m['loss']:.7f}, grad_norm "
+            f"{m['grad_norm']:.4f}, lr {m['lr']:.3e}, step "
+            f"{m['step_time_s']:.3f} s, "
+            f"{m.get('tokens_per_sec', float('nan')):.1f} tok/s, mfu "
+            f"{m.get('mfu', float('nan')):.4f} (host clock; 8ND at 989 "
+            f"TFLOP/s)")
+    log(f"{tag}: train() {tap.wall_s:.1f} s, launches {tap.counts}, peak "
+        f"memory {tap.peak} bytes; {len(tap.batches)} batches drawn")
+    return tap
+
+
+def d_check_launches(tag, counts, steps):
+    """T2's formula: per step 2 microbatches x 32 LM layers x 2 (remat) B2
+    launches, 2 x 32 fused backward launches (B10 + B11), 2 x 23 tower
+    layers of B12 and of B13; no other kernel."""
+    want = launches(B2=128 * steps, B12=46 * steps, B13=46 * steps,
+                    **{"B10+B11": 64 * steps})
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, want {want}")
+
+
+def d_init_loss(model):
+    """The first loss a random, untrained head should give: ln V + s2 / 2,
+    the cross entropy of Gaussian logits of variance s2 against a target
+    they do not depend on. The final RMSNorm leaves a token's features at
+    RMS 1 times its scales, so a logit's variance is sum_i scale_i^2 *
+    mean_v W[i, v]^2 over the (frozen) head W: ~1 under the flax-like
+    initializers (unit scales, LeCun-normal head)."""
+    with torch.no_grad():
+        scale = model.lm.final_norm.scale.float()
+        head = model.lm.lm_head.kernel.float()
+        s2 = float((scale ** 2 * (head ** 2).mean(dim=1)).sum())
+    vocab = head.shape[1]
+    return vocab, s2, math.log(vocab) + s2 / 2
+
+
+def d_frozen_lm(bundle):
+    """Replays ``init_or_load_params``'s draws (seed 0 on the card, in
+    parameter order) and holds the trained model against them: every LM
+    tensor bit-identical but the embedding rows its row mask trains, the
+    special tokens' rows moved, and no tower or projector tensor left
+    where it started (but the key biases: zero gradient in exact
+    arithmetic)."""
+    from merlin_tpu_torch.models.builder import _flax_like
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frozen_rows = torch.as_tensor(bundle.embed_row_trainable,
+                                  device="cuda") == 0
+    ids = bundle.special_ids
+    special = [ids.im_start, ids.image_patch, ids.im_end]
+    lm_same, rows_moved, still = True, False, []
+    with torch.no_grad():
+        for name, p in bundle.model.named_parameters():
+            init = _flax_like(name, p.shape, torch.int8 if name.endswith(
+                "kernel_q8") else torch.float32, gen, "cuda")
+            if name == "lm.embed_tokens.embedding":
+                lm_same &= torch.equal(p[frozen_rows], init[frozen_rows])
+                rows_moved = bool((p[special] != init[special]).any(-1).all())
+            elif name.startswith("lm."):
+                lm_same &= torch.equal(p, init)
+            elif not name.endswith("k_proj.bias") and torch.equal(p, init):
+                still.append(name)
+    return lm_same, rows_moved, still, special
+
+
+def d_check_batch(tag, batch, ids, n_patches):
+    """The collator's static shapes, and every image block whole and never
+    supervised."""
+    for k in ("input_ids", "labels", "segment_ids", "attention_mask"):
+        if batch[k].shape != (2, 2048) or batch[k].dtype != np.int32:
+            raise AssertionError(f"{tag}: {k} {batch[k].shape} "
+                                 f"{batch[k].dtype}")
+    if batch["images"].shape != (2, 8, 448, 448, 3) or \
+            batch["images"].dtype != np.uint8:
+        raise AssertionError(f"{tag}: images {batch['images'].shape}")
+    blocks = 0
+    for row, lab in zip(batch["input_ids"], batch["labels"]):
+        for s in np.flatnonzero(row == ids.im_start):
+            if not (np.all(row[s + 1: s + 1 + n_patches] == ids.image_patch)
+                    and row[s + 1 + n_patches] == ids.im_end):
+                raise AssertionError(f"{tag}: image block at {s} broken")
+            blocks += 1
+        part = np.isin(row, [ids.im_start, ids.image_patch, ids.im_end])
+        if not np.all(lab[part] == -100):
+            raise AssertionError(f"{tag}: image tokens supervised")
+    return blocks
+
+
+def d_families(tok, batch):
+    """The family of each row, by its marker word."""
+    out = []
+    for row in batch["input_ids"]:
+        words = set(tok.decode(row).split())
+        out.append([name for name, w in D_MARKERS.items() if w in words])
+    return out
+
+
+def d_same(a, b):
+    return all(np.array_equal(a[k], b[k]) for k in
+               ("input_ids", "labels", "segment_ids", "attention_mask",
+                "images"))
+
+
+def d_pipeline(argv, ckpt3, step_s):
+    """The host side on D's settings: a fresh pipeline (the tokenizer and
+    dataloader ``train()`` builds) timed alone, its first 4 batches checked
+    for shapes, image blocks and families; then a second fresh pipeline
+    loaded with checkpoint-3's cursor must draw the first's 4th batch, and
+    the same cursor with one sample dropped must not."""
+    from merlin_tpu_torch.data.builder import (
+        batch_iterator, build_dataloader, resume_data)
+    from merlin_tpu_torch.models.builder import build_model_tokenizer
+    from merlin_tpu_torch.train.arguments import parse_args
+
+    model_args, data_args, training_args = parse_args(argv)
+    bundle = build_model_tokenizer(model_args, data_args, training_args)
+    tok, ids = bundle.tokenizer, bundle.special_ids
+    del bundle
+
+    def pipeline(state=None, plant=None):
+        data = build_dataloader(tok, ids, data_args, training_args,
+                                process_index=0, process_count=1)
+        start = resume_data(data["train_dataset"], state)
+        if plant is not None:
+            start = plant(data["train_dataset"], start)
+        return batch_iterator(data["train_dataset"], data["collator"],
+                              batch_size=2, sampler=data["sampler"],
+                              start=start)
+
+    t0 = time.perf_counter()
+    it = pipeline()
+    batches = [next(it)]
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches += [next(it) for _ in range(D_PIPE_BATCHES)]
+    feed_s = time.perf_counter() - t0
+    it.close()
+    blocks = sum(d_check_batch(f"D fresh batch {i + 1}", b, ids,
+                               data_args.num_patches)
+                 for i, b in enumerate(batches[:4]))
+    fams = [d_families(tok, b) for b in batches[:4]]
+    seen = {f for b in fams for row in b for f in row}
+    if seen != set(D_MARKERS) or any(len(r) != 1 for b in fams for r in b):
+        raise AssertionError(f"D: the first 4 batches' families {fams}")
+
+    with open(os.path.join(ckpt3, "data_state.json")) as f:
+        cursor = json.load(f)["datasets"]
+    resumed = next(pipeline(state=cursor))
+    cursor_ok = d_same(resumed, batches[3])
+
+    # the planted fault: one sample dropped from the cursor, in the family
+    # the 4th batch's first row came from
+    family = fams[3][0][0]
+    names = [D_CONV] + [name for name, *_ in D_SETS]
+
+    def drop_one(dataset, start):
+        if family == D_CONV:
+            return start + 1          # a map-style set's cursor: the index
+        child = dataset.datasets[names.index(family)]
+        state = child.data_state()
+        state["stream"]["buffer"].pop(0)
+        child.load_data_state(state)
+        return start
+
+    planted = next(pipeline(state=cursor, plant=drop_one))
+    caught = not d_same(planted, batches[3])
+    rate = 2 * D_PIPE_BATCHES / feed_s
+    log(f"D pipeline alone (batch_iterator, D's settings): first batch "
+        f"{first_s:.2f} s (each stream fills its 1000-sample reservoir), "
+        f"then {D_PIPE_BATCHES} batches in {feed_s:.2f} s: {rate:.2f} "
+        f"samples/s, {D_PIPE_BATCHES / feed_s:.3f} batches/s against "
+        f"{1 / step_s:.3f} steps/s (D1's last step, {step_s:.3f} s): the "
+        f"feed runs {(D_PIPE_BATCHES / feed_s) * step_s:.2f}x the step rate "
+        f"(host clock)")
+    log(f"D host checks: 4 fresh batches of (2, 2048) int32 and (2, 8, 448, "
+        f"448, 3) uint8, {blocks} image blocks whole and unsupervised; "
+        f"families {fams}; checkpoint-3's cursor (indices "
+        f"{cursor['indices']}) draws the 4th batch: {cursor_ok}; one sample "
+        f"dropped ({family}) caught: {caught}")
+    if not (cursor_ok and caught):
+        raise AssertionError(f"D cursor: {cursor_ok}, planted {caught}")
+    return dict(first_batch_s=first_s, samples_per_s=rate,
+                batches_per_s=D_PIPE_BATCHES / feed_s,
+                feed_over_step_rate=(D_PIPE_BATCHES / feed_s) * step_s,
+                image_blocks=blocks, families=fams,
+                cursor_indices=cursor["indices"], dropped_from=family)
+
+
+def d_native(shards):
+    """The port's copy of the tar loader, built here by the host compiler:
+    one epoch through it holds the same multiset of samples as the Python
+    tar path over D's shards; ``shard_sample_stream`` on each route (D's
+    settings: buffer 1000, one process) draws every key, timed."""
+    from merlin_tpu_torch.data import native_loader
+    from merlin_tpu_torch.data import shards as sh
+
+    t0 = time.perf_counter()
+    native_loader.build(force=True)
+    build_s = time.perf_counter() - t0
+    if not native_loader.native_available():
+        raise AssertionError("D: the native loader is not available")
+    paths = sorted(p for ps in shards.values() for p in ps)
+    py = collections.Counter(s["__key__"] for s in sh.tar_to_samples(
+        iter(paths)))
+    nat = collections.Counter(s["__key__"] for s in
+                              native_loader.NativeTarStream(paths,
+                                                            max_epochs=1))
+    rates, keys, nbytes_ = {}, {}, {}
+    for route, use in (("native", True), ("python", False)):
+        stream = sh.shard_sample_stream(paths, use_native=use,
+                                        process_index=0, process_count=1)
+        next(stream)                  # the reservoir fills first
+        t0 = time.perf_counter()
+        got = [next(stream) for _ in range(D_RAW_SAMPLES)]
+        rates[route] = D_RAW_SAMPLES / (time.perf_counter() - t0)
+        keys[route] = {s["__key__"] for s in got}
+        nbytes_[route] = sum(len(v) for s in got for k, v in s.items()
+                             if k != "__key__")
+    ok = py == nat and keys["native"] == keys["python"] == set(py)
+    mb = nbytes_["native"] / D_RAW_SAMPLES / 1e6
+    log(f"D native loader: built by the host compiler in {build_s:.1f} s; "
+        f"one epoch ({sum(py.values())} samples, {len(paths)} shards) the "
+        f"same multiset as the Python tar path: {py == nat}; "
+        f"shard_sample_stream draws {D_RAW_SAMPLES} samples ({mb:.3f} MB "
+        f"each): native {rates['native']:.1f} samples/s, python "
+        f"{rates['python']:.1f} ({rates['native'] / rates['python']:.2f}x; "
+        f"host clock), every key on both routes: "
+        f"{keys['native'] == keys['python'] == set(py)}")
+    if not ok:
+        raise AssertionError("D: the native loader disagrees with Python")
+    return dict(build_s=build_s, native_samples_per_s=rates["native"],
+                python_samples_per_s=rates["python"],
+                mb_per_sample=mb, epoch_samples=sum(py.values()))
+
+
+def run_d(smi):
+    """D: the reference's pretraining command line through
+    ``merlin_tpu_torch.engine.train.train`` at ViT-L/14-448 + Vicuna-7B
+    width and depth (the LM frozen), on tar shards and a conversation set
+    written from a seed: D1 takes 3 steps and writes checkpoint-3, D1r
+    resumes from it (parameters, optimizer, data cursor) and takes one;
+    then the host side (pipeline rate, cursor, planted fault) and the
+    native loader. Returns the readings and D1's launch counts."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="merlin_d_")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < 2 * D_CKPT_BYTES:
+            raise AssertionError(
+                f"D: {free / 1e9:.1f} GB free under {root}; its two "
+                f"checkpoints need {2 * D_CKPT_BYTES / 1e9:.1f} GB")
+        t0 = time.perf_counter()
+        data_dir = os.path.join(root, "data")
+        os.makedirs(data_dir)
+        shards = d_write_data(data_dir, np.random.default_rng(12))
+        log(f"D data written in {time.perf_counter() - t0:.1f} s; "
+            f"{free / 1e9:.1f} GB free for the checkpoints")
+        out = os.path.join(root, "out")
+
+        d1 = d_train("D1", d_argv(out, D_STEPS))
+        d_check_launches("D1", d1.counts, D_STEPS)
+        bundle = d1.trainer.bundle
+        vocab, s2, init_loss = d_init_loss(bundle.model)
+        losses = [m["loss"] for m in d1.steps]
+        first_ok = abs(losses[0] - init_loss) <= 0.5
+        lm_same, rows_moved, still, special = d_frozen_lm(bundle)
+        ckpt3 = d1.checkpoint
+        ckpt_bytes = sum(os.path.getsize(os.path.join(ckpt3, f))
+                         for f in os.listdir(ckpt3))
+        step_s = d1.steps[-1]["step_time_s"]
+        d1_batches = list(d1.batches)
+        ids, n_patches = bundle.special_ids, bundle.config.image_token_len
+        log(f"D1 checks: vocab {vocab}; first loss {losses[0]:.6f} vs "
+            f"ln(V) + s2/2 = {math.log(vocab):.6f} + {s2:.4f}/2 = "
+            f"{init_loss:.6f}, an untrained head's (within 0.5: "
+            f"{first_ok}); losses "
+            f"finite: {all(map(math.isfinite, losses))}; LM bit-identical "
+            f"but the trainable embedding rows: {lm_same}; rows {special} "
+            f"moved: {rows_moved}; tower and projector tensors that did not "
+            f"move: {still}; checkpoint-3 {ckpt_bytes} bytes saved in "
+            f"{d1.save_s:.1f} s")
+        if not (vocab == bundle.config.lm.vocab_size == 32003 and first_ok
+                and lm_same and rows_moved
+                and not still and len(losses) == D_STEPS
+                and all(map(math.isfinite, losses))
+                and d1.trainer.step == D_STEPS
+                and os.path.basename(ckpt3) == f"checkpoint-{D_STEPS}"):
+            raise AssertionError(f"D1 failed: {losses} {lm_same} "
+                                 f"{rows_moved} {still}")
+        counts, peak = d1.counts, d1.peak
+        metrics = list(d1.steps)
+        save_s = d1.save_s
+        del d1, bundle
+        free_cuda()
+
+        d1r = d_train("D1r", d_argv(out, D_STEPS + 1))
+        d_check_launches("D1r", d1r.counts, 1)
+        ok = (d1r.resumed == D_STEPS and len(d1r.steps) == 1
+              and d1r.trainer.step == D_STEPS + 1
+              and math.isfinite(d1r.steps[0]["loss"])
+              and os.path.isdir(os.path.join(out, f"checkpoint-{D_STEPS}"))
+              and os.path.basename(d1r.checkpoint)
+              == f"checkpoint-{D_STEPS + 1}")
+        log(f"D1r: resumed at step {d1r.resumed} from checkpoint-{D_STEPS} "
+            f"(loaded in {d1r.load_s:.1f} s), {len(d1r.steps)} step to "
+            f"{d1r.trainer.step}, loss {d1r.steps[0]['loss']:.6f}: {ok}")
+        if not ok:
+            raise AssertionError("D1r failed")
+        load_s, d1r_batches = d1r.load_s, list(d1r.batches)
+        resume_metrics = dict(d1r.steps[0])
+        del d1r
+        free_cuda()
+
+        blocks = 0
+        for tag, bs in (("D1", d1_batches), ("D1r", d1r_batches)):
+            for i, b in enumerate(bs):
+                blocks += d_check_batch(f"{tag} batch {i + 1}", b, ids,
+                                        n_patches)
+        log(f"D: every batch the two runs' Trainers received "
+            f"({len(d1_batches)} + {len(d1r_batches)}) holds the collator's "
+            f"shapes, {blocks} image blocks whole and unsupervised")
+        host = d_pipeline(d_argv(out, D_STEPS), ckpt3, step_s)
+        native = d_native(shards)
+        return dict(steps=metrics, resumed_step=resume_metrics,
+                    init_loss=init_loss, head_logit_var=s2, peak_bytes=peak,
+                    checkpoint_bytes=ckpt_bytes,
+                    checkpoint_save_s=save_s, checkpoint_load_s=load_s,
+                    pipeline=host, native_loader=native), counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def measure_c13(gen):
     """Trap C13: on the card ``MatmulF32``'s backward rounds the f32
     cotangent to bf16 before its two products; JAX contracts the f32
@@ -4198,6 +4751,8 @@ def main() -> int:
     t1 = run_t1(rng)
     free_cuda()
     t2 = run_t2(rng)
+    free_cuda()                       # D builds its bundle inside train()
+    data_train, d_counts = run_d(smi)
     free_cuda()
     b1["launches"], b2["launches"] = fwd_counts["B1"], fwd_counts["B2"]
     b1["launches_generation"] = g["counts"]["B1"]
@@ -4239,6 +4794,7 @@ def main() -> int:
                                   for w in worker_counts}
         row["launches_eval"] = v_counts.get(key, 0)
         row["launches_checkpoint"] = k1["counts"][key]
+        row["launches_data_train"] = d_counts[key]
     log(json.dumps({"serving": {e: served[e][1] for e in served}}))
     log(json.dumps({"front_end": front, "card": smi}))
     log(json.dumps({"checkpoint": {k: v for k, v in k1.items()
@@ -4249,6 +4805,7 @@ def main() -> int:
         "T0": t0_reading, "C13": c13,
         "T1": {k: v for k, v in t1.items() if k != "counts"},
         "T2": {k: v for k, v in t2.items() if k != "counts"}}}))
+    log(json.dumps({"data_train": data_train, "card": smi}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Logging setup (a copy of ``merlin_tpu/utils/logging.py``): rank-0-only
-stream and timestamped file handlers, and rate-limited helpers."""
+stream and timestamped file handlers, rate-limited helpers, and the
+parameter count the training entry point logs."""
 
 from __future__ import annotations
 
@@ -52,3 +53,20 @@ def log_every_n_seconds(logger: logging.Logger, msg: str, n: float = 10.0,
     if now - _LOG_TIMES.get(key, 0.0) >= n:
         _LOG_TIMES[key] = now
         logger.log(level, msg)
+
+
+def log_model_parameters(logger: logging.Logger, params,
+                         trainable_fn=None) -> Dict[str, int]:
+    """Total/trainable parameter counts (reference logger.py:188-200).
+    ``params`` maps names to tensors (a ``state_dict``); ``trainable_fn``
+    takes a name's flax path (the name split at '.')."""
+    total = 0
+    trainable = 0
+    for name, leaf in params.items():
+        n = int(leaf.numel())
+        total += n
+        if trainable_fn is None or trainable_fn(tuple(name.split("."))):
+            trainable += n
+    logger.info("parameters: total=%d trainable=%d (%.2f%%)",
+                total, trainable, 100.0 * trainable / max(total, 1))
+    return {"total": total, "trainable": trainable}

@@ -9,7 +9,9 @@ when :func:`load_tokenizer` runs.
 :class:`TinyTokenizer` implements the same protocol without dependencies,
 for tests and offline runs. Its vocabulary grows as it encodes: a word's id
 is the order in which it was first seen, and an id it has never seen
-decodes to ``<unk>``. ``LlamaLikeTokenizer`` is not ported yet.
+decodes to ``<unk>``. :class:`LlamaLikeTokenizer` reproduces the legacy
+HF Llama tokenizer's behaviours that the SFT label mask's ``-2`` depends
+on.
 """
 
 from __future__ import annotations
@@ -74,6 +76,173 @@ def resize_embeddings_mean_init(embedding: torch.Tensor,
         return embedding
     mean = embedding.mean(dim=0, keepdim=True)
     return torch.cat([embedding, mean.expand(new_vocab - v, d)], dim=0)
+
+
+class LlamaLikeTokenizer:
+    """Pure-python mimic of the (legacy) HF LlamaTokenizer behaviors the
+    SFT masking arithmetic depends on. The reference hardcodes ``-2`` on
+    instruction lengths "for the LLaMA tokenizer"
+    (conversation_dataset.py:160-162); that constant is exactly:
+
+      * BOS (id 1) prepended to every encode                       -> -1
+      * sentencepiece space handling: spaces merge INTO the following
+        word ("▁word" pieces), so a string ending in a space (the
+        " ASSISTANT: " separator) tokenizes standalone to a dangling
+        lone "▁" that, in the full conversation, merges with the first
+        word of the response                                       -> -1
+
+    plus the round-length identity that makes per-round cursors line up:
+    "</s>" (id 2) splits as a special token, and (legacy sentencepiece
+    behavior — the one the reference shipped against, transformers<=4.31
+    slow tokenizers) every segment after a special token gets the dummy
+    "▁" prefix again, so ``len(tok(round))`` = 1 (BOS) + n = n + 1
+    (the "</s>") that the round occupies in the full encoding.
+
+    Greedy longest-match over "▁word"/"word"/punct pieces built from a
+    corpus reproduces sentencepiece segmentations for in-corpus text;
+    out-of-corpus characters fall back to single-character pieces (the
+    byte-fallback analogue). Vocabulary ids follow the llama convention:
+    unk=0, bos=1, eos=2; pad aliases unk as the reference's builder does
+    (model/builder.py pad=unk fallback).
+    """
+
+    def __init__(self, corpus: Sequence[str] = (), *,
+                 model_max_length: int = 2048, legacy: bool = True):
+        self.model_max_length = model_max_length
+        self.padding_side = "right"
+        self.legacy = legacy
+        self.name_or_path = "llama-like"
+        self._vocab: Dict[str, int] = {}
+        self._inv: Dict[int, str] = {}
+        for t in ["<unk>", "<s>", "</s>"]:
+            self._add(t)
+        self.unk_token, self.bos_token, self.eos_token = \
+            "<unk>", "<s>", "</s>"
+        self.pad_token = "<unk>"
+        self.special_tokens: List[str] = ["<unk>", "<s>", "</s>"]
+        self._add("▁")
+        self._max_piece = 1
+        for text in corpus:
+            self._learn(text)
+        self._rebuild_special_re()
+
+    def _add(self, piece: str) -> int:
+        if piece not in self._vocab:
+            idx = len(self._vocab)
+            self._vocab[piece] = idx
+            self._inv[idx] = piece
+            self._max_piece = max(getattr(self, "_max_piece", 1), len(piece))
+        return self._vocab[piece]
+
+    def _learn(self, text: str):
+        for word in re.findall(r"\w+|[^\w\s]", text):
+            self._add("▁" + word)
+            self._add(word)
+
+    def _rebuild_special_re(self):
+        pats = sorted(self.special_tokens, key=len, reverse=True)
+        self._special_re = re.compile(
+            "(" + "|".join(re.escape(p) for p in pats) + ")")
+
+    # --- HF-compatible surface ------------------------------------------
+    @property
+    def pad_token_id(self):
+        return self._vocab[self.pad_token]
+
+    @property
+    def bos_token_id(self):
+        return self._vocab[self.bos_token]
+
+    @property
+    def eos_token_id(self):
+        return self._vocab[self.eos_token]
+
+    @property
+    def unk_token_id(self):
+        return self._vocab[self.unk_token]
+
+    def __len__(self):
+        return max(len(self._vocab), 128)
+
+    def add_tokens(self, tokens: Sequence[str], special_tokens=True) -> int:
+        added = 0
+        for t in tokens:
+            if t not in self._vocab:
+                self._add(t)
+                added += 1
+            if t not in self.special_tokens:
+                self.special_tokens.append(t)
+        self._rebuild_special_re()
+        return added
+
+    def convert_tokens_to_ids(self, token: str) -> int:
+        return self._vocab.get(token, self.unk_token_id)
+
+    def _encode_segment(self, segment: str, dummy_prefix: bool) -> List[int]:
+        text = segment.replace(" ", "▁")
+        if dummy_prefix and not text.startswith("▁"):
+            text = "▁" + text
+        out: List[int] = []
+        i = 0
+        while i < len(text):
+            for j in range(min(len(text), i + self._max_piece), i, -1):
+                piece = text[i:j]
+                if piece in self._vocab and piece not in self.special_tokens:
+                    out.append(self._vocab[piece])
+                    i = j
+                    break
+            else:
+                # char fallback (byte-fallback analogue); learn the char so
+                # round-trips stay stable within one instance
+                out.append(self._add(text[i]))
+                i += 1
+        return out
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> List[int]:
+        ids: List[int] = [self.bos_token_id] if add_special_tokens else []
+        first = True
+        for part in self._special_re.split(text):
+            if part == "":
+                continue
+            if part in self.special_tokens:
+                ids.append(self._vocab[part])
+                first = False
+                continue
+            # legacy sentencepiece: dummy prefix re-applied after specials
+            ids.extend(self._encode_segment(
+                part, dummy_prefix=first or self.legacy))
+            first = False
+        return ids
+
+    def __call__(self, text, return_tensors=None, add_special_tokens=True,
+                 truncation=False, max_length=None, padding=False):
+        if isinstance(text, str):
+            ids = [self.encode(text, add_special_tokens)]
+        else:
+            ids = [self.encode(t, add_special_tokens) for t in text]
+        limit = max_length or self.model_max_length
+        if truncation:
+            ids = [x[:limit] for x in ids]
+
+        class _Out(dict):
+            __getattr__ = dict.__getitem__
+
+        out = _Out(input_ids=ids)
+        if return_tensors == "np":
+            out["input_ids"] = np.asarray(ids)
+        return out
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        parts = []
+        for i in np.asarray(ids).reshape(-1).tolist():
+            t = self._inv.get(int(i), self.unk_token)
+            if skip_special_tokens and t in self.special_tokens:
+                continue
+            parts.append(t)
+        return "".join(parts).replace("▁", " ")
+
+    def batch_decode(self, batch, skip_special_tokens: bool = False):
+        return [self.decode(x, skip_special_tokens) for x in batch]
 
 
 class TinyTokenizer:

@@ -1,6 +1,8 @@
 """Structural checks on the port (``merlin_tpu_torch`` and ``chip_smoke.py``):
 
-  * nothing imports jax, flax, optax or merlin_tpu;
+  * nothing imports jax, flax, optax or merlin_tpu, and no port module
+    names a path of the JAX package or its ``native/`` directory (the port
+    builds its own copy of the tar loader);
   * the entry points default to the card (``device="cuda"``), the
     checkpoint reader too, and a checkpoint read for another device never
     lands on the CPU;
@@ -16,12 +18,15 @@
 import ast
 import inspect
 import pathlib
+import re
 
 import pytest
 import torch
 
 import merlin_tpu_torch
+from merlin_tpu_torch.data import native_loader
 from merlin_tpu_torch.engine import eval as eval_cli
+from merlin_tpu_torch.engine import train as train_cli
 from merlin_tpu_torch.eval import (
     box_eval, demo, docvqa, mmbench, mmvet, single, tracking)
 from merlin_tpu_torch.eval.runner import EvalModel
@@ -68,6 +73,43 @@ def test_port_imports_nothing_of_jax(path):
             assert top not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+def _code_strings(tree):
+    """String constants of a module's code, docstrings left out."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and \
+                    isinstance(first.value, ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs]
+
+
+JAX_PATH = re.compile(r"(?:^|[^\w/.])(?:merlin_tpu|native)/")
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_names_no_path_of_the_jax_package(path):
+    """No string in a port module's code names a ``merlin_tpu/`` path or
+    the repository's ``native/`` directory; the one bare "native" is the
+    native loader's own directory inside the port."""
+    for text in _code_strings(ast.parse(path.read_text())):
+        assert not JAX_PATH.search(text), f"{path.name}: {text!r}"
+        assert text != "merlin_tpu", path.name
+        if text == "native":
+            assert path.name == "native_loader.py"
+
+
+def test_native_loader_builds_from_the_ports_own_copy():
+    for p in (native_loader._NATIVE_DIR, native_loader._SOURCE,
+              native_loader._SO_PATH):
+        assert pathlib.Path(p).resolve().is_relative_to(PKG)
+    assert pathlib.Path(native_loader._SOURCE).exists()
+
+
 @pytest.mark.parametrize("fn", [init_params, init_kv_cache,
                                 preprocess_images, Generator.__init__,
                                 ServingEngine.__init__, Trainer.__init__,
@@ -75,7 +117,8 @@ def test_port_imports_nothing_of_jax(path):
                                 serve_worker.serve, EvalModel.__init__,
                                 BeamSearch.__init__,
                                 SpeculativeGenerator.__init__,
-                                init_or_load_params, load_torch_state_dict],
+                                init_or_load_params, load_torch_state_dict,
+                                train_cli.train],
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
