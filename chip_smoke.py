@@ -61,6 +61,21 @@ the LM quantized to int8) and of Baichuan-13B:
                   model, and a request's tokens read after another
                   request's prompt must fail that check. Prints tokens/s,
                   per-request TTFT and the KV pool's bytes.
+  S. scan_layers - the same models built with ``scan_layers`` (the LM's
+                  layers stacked by ``stack_layer_params``) behind the
+                  engine at 8 slots x 2304 tokens, pages of 128: one
+                  stacked pool that the decoder views flat, 4608 pages at
+                  Vicuna-7B, the last three layers' pages past 2**31 values
+                  (64-bit page offsets). S1 whole prompt + decode (B2, B3),
+                  S2 chunked + spec k=4 (B6, B5), S4 int8 weights (the
+                  stacked quantizer, equal leaf for leaf to the loop one's
+                  stacked) + int8 pages, hybrid (B2, B8, B7), S3
+                  Baichuan-13B 4 layers, ALiBi, hybrid (B2, B6, B4); each
+                  also through the loop model at the same settings: every
+                  check of the serving phase on both, each request's
+                  tokens equal, the free pages back at their start; the
+                  per-layer page offset dropped (every layer on layer 0's
+                  pages) must change the tokens;
   W. front end  - the serving front end over HTTP on loopback: a Vicuna-7B
                   + CLIP ViT-L/14-448 bundle built by ``parse_args([])``,
                   ``build_model_tokenizer`` (the hub unreachable: the
@@ -86,6 +101,24 @@ the LM quantized to int8) and of Baichuan-13B:
                   = 32 x the engine's calls of each kind, 0 elsewhere.
                   Prints TTFT and tok/s per request (host clock at the
                   client);
+                  W3: the W1 bundle rebuilt by the worker's own command
+                  line with ``--scan-decode`` (``parse_worker_args``), W1's
+                  weights stacked into it; W1's first two text prompts to
+                  an engine worker and its 1-frame prompt to a speculative
+                  one (a stacked dense cache) must give W1's answers; one
+                  chat with a frame through ``serve/web.py`` (held against
+                  a no-cache forward), a vote, the conversation JSONL and
+                  the image archived under its md5 in a temporary log
+                  directory; ``serve/tools.test_message`` through the
+                  controller. L: LoRA (``train/lora.py``, r 64, alpha 16,
+                  the reference's 224 targets) over the W bundle with its
+                  base cast to bf16 and the tower frozen, 3 steps of
+                  ``torch.optim.Adam`` over the factors on a (1, 2048)
+                  batch with one frame (B1, B2 twice a layer under remat,
+                  the fused backward): the step-0 merge equal to the base
+                  bit for bit, the loss falling, every base tensor's
+                  fingerprint unchanged, every b non-zero, the launches
+                  exact, the peak memory printed;
   V. evaluation - between W1 and W2, on the same bf16-computing bundle
                   (its tokenizer primed with every word the harness
                   prompts hold, C20), every harness of
@@ -170,6 +203,14 @@ the LM quantized to int8) and of Baichuan-13B:
  10. T2         - the same at all 32 LM layers with the LM frozen but its
                   new-token embedding rows (2 steps): the LM stays
                   bit-identical but those rows, the tower and projector move.
+ 11. T3         - ``Trainer.train`` over MetaCLIP ViT-H/14-448 (trainable,
+                  31 layers run, d = 80, 1025 tokens) + conv + Vicuna-7B
+                  width cut to 2 layers, 2 steps at accum 2 on (2, 2048)
+                  batches with one frame a row: B12/B13 under autograd;
+                  first one microbatch whose tower gradients must hold
+                  against the same step with the plain attention swapped
+                  in (here only), loss and tower gradient norm finite;
+                  exact launches; then a step timed alone and one profiled.
   D. data       - the data pipeline and the training entry point: tar
                   shards (pair, tracking and detection frames) and a
                   conversation set with boxes, written from a seed and
@@ -1796,11 +1837,13 @@ def run_engine(tag, model, prompts, reached, **engine_kw):
     engine = ServingEngine(model, eos_id=-1, device="cuda", **engine_kw)
     cfg = engine.lm_cfg
     group = cfg.num_heads // cfg.kv_heads
-    pool = nbytes(*(t for layer in engine.cache["layers"]
-                    for t in layer.values()))
+    layers = engine.cache["layers"]
+    if engine._stacked:              # one (L, P, ...) tensor per key
+        layers = [layers]
+    pool = nbytes(*(t for layer in layers for t in layer.values()))
     # the same pool as bf16 pages: K and V, 2 bytes a value, no scales
-    pool_bf16 = sum(2 * 2 * layer["k_pages"].numel()
-                    for layer in engine.cache["layers"])
+    pool_bf16 = sum(2 * 2 * layer["k_pages"].numel() for layer in layers)
+    free_start = engine.pool.free_pages
     calls = collections.Counter()
 
     def counter(window):
@@ -1832,7 +1875,11 @@ def run_engine(tag, model, prompts, reached, **engine_kw):
     counts = read_counts()
     for h in hooks:
         h.remove()
+    free_end = engine.pool.free_pages
     engine.close()
+    if free_end != free_start:
+        raise AssertionError(f"{tag}: {free_end} free pages after the run, "
+                             f"{free_start} before")
     n = cfg.num_layers
     alibi = cfg.positional == "alibi"
     if q8:
@@ -1879,7 +1926,8 @@ def run_engine(tag, model, prompts, reached, **engine_kw):
                              "swapped prompt")
     return counts, dict(tok_s=n_tok / wall, ttft_ms=ttft, calls=dict(calls),
                         wall_s=wall, max_gap=max(gaps), pool_bytes=pool,
-                        pool_bytes_bf16=pool_bf16)
+                        pool_bytes_bf16=pool_bf16, free_pages=free_end,
+                        tokens=[r.generated for r in reqs])
 
 
 def serving_prompts(rng, lengths, vocab, period=0):
@@ -1978,6 +2026,166 @@ def serve_baichuan(rng):
         ["B7w", "B8"], cache_dtype=torch.int8, prefill_chunk=128,
         prefill_windows_per_step=4, spec_draft=4, chunk_steps=1, **SERVING)
     return {"E3": e3, "E5": e5}
+
+
+# ---------------------------------------------------------------------------
+# phase S: the scan_layers layout served from one stacked paged pool
+# ---------------------------------------------------------------------------
+
+# 8 slots x 2304 tokens in pages of 128: 144 pages a layer, and a flat pool
+# of 32 x 144 pages of 128 x 4096 values, so layers 29-31 start past 2**31
+# values of the pool and their page offsets need 64 bits
+S_SERVING = dict(num_slots=8, max_len=2304, page_size=128, prompt_bucket=128)
+S_FAULT_NEW = 8              # tokens of the planted dropped-offset run
+
+
+def scanned_copy(model):
+    """The same ``MMGPT`` (or ``CausalLM``) built with ``scan_layers``: its
+    LM layers stacked by ``stack_layer_params`` (new tensors), every other
+    tensor shared with ``model``."""
+    from merlin_tpu_torch.models.convert import stack_layer_params
+
+    cfg = model.cfg
+    mm = hasattr(cfg, "lm")
+    lm = dataclasses.replace(cfg.lm if mm else cfg, scan_layers=True)
+    scfg = dataclasses.replace(cfg, lm=lm) if mm else lm
+    with torch.device("meta"):
+        smodel = type(model)(scfg)
+    smodel.load_state_dict(stack_layer_params(
+        dict(model.state_dict()), lm.num_layers,
+        prefix="lm." if mm else ""), strict=True, assign=True)
+    return smodel.eval()
+
+
+def flat_pool_reach(smodel):
+    """(the element offset of the last layer's first page in the flat
+    pool, its pages) for ``S_SERVING``: > 2**31 is the point."""
+    lm = smodel.cfg.lm if hasattr(smodel.cfg, "lm") else smodel.cfg
+    pages = S_SERVING["num_slots"] * (S_SERVING["max_len"]
+                                      // S_SERVING["page_size"])
+    per_page = S_SERVING["page_size"] * lm.kv_heads * lm.head_size
+    return (lm.num_layers - 1) * pages * per_page, lm.num_layers * pages
+
+
+def s_pair(tag, loop_model, scan_model, prompts, reached, **kw):
+    """One traffic mix through the loop engine and the scanned engine, both
+    at ``S_SERVING``: every check of ``run_engine`` on each, and each
+    request's tokens equal. Returns the scanned run's (counts, readings)
+    with the loop run's beside them."""
+    loop = run_engine(f"{tag} loop", loop_model, prompts, reached, **kw,
+                      **S_SERVING)
+    scan = run_engine(f"{tag} scan_layers", scan_model, prompts, reached,
+                      **kw, **S_SERVING)
+    same = scan[1]["tokens"] == loop[1]["tokens"]
+    log(f"{tag}: scanned tokens equal the loop engine's for every request: "
+        f"{same}; launches loop {loop[0]} / scanned {scan[0]}")
+    if not same or scan[0] != loop[0]:
+        raise AssertionError(f"{tag}: the scanned engine differs from the "
+                             "loop engine")
+    scan[1]["loop"] = {k: v for k, v in loop[1].items() if k != "tokens"}
+    return scan
+
+
+def s_dropped_offset(smodel, prompts, want):
+    """Planted fault: the flat pool's per-layer page offset dropped, so
+    every layer reads and writes layer 0's pages in the decode steps. The
+    tokens must then differ from the loop engine's."""
+    from merlin_tpu_torch.models.decoder import ScannedLayers
+    from merlin_tpu_torch.serve.engine import ServingEngine
+
+    real = ScannedLayers._layer_caches
+
+    def dropped(self, kv_cache, cache_aux):
+        out = real(self, kv_cache, cache_aux)
+        if kv_cache is not None and "page_tables" in kv_cache:
+            out = [(c, dict(a, page_tables=kv_cache["page_tables"]))
+                   for c, a in out]
+        return out
+
+    ScannedLayers._layer_caches = dropped
+    try:
+        engine = ServingEngine(smodel, eos_id=-1, device="cuda",
+                               chunk_steps=8, **S_SERVING)
+        reqs = [engine.submit(p, max_new_tokens=S_FAULT_NEW)
+                for p in prompts[:2]]
+        engine.run_until_idle()
+        engine.close()
+    finally:
+        ScannedLayers._layer_caches = real
+    got = [r.generated for r in reqs]
+    differs = got != [w[:S_FAULT_NEW] for w in want[:2]]
+    log(f"S planted fault (page offset dropped): tokens differ from the loop "
+        f"engine's: {differs}")
+    if not differs:
+        raise AssertionError("S: a dropped layer offset went unseen")
+
+
+def serve_scanned(model, rng):
+    """S1 (whole prompt + decode: B2, B3) and S2 (chunked C=128 + spec k=4:
+    B6, B5) on the full-width Vicuna-7B MMGPT, loop and scanned, at
+    ``S_SERVING``; the planted dropped offset. Returns (readings, the
+    scanned model)."""
+    smodel = scanned_copy(model)
+    reach, pages = flat_pool_reach(smodel)
+    log(f"S: scanned copy of the Vicuna-7B MMGPT (layers stacked: "
+        f"{tuple(smodel.lm.layers.block.attn.q_proj.kernel.shape)}); flat "
+        f"pool of {pages} pages, the last layer's first page at element "
+        f"{reach} (2**31 = {2 ** 31})")
+    if reach <= 2 ** 31:
+        raise AssertionError("S: the flat pool does not pass 2**31")
+    prompts = serving_prompts(rng, SERVING_LENGTHS, 32000)
+    out = {"S1": s_pair("S1 vicuna-7b (whole prompt, decode)", model, smodel,
+                        prompts, ["B2", "B3"], chunk_steps=8, pipeline=1)}
+    # the scanned tokens equal the loop engine's (s_pair checked)
+    s_dropped_offset(smodel, prompts, out["S1"][1]["tokens"])
+    out["S2"] = s_pair("S2 vicuna-7b (chunked C=128, spec k=4)", model,
+                       smodel, serving_prompts(rng, SERVING_LENGTHS, 32000,
+                                               period=48),
+                       ["B5", "B6"], prefill_chunk=128,
+                       prefill_windows_per_step=4, spec_draft=4,
+                       chunk_steps=1)
+    return out, smodel
+
+
+def check_stacked_int8(qmodel, sqmodel):
+    """The stacked quantizer's int8 LM equals the loop quantizer's layers
+    stacked, leaf for leaf (one scale per layer and channel)."""
+    from merlin_tpu_torch.models.convert import stack_layer_params
+
+    want = stack_layer_params(dict(qmodel.state_dict()),
+                              qmodel.cfg.lm.num_layers, prefix="lm.")
+    got = sqmodel.state_dict()
+    bad = [n for n in got if not torch.equal(got[n], want[n])]
+    log(f"S4: stacked int8 LM ({len(got)} leaves) equals the loop int8 LM "
+        f"stacked: {not bad and sorted(got) == sorted(want)}")
+    if bad or sorted(got) != sorted(want):
+        raise AssertionError(f"S4: stacked quantizer differs: {bad[:4]}")
+
+
+def serve_scanned_int8(qmodel, sqmodel, rng):
+    """S4: the int8-weight LM over int8 pages, hybrid (B2, B8, B7), loop
+    and scanned at ``S_SERVING``."""
+    return s_pair("S4 vicuna-7b int8 weights + int8 pages (hybrid C=128 "
+                  "min 256)", qmodel, sqmodel,
+                  serving_prompts(rng, SERVING_LENGTHS, 32000),
+                  ["B2", "B7", "B8"], cache_dtype=torch.int8,
+                  prefill_chunk=128, prefill_chunk_min=256, chunk_steps=8,
+                  pipeline=1)
+
+
+def serve_scanned_alibi(rng):
+    """S3: Baichuan-13B cut to 4 layers (E3's model), ALiBi, hybrid, loop
+    and scanned at ``S_SERVING``: B4 over a flat pool (B2, B6 too)."""
+    model = build_baichuan()
+    smodel = scanned_copy(model)
+    out = s_pair("S3 baichuan-13b 4 layers (alibi, hybrid C=128 min 256)",
+                 model, smodel,
+                 serving_prompts(rng, [100, 200, 700, 1300, 120, 900],
+                                 64000), ["B2", "B4", "B6"],
+                 prefill_chunk=128, prefill_chunk_min=256)
+    del model, smodel
+    free_cuda()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2422,6 +2630,219 @@ def run_w1(bundle, rng, fillers, frames, smi):
         raise AssertionError(f"W1 beam score check: {honest} {planted}")
     readings["beam"] = dict(seconds=round(beam_s, 3), score_gap=honest,
                             planted_gap=planted)
+    sent = dict(texts=texts, answers=[c[-1]["text"] for c, _ in results],
+                one=one)
+    return counts, readings, sent
+
+
+def w3_bundle(bundle):
+    """The W1 bundle rebuilt through the worker's own command line with
+    ``--scan-decode`` (``parse_worker_args``, ``build_model_tokenizer``),
+    W1's weights stacked into it and W1's primed tokenizer."""
+    from merlin_tpu_torch.models.builder import build_model_tokenizer
+    from merlin_tpu_torch.models.convert import stack_layer_params
+    from merlin_tpu_torch.serve.worker import parse_worker_args
+
+    t0 = time.perf_counter()
+    args, margs, dargs, targs = parse_worker_args(["--scan-decode"])
+    w3 = build_model_tokenizer(margs, dargs, targs)
+    loop_cfg = dataclasses.replace(w3.config, lm=dataclasses.replace(
+        w3.config.lm, scan_layers=False))
+    if not (args.scan_decode and margs.scan_layers and w3.config.lm.scan_layers
+            and loop_cfg == bundle.config):
+        raise AssertionError("W3: --scan-decode did not build the scanned "
+                             "twin of the W1 bundle")
+    w3.model.load_state_dict(stack_layer_params(
+        dict(bundle.model.state_dict()), w3.config.lm.num_layers,
+        prefix="lm."), strict=True, assign=True)
+    w3.model.eval()
+    w3.params = w3.model.state_dict()
+    w3.tokenizer, w3.special_ids = bundle.tokenizer, bundle.special_ids
+    torch.cuda.synchronize()
+    log(f"W3: --scan-decode bundle, LM stacked "
+        f"{tuple(w3.params['lm.layers.block.attn.q_proj.kernel'].shape)} "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return w3
+
+
+def w3_web(ctrl, frame, log_dir):
+    """One chat request with a frame through the port's web server, then a
+    vote. The conversation record and the archived image must appear under
+    ``log_dir``. Returns (chunks, seconds to each, the question, the
+    conversation log's record types)."""
+    import base64
+    import glob
+    import hashlib
+    import threading
+    import urllib.request
+
+    from merlin_tpu_torch.serve import web as web_mod
+
+    server = web_mod.serve(ctrl, host="127.0.0.1", port=free_port(),
+                           model="merlin-engine", log_dir=log_dir)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    question = "<image>\n" + W_QUESTION
+    png = png_b64(frame)
+    chunks, stamps = [], []
+    try:
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url + "/chat", data=json.dumps({
+            "history": [["USER", question]], "images": [png],
+            "temperature": 0.0, "max_new_tokens": W_MAX_NEW}).encode())
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            buf = b""
+            while True:
+                data = resp.read1(1024)
+                if not data:
+                    break
+                buf += data
+                while b"\0" in buf:
+                    raw, buf = buf.split(b"\0", 1)
+                    if raw:
+                        chunks.append(json.loads(raw))
+                        stamps.append(time.perf_counter() - t0)
+        answer = chunks[-1]["text"] if chunks else ""
+        vote = urllib.request.Request(url + "/vote", data=json.dumps({
+            "type": "upvote", "history": [["USER", question],
+                                          ["ASSISTANT", answer]]}).encode())
+        with urllib.request.urlopen(vote, timeout=60) as resp:
+            voted = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+    logs = glob.glob(os.path.join(log_dir, "conv-*.jsonl"))
+    records = [json.loads(line) for path in logs for line in open(path)]
+    digest = hashlib.md5(base64.b64decode(png)).hexdigest()
+    archived = glob.glob(os.path.join(log_dir, "serve_images", "*",
+                                      digest + ".jpg"))
+    types = [r["type"] for r in records]
+    chat = [r for r in records if r["type"] == "chat"]
+    ok = (voted == {"ok": True} and types == ["chat", "upvote"]
+          and chat[0]["images"] == [digest]
+          and chat[0]["state"] == [["USER", question]]
+          and len(archived) == 1
+          and open(archived[0], "rb").read() == base64.b64decode(png))
+    log(f"W3 web: conversation log {types}, image {digest} archived: "
+        f"{len(archived)}; checks {ok}")
+    if not ok:
+        raise AssertionError(f"W3 web: logs {records} archived {archived}")
+    return chunks, stamps, question, types
+
+
+def w3_hold_web(model, tok, frame, chunks, stamps, question, types, smi):
+    """The web chat's answer held against a no-cache forward of the prompt
+    the web server built (its template for the model name)."""
+    from merlin_tpu_torch.serve import web as web_mod
+    from merlin_tpu_torch.utils import constants as C
+    from merlin_tpu_torch.utils.conversation import conv_templates
+
+    read = w_readings("W3 web chat (1 frame, through serve/web.py)", chunks,
+                      stamps, smi)
+    conv = conv_templates[web_mod.template_for_model("merlin-engine")].copy()
+    conv.append_message(conv.roles[0], question)
+    conv.append_message(conv.roles[1], None)
+    prompt = conv.get_prompt().replace(
+        "<image>", C.image_placeholder(model.cfg.image_token_len))
+    ids = tok(prompt)["input_ids"][0]
+    images = decoded_images([frame], model.cfg.vit.image_size)
+    gap, seq = hold_answer("W3 web chat", model, tok, ids, images,
+                           chunks[-1]["text"], len(chunks), GEN_RTOL)
+    read.update(prompt_tokens=len(ids), tokens=len(seq), max_gap=gap,
+                log_records=types)
+    return read
+
+
+def run_w3(bundle, sent, frames, smi):
+    """W3: ``--scan-decode`` behind the front end. W1's bundle rebuilt
+    scanned through the worker's argument path; W1's first two text prompts
+    to an engine worker (B2 whole, B6 chunked, B3 decode) and its 1-frame
+    prompt to a speculative worker (a stacked dense cache; B1): each
+    answer must equal W1's. Then one chat through ``serve/web.py`` with a
+    frame (B1), a vote, the log and the archived image, and
+    ``serve/tools.test_message`` through the controller."""
+    import tempfile
+    import threading
+
+    from merlin_tpu_torch.serve import tools as tools_mod
+
+    w3 = w3_bundle(bundle)
+    tok, model = w3.tokenizer, w3.model
+    ctrl, workers, servers = start_stack(w3, [
+        ("merlin-engine", W_ENGINE), ("merlin-spec", dict(speculative=4))])
+    records, handler = w_worker_log()
+    calls = collections.Counter()
+    encoded = [0, 0]
+    hooks = engine_counter(workers["merlin-engine"], calls) \
+        + tower_counter(model, encoded)
+    base = dict(temperature=0.0, max_new_tokens=W_MAX_NEW, stop="</s>")
+    results = [None, None]
+
+    def send(i):
+        results[i] = w_request(ctrl, dict(base, model="merlin-engine",
+                                          prompt=sent["texts"][i]))
+
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_w3_")
+    torch.cuda.synchronize()
+    reset_counts()
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    results.append(w_request(ctrl, dict(
+        base, model="merlin-spec", prompt=sent["one"],
+        images=[png_b64(frames[2])])))
+    web = w3_web(ctrl, frames[3], log_dir)
+    said = []
+    message = tools_mod.test_message(ctrl, model="merlin-engine",
+                                     message=W_QUESTION, max_new_tokens=8,
+                                     print_fn=said.append)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for h in hooks:
+        h.remove()
+    stop_stack(servers, workers)
+    import logging
+    import shutil
+    logging.getLogger("merlin_tpu_torch.worker").removeHandler(handler)
+    shutil.rmtree(log_dir, ignore_errors=True)
+    if any("engine step failed" in r or "generate failed" in r
+           for r in records):
+        raise AssertionError(f"W3: a worker logged a failure: {records}")
+    w_check_launches("W3", counts, calls, w3.config.lm.num_layers,
+                     encoded[0], q8=False)
+    if encoded != [2, 2]:
+        raise AssertionError(f"W3: {encoded[1]} images in {encoded[0]} "
+                             "tower calls, not 2 in 2")
+    names = ["text 100 words", "text 300 words", "1 image (speculative k=4)"]
+    want = [sent["answers"][0], sent["answers"][1], sent["answers"][-1]]
+    readings = {}
+    for name, (chunks, stamps), w in zip(names, results, want):
+        readings[name] = w_readings(f"W3 {name}", chunks, stamps, smi)
+        readings[name]["equals_w1"] = chunks[-1]["text"] == w
+    same = all(r["equals_w1"] for r in readings.values())
+    log(f"W3 answers equal W1's for the same prompts: {same}; "
+        f"tools.test_message answered {len(message.split())} words, "
+        f"printed {said[:2]}")
+    if not same:
+        raise AssertionError("W3: a scanned answer differs from W1's")
+    if not isinstance(message, str) or said[:2] != [
+            "models: ['merlin-engine', 'merlin-spec']",
+            f"worker: {workers['merlin-engine'].worker_address}"]:
+        raise AssertionError(f"W3: test_message printed {said}")
+    # test_message sends the question in the v1 template, text only
+    from merlin_tpu_torch.utils.conversation import conv_templates
+
+    conv = conv_templates["v1"].copy()
+    conv.append_message(conv.roles[0], W_QUESTION)
+    conv.append_message(conv.roles[1], None)
+    gap, seq = hold_answer("W3 tools.test_message", model, tok,
+                           tok(conv.get_prompt())["input_ids"][0], None,
+                           message, None, GEN_RTOL)
+    readings["web"] = w3_hold_web(model, tok, frames[3], *web, smi)
+    readings["test_message"] = dict(tokens=len(seq), max_gap=gap)
+    del w3, model
     return counts, readings
 
 
@@ -2952,8 +3373,10 @@ def serve_front(rng, smi):
     """The W phase: the port's serving front end on a Vicuna-7B MMGPT built
     by the user's entry points (``parse_args([])``, ``build_model_tokenizer``,
     ``init_or_load_params``), bf16 compute (W1), the eval harnesses on the
-    same bundle (V), then its LM quantized to int8 (W2). Returns ({"W1":
-    counts, "W2": counts}, readings, V's launches)."""
+    same bundle (V), its LM quantized to int8 (W2), the bundle rebuilt
+    with ``--scan-decode`` (W3), then LoRA over it (L). Returns ({"W1",
+    "W2", "W3": counts}, readings, V's launches, L's counts and
+    readings)."""
     from merlin_tpu_torch.models.builder import (
         build_model_tokenizer, init_or_load_params, quantize_bundle_lm_int8)
     from merlin_tpu_torch.train.arguments import parse_args
@@ -2985,14 +3408,13 @@ def serve_front(rng, smi):
                               [conv.get_prompt()] + v_texts())
     frames = rng.integers(0, 256, size=(4, 480, 640, 3), dtype=np.uint8)
 
-    w1_counts, w1 = run_w1(bundle, rng, fillers, frames, smi)
+    w1_counts, w1, sent = run_w1(bundle, rng, fillers, frames, smi)
     free_cuda()
     v_counts = run_v(bundle, smi)
     free_cuda()
     fc1 = "vision_tower.vit.layers_0.mlp.fc1.kernel"
     tower = bundle.params[fc1]
     qbundle = quantize_bundle_lm_int8(bundle)
-    del bundle
     free_cuda()
     q = qbundle.params
     if not (q[fc1] is tower or q[fc1].data_ptr() == tower.data_ptr()) or \
@@ -3005,9 +3427,16 @@ def serve_front(rng, smi):
     log(f"W2: LM quantized to int8 ({lm_gb:.2f} GB); tower fc1 untouched "
         f"({tower.dtype})")
     w2_counts, w2 = run_w2(qbundle, rng, fillers, smi)
-    del qbundle
+    del qbundle, q, tower
     free_cuda()
-    return {"W1": w1_counts, "W2": w2_counts}, {"W1": w1, "W2": w2}, v_counts
+    w3_counts, w3 = run_w3(bundle, sent, frames, smi)
+    free_cuda()
+    lora_counts, lora = run_l(bundle, np.random.default_rng(14), smi)
+    del bundle
+    free_cuda()
+    return ({"W1": w1_counts, "W2": w2_counts, "W3": w3_counts},
+            {"W1": w1, "W2": w2, "W3": w3}, v_counts,
+            {"counts": lora_counts, **lora})
 
 
 # ---------------------------------------------------------------------------
@@ -3883,10 +4312,11 @@ def train_args(**kw):
     return TrainingArguments(**base)
 
 
-def run_training(tag, model, model_args, targs, steps, rng):
+def run_training(tag, model, model_args, targs, steps, rng, **batch_kw):
     """Train ``steps`` steps through ``Trainer.train`` on one repeated batch
-    with the launch counts set to 0 just before and read just after.
-    Returns (per-step metrics, launch counts, peak bytes)."""
+    (``train_batch`` with ``batch_kw``) with the launch counts set to 0
+    just before and read just after. Returns (per-step metrics, launch
+    counts, peak bytes)."""
     from merlin_tpu_torch.models.builder import make_bundle
     from merlin_tpu_torch.train.trainer import Trainer
 
@@ -3894,7 +4324,7 @@ def run_training(tag, model, model_args, targs, steps, rng):
     trainer = Trainer(bundle, targs, device="cuda")
     trainer.init_state()
     batch = train_batch(rng, model.cfg.image_token_len,
-                        rows=targs.gradient_accumulation_steps)
+                        rows=targs.gradient_accumulation_steps, **batch_kw)
     seen = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4070,6 +4500,325 @@ def run_t2(rng):
                 peak_bytes=peak, step_time_s=seen[-1]["step_time_s"],
                 tokens_per_sec=seen[-1]["tokens_per_sec"],
                 mfu=seen[-1]["mfu"], profile=prof)
+
+
+# --- phase T3: a MetaCLIP-H/14 tower trained through the Trainer ----------
+
+T3_TOWER_LAYERS = 31         # MetaCLIP-H/14 runs 31 of its 32 layers
+T3_BATCH = dict(n_images=1, slots=1)
+T3_NOISE_FACTOR = 4.0        # a gradient's error against the f32 step may
+                             # reach 4x the plain versions' own (C40)
+T3_FAULT_KEYS = 256          # the planted fault: B13's dv of the last 256
+                             # keys (two of its 128-key tiles) zeroed
+
+
+def build_t3_model():
+    """MetaCLIP ViT-H/14-448 (d = 80, 1025 tokens) + conv projector +
+    Vicuna-7B width cut to 2 layers (as K2), remat on, f32 trainable
+    parameters N(0, 1)*0.02 from seed 0, bf16 compute."""
+    from merlin_tpu_torch.models.bridge import init_params
+    from merlin_tpu_torch.models.families import vicuna_7b
+    from merlin_tpu_torch.models.mmgpt import MMGPT, MMGPTConfig
+    from merlin_tpu_torch.models.vit import metaclip_vit_h14
+
+    lm = dataclasses.replace(vicuna_7b(), vocab_size=32128, num_layers=2,
+                             remat=True)
+    cfg = MMGPTConfig(lm=lm, vit=metaclip_vit_h14(448), projector="conv",
+                      vision_kind="metaclip", image_patch_id=PATCH_ID,
+                      im_start_id=START_ID, im_end_id=END_ID)
+    with torch.device("meta"):
+        model = MMGPT(cfg)
+    init_params(model, torch.Generator(device="cuda").manual_seed(0),
+                dtype=torch.float32, device="cuda", requires_grad=True)
+    return model
+
+
+def t3_grads(model, batch, route: str):
+    """(loss, every gradient) of one microbatch of ``batch``. ``route``
+    "kernels": the path as it runs. "plain": each training kernel's plain
+    version swapped in for its wrapper, here only, as the reference: B12/
+    B13 (the tower) and B2/B10+B11 (the LM) run the same arithmetic (bf16
+    P and dS, di from the bf16 out) in plain PyTorch on the card.
+    "autograd": ``mha_reference`` in the tower's and the decoder's
+    dispatcher, differentiated by autograd (f32 P, di from it); run on
+    :func:`t3_f32_twin` it is the f32 reference. "fault": the kernels with
+    B13's dv of the last ``T3_FAULT_KEYS`` keys zeroed (dropped key
+    tiles)."""
+    from merlin_tpu_torch.models import decoder as dec_mod
+    from merlin_tpu_torch.models import vit as vit_mod
+    from merlin_tpu_torch.ops import flash_attention as fa
+    from merlin_tpu_torch.ops import onepass_attention as oa
+    from merlin_tpu_torch.ops.attention import mha_reference
+    from merlin_tpu_torch.train.step import make_loss_fn
+
+    def onepass_bwd_plain(q, k, v, do, lse, out, *, scale=None):
+        return oa.onepass_attention_bwd_plain(
+            q, k, v, do, lse, fa.attention_di(out, do), scale=scale)
+
+    def onepass_launch_fault(*args):
+        dq, dk, dv = launch(*args)
+        dv[:, -T3_FAULT_KEYS:] = 0
+        return dq, dk, dv
+
+    launch = oa._launch_bwd          # B13's launch (B10+B11 keep fa's)
+    swaps = {"kernels": [],
+             "fault": [(oa, "_launch_bwd", onepass_launch_fault)],
+             "plain": [(oa, "onepass_attention_lse",
+                        oa.onepass_attention_lse_plain),
+                       (oa, "onepass_attention_bwd", onepass_bwd_plain),
+                       (fa, "flash_attention", fa.flash_attention_plain),
+                       (fa, "flash_attention_bwd",
+                        fa.flash_attention_bwd_plain)],
+             "autograd": [(vit_mod, "shared_attention", mha_reference),
+                          (dec_mod, "dispatch_attention", mha_reference)]
+             }[route]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    micro = {k: torch.as_tensor(v[:1]).to("cuda") for k, v in batch.items()}
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        model.zero_grad(set_to_none=True)
+        loss = make_loss_fn(model)(micro)
+        loss.backward()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def t3_f32_twin(model):
+    """The same MMGPT computing in f32, sharing ``model``'s parameters:
+    the f32 reference step (its attention must be ``mha_reference``: the
+    kernels take bf16 only)."""
+    from merlin_tpu_torch.models.mmgpt import MMGPT
+
+    cfg = model.cfg
+    f32 = dataclasses.replace(
+        cfg, lm=dataclasses.replace(cfg.lm, dtype=torch.float32),
+        vit=dataclasses.replace(cfg.vit, dtype=torch.float32))
+    with torch.device("meta"):
+        twin = MMGPT(f32)
+    twin.load_state_dict(model.state_dict(), strict=True, assign=True)
+    return twin
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def t3_hold(got, plain, exact, names):
+    """Each gradient's error against the f32 step, over the plain
+    versions' own: at most max(``TRAIN_GRAD_RTOL``, ``T3_NOISE_FACTOR`` x
+    the plain error). With random weights the tower's attention is near
+    uniform, so dq and dk (hence the q and k projections' gradients) are
+    differences of near-equal terms that every bf16 route rounds to noise
+    (C40): the plain versions are as far from the f32 step there. A key
+    bias's exact gradient is 0 (C14), so each route holds noise: its
+    largest value may reach max(``TRAIN_GRAD_RTOL`` x the f32 key
+    kernel's largest, ``T3_NOISE_FACTOR`` x the plain versions' largest).
+    Returns (worst ratio to the allowance, its name)."""
+    worst, worst_name = 0.0, ""
+    for name in names:
+        if name.endswith("k_proj.bias"):
+            kernel = exact[name[:-len("bias")] + "kernel"].abs().max()
+            allowed = max(TRAIN_GRAD_RTOL * kernel,
+                          T3_NOISE_FACTOR * plain[name].abs().max())
+            ratio = (got[name].abs().max() / allowed).item()
+        else:
+            allowed = max(TRAIN_GRAD_RTOL,
+                          T3_NOISE_FACTOR * rel_err(plain[name], exact[name]))
+            ratio = rel_err(got[name], exact[name]) / allowed
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
+def run_t3(rng):
+    """T3: the Trainer over a MetaCLIP-H/14-448 bundle with the tower
+    trainable (B12/B13 at d = 80, 1025 tokens, under autograd), 2 steps at
+    accum 2 on (2, 2048) batches with one image each; first, one
+    microbatch's tower gradients against the same step on the plain
+    attention."""
+    from merlin_tpu_torch.train.arguments import ModelArguments
+
+    model = build_t3_model()
+    n = sum(p.numel() for p in model.parameters())
+    batch = train_batch(np.random.default_rng(15), model.cfg.image_token_len,
+                        rows=2, **T3_BATCH)
+    reset_counts()
+    loss_k, got = t3_grads(model, batch, "kernels")
+    torch.cuda.synchronize()
+    one = read_counts()
+    loss_p, plain = t3_grads(model, batch, "plain")
+    _, fault = t3_grads(model, batch, "fault")
+    twin = t3_f32_twin(model)
+    loss_x, exact = t3_grads(twin, batch, "autograd")
+    del twin
+    tower = sorted(n for n in exact if n.startswith("vision_tower."))
+    rest = sorted(n for n in exact if n not in tower)
+    norm = math.sqrt(sum(float(got[n].square().sum()) for n in tower))
+    norm_x = math.sqrt(sum(float(exact[n].square().sum()) for n in tower))
+    worst, worst_name = t3_hold(got, plain, exact, tower)
+    rest_worst, rest_name = t3_hold(got, plain, exact, rest)
+    planted, planted_name = t3_hold(fault, plain, exact, tower)
+    raw = {n: (rel_err(got[n], exact[n]), rel_err(plain[n], exact[n]))
+           for n in tower if not n.endswith("k_proj.bias")}
+    well = [n for n, (_, p) in raw.items() if p <= TRAIN_GRAD_RTOL]
+    loss_rel = abs(loss_k - loss_x) / abs(loss_x)
+    log(f"T3 one microbatch ({n / 1e9:.3f} B f32 parameters): loss "
+        f"{loss_k:.6f} (plain versions {loss_p:.6f}, f32 step {loss_x:.6f}, "
+        f"rel {loss_rel:.3e}); tower gradient norm {norm:.6e} (f32 step "
+        f"{norm_x:.6e}); against the f32 step, the kernels' error over its "
+        f"allowance max(tol {TRAIN_GRAD_RTOL}, {T3_NOISE_FACTOR} x the plain "
+        f"versions'): tower worst {worst:.3f} ({worst_name}: kernels "
+        f"{raw.get(worst_name, (0, 0))[0]:.3e}, plain "
+        f"{raw.get(worst_name, (0, 0))[1]:.3e}), projector and LM worst "
+        f"{rest_worst:.3f} ({rest_name}); {len(well)} of "
+        f"{len(raw)} tower gradients within {TRAIN_GRAD_RTOL} on both "
+        f"routes, kernels' worst among them "
+        f"{max(raw[n][0] for n in well):.3e}; planted fault (B13's dv of the "
+        f"last {T3_FAULT_KEYS} keys zeroed): {planted:.3f} ({planted_name}), "
+        f"must exceed 1; launches {one}")
+    if not (math.isfinite(norm) and norm > 0 and sorted(got) == sorted(exact)
+            and worst <= 1 and rest_worst <= 1 and planted > 1
+            and loss_rel <= TRAIN_LOSS_RTOL
+            and one == launches(B2=4, B12=T3_TOWER_LAYERS,
+                                B13=T3_TOWER_LAYERS, **{"B10+B11": 2})):
+        raise AssertionError(f"T3 gradient check failed: {worst} {rest_worst} "
+                             f"{planted} {loss_rel} {one}")
+    del got, plain, fault, exact
+    seen, counts, peak, prof = run_training(
+        "T3 MetaCLIP-H/14 tower trained (2 LM layers)", model,
+        ModelArguments(freeze_vision_tower=False),
+        train_args(gradient_accumulation_steps=2, max_steps=2), 2, rng,
+        **T3_BATCH)
+    losses = [m["loss"] for m in seen]
+    micro = 2 * 2
+    want_counts = launches(B2=2 * 2 * micro, B12=T3_TOWER_LAYERS * micro,
+                           B13=T3_TOWER_LAYERS * micro,
+                           **{"B10+B11": 2 * micro})
+    finite = all(math.isfinite(x) for x in losses) and all(
+        math.isfinite(m["grad_norm"]) for m in seen)
+    log(f"T3 checks: losses {losses} finite {finite}; launches exact "
+        f"{counts == want_counts}")
+    if not (finite and counts == want_counts):
+        raise AssertionError(f"T3 failed: {losses} {counts}")
+    return dict(losses=losses, counts=counts, peak_bytes=peak,
+                step_time_s=seen[-1]["step_time_s"],
+                tokens_per_sec=seen[-1]["tokens_per_sec"],
+                mfu=seen[-1]["mfu"], profile=prof, tower_grad_norm=norm,
+                worst_grad_ratio=worst, worst_grad=worst_name,
+                loss_rel=loss_rel,
+                one_micro_counts=one, lm_projector_worst_ratio=rest_worst,
+                planted_ratio=planted, tower_grad_norm_f32=norm_x)
+
+
+# --- phase L: LoRA factors trained over a frozen bf16 base ----------------
+
+L_STEPS = 3
+L_LR = 1e-2
+
+
+def l_batch(rng, cfg, seq=2048, n_pad=N_PAD):
+    """One (1, ``seq``) row with one image block and an answer, then
+    ``n_pad`` padding positions, with the bundle's special ids; a uint8
+    448x448 frame."""
+    special = {cfg.image_patch_id, cfg.im_start_id, cfg.im_end_id}
+
+    def text(n):
+        out = rng.integers(10, min(31000, cfg.lm.vocab_size - 10), size=n)
+        return [int(t) for t in out if int(t) not in special]
+
+    head = [1] + text(40) + [cfg.im_start_id] + \
+        [cfg.image_patch_id] * cfg.image_token_len + [cfg.im_end_id] + text(40)
+    valid = seq - n_pad
+    answer = text(valid - len(head))
+    answer += [11] * (valid - len(head) - len(answer))
+    ids = np.zeros((1, seq), np.int64)
+    labels = np.full((1, seq), -100, np.int64)
+    ids[0, :valid] = head + answer
+    labels[0, len(head):valid] = answer
+    mask = np.zeros((1, seq), np.int32)
+    mask[:, :valid] = 1
+    images = rng.integers(0, 256, size=(1, 1, 448, 448, 3), dtype=np.uint8)
+    return {k: torch.from_numpy(v).to("cuda") for k, v in dict(
+        input_ids=ids, labels=labels, attention_mask=mask,
+        segment_ids=mask.copy(), images=images).items()}
+
+
+def run_l(bundle, rng, smi):
+    """L: LoRA over the W bundle with its base held in bf16 (the tower
+    frozen), ``lora_r``/``lora_alpha`` defaults and the reference's
+    targets, ``L_STEPS`` steps of ``torch.optim.Adam`` over the factors on
+    one (1, 2048) batch with one image. B1 = 23 a forward, B2 = 32 a
+    forward (twice under remat), B10 + B11 = 32 a backward."""
+    from merlin_tpu_torch.train.arguments import TrainingArguments
+    from merlin_tpu_torch.train.checkpoint import fingerprint
+    from merlin_tpu_torch.train.lora import (
+        init_lora_params, make_lora_loss_fn, merge_lora)
+
+    model = bundle.model
+    bundle.params = None              # the f32 tensors go with the cast
+    model.to(torch.bfloat16)
+    free_cuda()
+    base = model.state_dict()
+    before = {n: fingerprint(t) for n, t in base.items()}
+    targs = TrainingArguments()
+    rank, alpha = targs.lora_r, float(targs.lora_alpha)
+    lora = init_lora_params(
+        base, rank=rank, generator=torch.Generator(device="cuda").manual_seed(
+            14))
+    merged = merge_lora(base, lora, rank=rank, alpha=alpha)
+    identical = all(torch.equal(merged[n], base[n]) for n in lora)
+    del merged
+    n_factors = sum(t.numel() for e in lora.values() for t in e.values())
+    batch = l_batch(rng, bundle.config)
+    factors = [t.requires_grad_() for e in lora.values() for t in e.values()]
+    opt = torch.optim.Adam(factors, lr=L_LR)
+    loss_fn = make_lora_loss_fn(model, base, rank=rank, alpha=alpha)
+    losses = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(L_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn(lora, batch)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    with torch.no_grad():
+        final = float(loss_fn(lora, batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = bundle.config.lm.num_layers
+    want = launches(B1=23 * (L_STEPS + 1), B2=2 * n * L_STEPS + n,
+                    **{"B10+B11": n * L_STEPS})
+    same = all(fingerprint(t) == before[name]
+               for name, t in model.state_dict().items())
+    b_moved = all(bool(e["b"].detach().abs().max() > 0)
+                  for e in lora.values())
+    log(f"L LoRA r={rank} alpha={alpha:g} over {len(lora)} targets "
+        f"({n_factors / 1e6:.1f} M factor values) on a bf16 base: merged == "
+        f"base at step 0: {identical}; losses {losses}, after "
+        f"{L_STEPS} steps {final:.6f} (falls: {final < losses[0]}); base "
+        f"bit-identical: {same}; every b non-zero: {b_moved}; launches "
+        f"{counts} (formula {want}); peak {peak} bytes; {wall:.2f} s for "
+        f"{L_STEPS} steps and a forward (card {smi})")
+    if not (identical and final < losses[0] and same and b_moved
+            and counts == want):
+        raise AssertionError(f"L failed: {identical} {losses} {final} "
+                             f"{same} {b_moved} {counts}")
+    return counts, dict(losses=losses + [final], peak_bytes=peak,
+                        targets=len(lora), factor_values=n_factors,
+                        seconds=wall)
 
 
 # --- phase D: the data pipeline and the training entry point ---------------
@@ -4727,18 +5476,24 @@ def main() -> int:
     fwd_counts, _ = run_forward(model, cfg, rng)
     g = run_generation(model, cfg, rng)
     served = serve_vicuna(model, rng)
+    scanned, smodel = serve_scanned(model, np.random.default_rng(13))
     qmodel = build_int8_vicuna(model, cfg)
-    del model                         # the int8 LM replaces the bf16 one
+    sqmodel = build_int8_vicuna(smodel, smodel.cfg)
+    check_stacked_int8(qmodel, sqmodel)
+    del model, smodel                 # the int8 LM replaces the bf16 one
     gc.collect()
     torch.cuda.empty_cache()
     served["E4"] = serve_vicuna_int8(qmodel, rng)
-    del qmodel                        # E3's model replaces the 7B one
+    scanned["S4"] = serve_scanned_int8(qmodel, sqmodel,
+                                       np.random.default_rng(16))
+    del qmodel, sqmodel               # E3's model replaces the 7B one
     gc.collect()
     torch.cuda.empty_cache()
     served.update(serve_baichuan(rng))
+    scanned["S3"] = serve_scanned_alibi(np.random.default_rng(17))
     free_cuda()                       # the W phase builds its own model
-    worker_counts, front, v_counts = serve_front(np.random.default_rng(9),
-                                                 smi)
+    worker_counts, front, v_counts, lora = serve_front(
+        np.random.default_rng(9), smi)
     free_cuda()
     k1, k2 = checkpoints_and_towers(np.random.default_rng(10), gen, smi)
     free_cuda()                       # training starts from an empty card
@@ -4751,6 +5506,8 @@ def main() -> int:
     t1 = run_t1(rng)
     free_cuda()
     t2 = run_t2(rng)
+    free_cuda()
+    t3 = run_t3(np.random.default_rng(18))
     free_cuda()                       # D builds its bundle inside train()
     data_train, d_counts = run_d(smi)
     free_cuda()
@@ -4795,7 +5552,13 @@ def main() -> int:
         row["launches_eval"] = v_counts.get(key, 0)
         row["launches_checkpoint"] = k1["counts"][key]
         row["launches_data_train"] = d_counts[key]
-    log(json.dumps({"serving": {e: served[e][1] for e in served}}))
+        row["launches_scanned_serving"] = {e: scanned[e][0][key]
+                                           for e in sorted(scanned)}
+        row["launches_lora"] = lora["counts"][key]
+        row["launches_tower_training"] = t3["counts"][key]
+    log(json.dumps({"serving": {
+        e: {k: v for k, v in served[e][1].items() if k != "tokens"}
+        for e in served}}))
     log(json.dumps({"front_end": front, "card": smi}))
     log(json.dumps({"checkpoint": {k: v for k, v in k1.items()
                                    if k != "counts"},
@@ -4806,6 +5569,12 @@ def main() -> int:
         "T1": {k: v for k, v in t1.items() if k != "counts"},
         "T2": {k: v for k, v in t2.items() if k != "counts"}}}))
     log(json.dumps({"data_train": data_train, "card": smi}))
+    log(json.dumps({"scanned_serving": {
+        e: {k: v for k, v in scanned[e][1].items() if k != "tokens"}
+        for e in sorted(scanned)}, "lora": {
+            k: v for k, v in lora.items() if k != "counts"},
+        "tower_training": {k: v for k, v in t3.items() if k != "counts"},
+        "card": smi}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1149,9 +1149,12 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
   // More than one split: each writes its unnormalized O and its rows' (m,
   // l) to the workspace in fragment order (a thread's accumulators as
   // float4s, NT apart: coalesced), counts itself in, and the last to
-  // arrive merges the others' into its own registers with the LSE
-  // rescale, one round of loads a split, and sets the counter back to 0.
-  // A split whose rows see no key brings m = NEG_INF, l = 0 and weighs 0.
+  // arrive merges every split, its own included, in split order with the
+  // LSE rescale, one round of loads a split, and sets the counter back to
+  // 0. The order must not depend on which split arrives last: the sum's
+  // rounding, and so a greedy token at a near tie, would change from run
+  // to run. A split whose rows see no key brings m = NEG_INF, l = 0 and
+  // weighs 0.
   const bool direct = n_live == 1;
   int* counter = a.counters + ((int64_t)bi * a.hkv + hk) * n_rt + rt;
   if (!direct) {
@@ -1172,8 +1175,14 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
     __syncthreads();
     if (!last_arrival) return;
     __threadfence();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = kNegInf;
+      l[r] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
     for (int sp = 0; sp < n_live; ++sp) {
-      if (sp == split) continue;
       const float4 ml = __ldcg(ws_ml + (blob0 + sp) * NT + tid);
       float4 x[DP / 8];
 #pragma unroll

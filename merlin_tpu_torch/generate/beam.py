@@ -106,6 +106,12 @@ class BeamSearch:
         b, s = ids.shape
         model_cfg = self.model.cfg
         lm_cfg = model_cfg.lm if hasattr(model_cfg, "lm") else model_cfg
+        if lm_cfg.scan_layers:
+            # JAX's _gather_beams reorders only leaves whose leading axis
+            # is batch * beams, which a stacked (L, ...) cache's is not: its
+            # beams would read other beams' keys (trap C37)
+            raise ValueError("beam search over a scan_layers model: the "
+                             "stacked cache's beams cannot be reordered")
         cache = init_kv_cache(lm_cfg, b, s + T, dtype=cfg.cache_dtype,
                               device=dev)
         first, cache, lengths = self._prefill(ids, images, mask, cache)

@@ -34,7 +34,7 @@ from torch import nn
 
 from merlin_tpu_torch.models.convert import (
     decoder_params_from_hf, drop_prefixes, extract_by_prefix,
-    flat_state_dict, load_torch_state_dict)
+    flat_state_dict, load_torch_state_dict, stack_layer_params)
 from merlin_tpu_torch.models.families import config_from_name, tiny as tiny_lm
 from merlin_tpu_torch.models.mmgpt import MMGPT, MMGPTConfig
 from merlin_tpu_torch.models.projectors import (
@@ -230,11 +230,21 @@ def _tower_tree(sd, cfg: MMGPTConfig) -> Dict[str, Any]:
     return {"vit": vit_params_from_hf(sd, cfg.vit)}
 
 
-def _load_tree(bundle: ModelBundle, *, lm_checkpoint, vision_checkpoint,
-               composite_checkpoint, family: str, device
-               ) -> Dict[str, torch.Tensor]:
+def _load_tree(bundle: ModelBundle, **kw) -> Dict[str, torch.Tensor]:
     """The checkpoints' weights as ``state_dict`` entries on ``device``
-    (``merlin_tpu/models/builder.py:185-233``)."""
+    (``merlin_tpu/models/builder.py:185-233``). Checkpoints convert into
+    the loop layout; a ``scan_layers`` LM stacks it, one leaf at a time
+    (``builder.py:191-198``)."""
+    out = _load_loop_tree(bundle, **kw)
+    if bundle.config.lm.scan_layers:
+        out = stack_layer_params(out, bundle.config.lm.num_layers,
+                                 prefix="lm.")
+    return out
+
+
+def _load_loop_tree(bundle: ModelBundle, *, lm_checkpoint,
+                    vision_checkpoint, composite_checkpoint, family: str,
+                    device) -> Dict[str, torch.Tensor]:
     cfg = bundle.config
     tree: Dict[str, Any] = {}
     if composite_checkpoint:
@@ -322,7 +332,15 @@ def init_or_load_params(bundle: ModelBundle, *,
         if fresh is None:
             dtype = torch.int8 if name.endswith("kernel_q8") \
                 else torch.float32
-            fresh = _flax_like(name, param.shape, dtype, generator, device)
+            if ".layers.block." in name:
+                # nn.scan initializes each layer's slice on its own: the
+                # fan-in is a layer's, not the stack's
+                fresh = torch.stack([
+                    _flax_like(name, param.shape[1:], dtype, generator,
+                               device) for _ in range(param.shape[0])])
+            else:
+                fresh = _flax_like(name, param.shape, dtype, generator,
+                                   device)
         elif fresh.shape != param.shape:
             raise ValueError(f"{name}: checkpoint shape {tuple(fresh.shape)}"
                              f", model {tuple(param.shape)}")

@@ -16,14 +16,18 @@
     ``baichuan`` with its fused ``W_pack``, ``phi``, ``opt``) onto the flax
     param tree the JAX package builds, with tensors as leaves; flatten it
     with :func:`flat_state_dict` for ``load_state_dict``.
+  * :func:`stack_layer_params` / :func:`unstack_layer_params`: a loop
+    decoder's ``layers_{i}.*`` entries <-> the ``scan_layers`` layout's
+    ``layers.block.*`` with a leading layer axis.
   * :func:`quantize_decoder_params_int8`: int8 weight-only quantization of
-    a decoder's ``state_dict``.
+    a decoder's ``state_dict``, loop or stacked.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import zipfile
 from typing import Any, Callable, Dict, Iterator, Mapping, Union
 
@@ -307,6 +311,50 @@ def decoder_params_from_hf(state_dict: Mapping[str, Any], cfg, *,
             p["lm_head"] = head
     return p
 
+def stack_layer_params(state_dict: Dict[str, torch.Tensor], num_layers: int,
+                       prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Loop-decoder entries (``{prefix}layers_{i}.<leaf>``) -> the
+    ``scan_layers`` ones (``{prefix}layers.block.<leaf>``, the layers
+    stacked on a leading axis), as ``convert.py:69-80`` does to the flax
+    tree; the other entries pass through. Pass an MMGPT's whole
+    ``state_dict`` with ``prefix="lm."``. The input dict is consumed: each
+    layer's leaf leaves it as it is stacked, so the peak is the model plus
+    one stacked leaf. Inverse of :func:`unstack_layer_params`."""
+    pattern = re.compile(re.escape(prefix) + r"layers_(\d+)\.(.+)$")
+    layers = [dict() for _ in range(num_layers)]
+    out = {}
+    for name in list(state_dict):
+        m = pattern.match(name)
+        if m is None:
+            out[name] = state_dict.pop(name)
+        else:
+            layers[int(m.group(1))][m.group(2)] = name
+    for leaf in layers[0]:
+        out[f"{prefix}layers.block.{leaf}"] = torch.stack(
+            [state_dict.pop(layer[leaf]) for layer in layers])
+    if state_dict:
+        raise KeyError(f"layer entries outside layers 0..{num_layers - 1} "
+                       f"or not in layer 0: {sorted(state_dict)[:8]}")
+    return out
+
+
+def unstack_layer_params(state_dict: Dict[str, torch.Tensor],
+                         prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``scan_layers`` entries -> the loop decoder's (``convert.py:83-94``):
+    ``{prefix}layers.block.<leaf>`` of (L, ...) becomes L entries
+    ``{prefix}layers_{i}.<leaf>``, each a view of its layer's slice."""
+    stacked = f"{prefix}layers.block."
+    out = {}
+    for name, t in state_dict.items():
+        if not name.startswith(stacked):
+            out[name] = t
+            continue
+        leaf = name[len(stacked):]
+        for i, layer in enumerate(t.unbind(0)):
+            out[f"{prefix}layers_{i}.{leaf}"] = layer
+    return out
+
+
 # modules whose kernels quantize for int8 weight-only serving, mapped to the
 # number of CONTRACTION (input) axes of their kernel; the remaining trailing
 # axes are output channels, one scale each (convert.py:101-103). CLIP's MLP
@@ -327,6 +375,10 @@ def quantize_decoder_params_int8(state_dict: Dict[str, torch.Tensor],
     ``kernel_scale`` (f32 over the output dims: max |kernel| / 127, floored
     at 1e-12). Embeddings, norms and biases pass through as they are.
 
+    A stacked decoder's kernels (``layers.block.*``, a leading layer axis)
+    get one scale per layer and output channel, quantized layer by layer
+    (``convert.py:138-180``), so the f32 temporary is one layer's kernel.
+
     Only the entries under ``prefix`` are the decoder's: pass an MMGPT's
     whole ``state_dict`` with ``prefix="lm."`` so that the vision tower
     (whose MLP also has fc1/fc2) passes through untouched, as JAX quantizes
@@ -345,13 +397,22 @@ def quantize_decoder_params_int8(state_dict: Dict[str, torch.Tensor],
                 or n_contract is None:
             out[name] = tensor
             continue
-        k = tensor.float()
-        axes = tuple(range(n_contract))
-        scale = torch.clamp(k.abs().amax(dim=axes, keepdim=True) / 127.0,
-                            min=1e-12)
-        out[f"{module}.kernel_q8"] = torch.clamp(
-            torch.round(k / scale), -127, 127).to(torch.int8)
-        out[f"{module}.kernel_scale"] = scale.reshape(
-            scale.shape[n_contract:])
-        del k
+        if f"{prefix}layers.block." in f"{module}.":
+            pairs = [_quantize(k, n_contract) for k in tensor.unbind(0)]
+            q8 = torch.stack([q for q, _ in pairs])
+            scale = torch.stack([sc for _, sc in pairs])
+        else:
+            q8, scale = _quantize(tensor, n_contract)
+        out[f"{module}.kernel_q8"] = q8
+        out[f"{module}.kernel_scale"] = scale
     return out
+
+
+def _quantize(kernel: torch.Tensor, n_contract: int):
+    """(int8 kernel, f32 scale over the output dims) of one kernel."""
+    k = kernel.float()
+    axes = tuple(range(n_contract))
+    scale = torch.clamp(k.abs().amax(dim=axes, keepdim=True) / 127.0,
+                        min=1e-12)
+    q8 = torch.clamp(torch.round(k / scale), -127, 127).to(torch.int8)
+    return q8, scale.reshape(scale.shape[n_contract:])

@@ -24,12 +24,18 @@ the LM head as an int8 kernel with per-output-channel scales
 (:class:`~merlin_tpu_torch.models.layers.DenseGeneral` ``weight_q8``);
 embeddings and norms stay full precision.
 
-The non-scanned stack is ported; ``scan_layers`` (with its flat paged pool,
-``layer_index``) comes with a later slice and is refused. ``remat``
-recomputes each block in the backward (``torch.utils.checkpoint``, nothing
-saved inside the block, as ``nn.remat(policy=nothing_saveable)``), so a
-training step holds one activation per layer. :func:`cross_entropy_loss`
-is the training loss.
+``scan_layers=True`` holds the layer stack as ONE block whose parameters
+carry a leading layer axis (``layers.block.attn.q_proj.kernel`` is (L,
+...), the names of JAX's ``nn.scan`` tree); the forward runs the block once
+per layer on that layer's slices, and autograd sums each layer's gradient
+into the stacked leaf. Its caches are stacked too (``init_kv_cache(
+stacked=True)``): a dense (L, b, len, hkv, d) pair, or ONE paged pool (L,
+P, page, hkv*d) that the forward views flat as (L*P, ...), each layer
+addressing its own pages through page tables offset by ``layer * P``
+(``decoder.py:228-241``, ``:736-747``). ``remat`` recomputes each block in
+the backward (``torch.utils.checkpoint``, nothing saved inside the block,
+as ``nn.remat(policy=nothing_saveable)``), so a training step holds one
+activation per layer. :func:`cross_entropy_loss` is the training loss.
 """
 
 from __future__ import annotations
@@ -99,7 +105,8 @@ class DecoderConfig:
 
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16, *, layout: str = "dense",
-                  page_size: int = 128, device="cuda") -> Dict[str, Any]:
+                  page_size: int = 128, stacked: Optional[bool] = None,
+                  device="cuda") -> Dict[str, Any]:
     """KV cache dict. The forward updates its buffers in place and returns
     the same layout with the bookkeeping advanced.
 
@@ -117,26 +124,37 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
     (b + 1) * pps)), and the serving engine hands in its own; ``lengths``
     (batch,) int32 valid tokens per sequence; ``index`` as above.
 
+    ``stacked`` (default ``cfg.scan_layers``, which needs it): ``layers``
+    is ONE dict of tensors with a leading layer axis instead of a tuple of
+    per-layer dicts: (L, b, max_len, hkv, d) dense buffers, or (L, batch *
+    pps, page_size, ...) pages and scale pages whose page ids (the tables,
+    the trash page 0) are per layer.
+
     A dense int8 cache is refused: it has no scales (trap C10).
     """
+    if stacked is None:
+        stacked = cfg.scan_layers
+    L = cfg.num_layers
+
+    def assemble(shapes):
+        """name -> (shape, dtype) as per-layer dicts, or one stacked."""
+        def make(lead):
+            return {key: torch.zeros(lead + shape, dtype=dt, device=device)
+                    for key, (shape, dt) in shapes.items()}
+        if stacked:
+            return make((L,))
+        return tuple(make(()) for _ in range(L))
+
     if layout == "paged":
         pps = -(-max_len // page_size)
         total = batch * pps
         shape = (total, page_size, cfg.kv_heads * cfg.head_size)
-
-        def layer():
-            out = {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
-                   "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
-            if dtype == torch.int8:
-                for key in ("k_scales", "v_scales"):
-                    out[key] = torch.zeros(
-                        (total, page_size, paged.LANES), dtype=torch.float32,
-                        device=device)
-            return out
-
-        layers = tuple(layer() for _ in range(cfg.num_layers))
+        shapes = {"k_pages": (shape, dtype), "v_pages": (shape, dtype)}
+        if dtype == torch.int8:
+            scales = ((total, page_size, paged.LANES), torch.float32)
+            shapes.update(k_scales=scales, v_scales=scales)
         return {
-            "layers": layers,
+            "layers": assemble(shapes),
             "page_tables": torch.arange(total, dtype=torch.int32,
                                         device=device).reshape(batch, pps),
             "lengths": torch.zeros((batch,), dtype=torch.int32,
@@ -147,17 +165,23 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
         raise ValueError("an int8 KV cache needs layout='paged': the dense "
                          "cache has no scales, and casting K/V to int8 "
                          "without one loses them")
-    shape = (batch, max_len, cfg.kv_heads, cfg.head_size)
-    layers = tuple(
-        {"k": torch.zeros(shape, dtype=dtype, device=device),
-         "v": torch.zeros(shape, dtype=dtype, device=device)}
-        for _ in range(cfg.num_layers))
+    shape = ((batch, max_len, cfg.kv_heads, cfg.head_size), dtype)
     return {
-        "layers": layers,
+        "layers": assemble({"k": shape, "v": shape}),
         "seg": torch.zeros((batch, max_len), dtype=torch.int32, device=device),
         "pos": torch.zeros((batch, max_len), dtype=torch.int32, device=device),
         "index": 0,
     }
+
+
+def _prompt_rows(pages: torch.Tensor, b: int, rows: int,
+                 layer_index: Optional[int]) -> torch.Tensor:
+    """The (b, rows, width) view of the identity-mapped pages a prompt is
+    bulk-written into; in a flat (L * P, ...) pool, the block of layer
+    ``layer_index`` (``decoder.py:457-471``)."""
+    if layer_index is None:
+        return pages.view(b, rows, pages.shape[2])
+    return pages.view(-1, b, rows, pages.shape[2])[layer_index]
 
 
 class Attention(nn.Module):
@@ -227,9 +251,10 @@ class Attention(nn.Module):
         tables, lengths = cache_aux["page_tables"], cache_aux["lengths"]
         kp, vp = layer_cache["k_pages"], layer_cache["v_pages"]
         s_q = q.shape[1]
+        layer_index = cache_aux.get("layer_index")
         if "k_scales" in layer_cache:
             return self._paged_q8(q, k, v, segment_ids, slopes, layer_cache,
-                                  tables, lengths)
+                                  tables, lengths, layer_index)
         if s_q == 1:
             paged.write_token_to_pages(kp, vp, k[:, 0], v[:, 0],
                                        positions=lengths, page_tables=tables)
@@ -252,14 +277,15 @@ class Attention(nn.Module):
         # attention is plain self-attention over the prompt
         b, s = k.shape[:2]
         rows = tables.shape[1] * kp.shape[1]
-        kp.view(b, rows, kp.shape[2])[:, :s] = k.reshape(b, s, -1).to(kp.dtype)
-        vp.view(b, rows, vp.shape[2])[:, :s] = v.reshape(b, s, -1).to(vp.dtype)
+        for pages, new in ((kp, k), (vp, v)):
+            _prompt_rows(pages, b, rows, layer_index)[:, :s] = new.reshape(
+                b, s, -1).to(pages.dtype)
         return dispatch_attention(
             q, k, v, causal=True, segment_ids_q=segment_ids,
             segment_ids_kv=segment_ids, alibi_slopes=slopes)
 
     def _paged_q8(self, q, k, v, segment_ids, slopes, layer_cache, tables,
-                  lengths):
+                  lengths, layer_index):
         """:meth:`_paged` over int8 pages and their scale pages
         (``decoder.py:266-288``, ``:370-392``, ``:473-479``)."""
         kp, ks = layer_cache["k_pages"], layer_cache["k_scales"]
@@ -286,8 +312,8 @@ class Attention(nn.Module):
         for pages, scales, new in ((kp, ks, k), (vp, vs, v)):
             values, sc = paged.quantize_pages(new.reshape(b, s, -1),
                                               self.cfg.head_size)
-            pages.view(b, rows, pages.shape[2])[:, :s] = values
-            scales.view(b, rows, scales.shape[2])[:, :s] = sc
+            _prompt_rows(pages, b, rows, layer_index)[:, :s] = values
+            _prompt_rows(scales, b, rows, layer_index)[:, :s] = sc
         return dispatch_attention(
             q, k, v, causal=True, segment_ids_q=segment_ids,
             segment_ids_kv=segment_ids, alibi_slopes=slopes)
@@ -320,13 +346,89 @@ class DecoderBlock(nn.Module):
         return x + self.mlp(self.post_attn_norm(x))
 
 
+def _run_block(block: nn.Module, params: Dict[str, torch.Tensor], x,
+               args, remat: bool):
+    """``block(x, *args)`` on ``params``. With ``remat`` the block's inside
+    is recomputed in the backward and only its input is kept
+    (``nn.remat(policy=nothing_saveable)``, ``decoder.py:664-671``); the
+    recompute reads the same ``params``, so weights a caller swapped in
+    for the forward (``torch.func.functional_call``, LoRA's merged
+    kernels) hold there too."""
+    def run(h):
+        return torch.func.functional_call(block, params, (h,) + args)
+
+    if remat:
+        return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False)
+    return run(x)
+
+
+def _flat_pages(pages: torch.Tensor) -> torch.Tensor:
+    """(L, P, page, w) -> the (L * P, page, w) VIEW of the same storage.
+    A ``reshape`` of a non-contiguous pool would copy silently, and the
+    layers' in-place page writes would then be lost."""
+    if not pages.is_contiguous():
+        raise ValueError("a stacked paged pool must be contiguous")
+    return pages.view((-1,) + tuple(pages.shape[2:]))
+
+
+class ScannedLayers(nn.Module):
+    """The layer stack of a ``scan_layers`` decoder: ONE
+    :class:`DecoderBlock` whose parameters carry a leading layer axis, the
+    tree of JAX's ``nn.scan`` (``layers/block/...``). Fresh parameters are
+    drawn layer by layer (``split_rngs={"params": True}``).
+
+    Layer ``li`` runs the block on its slices of every leaf through
+    ``torch.func.functional_call``. The slices come from one ``unbind`` a
+    forward, so the backward stacks the layers' gradients into each leaf
+    once. Its cache is the stacked one: dense layers read their slice,
+    paged layers share one flat pool through offset page tables."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        blocks = [DecoderBlock(cfg) for _ in range(cfg.num_layers)]
+        self.block = blocks[0]
+        for name, param in list(self.block.named_parameters()):
+            owner, _, leaf = name.rpartition(".")
+            stacked = torch.stack([blk.get_parameter(name).detach()
+                                   for blk in blocks])
+            setattr(self.block.get_submodule(owner), leaf,
+                    nn.Parameter(stacked, requires_grad=param.requires_grad))
+
+    def _layer_caches(self, kv_cache, cache_aux):
+        """(layer cache, cache aux) for each layer."""
+        L = self.cfg.num_layers
+        if kv_cache is None:
+            return [(None, cache_aux)] * L
+        pool = kv_cache["layers"]
+        if "page_tables" not in kv_cache:
+            return [({key: t[li] for key, t in pool.items()}, cache_aux)
+                    for li in range(L)]
+        # one flat pool for every layer; the L offset tables are made in
+        # one op, not one add per layer
+        flat = {key: _flat_pages(t) for key, t in pool.items()}
+        per_layer = pool["k_pages"].shape[1]
+        tables = kv_cache["page_tables"] + per_layer * torch.arange(
+            L, dtype=torch.int32, device=pool["k_pages"].device)[:, None, None]
+        return [(flat, dict(cache_aux, page_tables=tables[li],
+                            layer_index=li)) for li in range(L)]
+
+    def forward(self, x, positions, segment_ids, kv_cache, cache_aux,
+                remat: bool):
+        names = [n for n, _ in self.block.named_parameters()]
+        slices = zip(*(p.unbind(0) for _, p in self.block.named_parameters()))
+        caches = self._layer_caches(kv_cache, cache_aux)
+        for layer, (layer_cache, aux) in zip(slices, caches):
+            x = _run_block(self.block, dict(zip(names, layer)), x,
+                           (positions, segment_ids, layer_cache, aux), remat)
+        return x
+
+
 class CausalLM(nn.Module):
     """Token ids (or pre-spliced embeddings) -> logits (+ updated cache)."""
 
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        if cfg.scan_layers:
-            raise NotImplementedError("not ported yet: ['scan_layers']")
         if cfg.weight_dtype == "int8" and cfg.normhead:
             # NormHead renormalizes its kernel every forward, which a static
             # per-channel scale cannot represent (decoder.py:622-628)
@@ -337,8 +439,11 @@ class CausalLM(nn.Module):
         if cfg.positional == "learned":
             self.embed_positions = Embed(cfg.max_position_embeddings + 2,
                                          cfg.hidden_size, dtype=cfg.dtype)
-        for i in range(cfg.num_layers):
-            self.add_module(f"layers_{i}", DecoderBlock(cfg))
+        if cfg.scan_layers:
+            self.layers = ScannedLayers(cfg)
+        else:
+            for i in range(cfg.num_layers):
+                self.add_module(f"layers_{i}", DecoderBlock(cfg))
         if cfg.final_norm:
             self.final_norm = cfg.norm_layer()
         if not cfg.tie_word_embeddings:
@@ -353,6 +458,9 @@ class CausalLM(nn.Module):
 
     @property
     def blocks(self):
+        """The per-layer blocks of the loop stack (none when scanned)."""
+        if self.cfg.scan_layers:
+            return []
         return [getattr(self, f"layers_{i}") for i in range(self.cfg.num_layers)]
 
     def embed(self, input_ids: torch.Tensor) -> torch.Tensor:
@@ -373,6 +481,12 @@ class CausalLM(nn.Module):
     def forward(self, input_ids=None, *, inputs_embeds=None, positions=None,
                 segment_ids=None, kv_cache=None, return_hidden=False):
         cfg = self.cfg
+        if cfg.scan_layers and kv_cache is not None \
+                and not isinstance(kv_cache["layers"], dict):
+            raise ValueError(
+                "scan_layers decode needs a STACKED KV cache "
+                "(init_kv_cache(stacked=True)): the per-layer slices ride "
+                "the layer axis")
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         b, s = inputs_embeds.shape[:2]
@@ -401,14 +515,14 @@ class CausalLM(nn.Module):
                          "index": idx}
 
         remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
+        if cfg.scan_layers:
+            x = self.layers(x, positions, segment_ids, kv_cache, cache_aux,
+                            remat)
         for i, blk in enumerate(self.blocks):
             layer_cache = kv_cache["layers"][i] if kv_cache is not None else None
             if remat:
-                # decoder.py:664-671: the block's inside is recomputed in
-                # the backward, only its input is kept
-                x = torch.utils.checkpoint.checkpoint(
-                    blk, x, positions, segment_ids, None, None,
-                    use_reentrant=False)
+                x = _run_block(blk, dict(blk.named_parameters()), x,
+                               (positions, segment_ids, None, None), True)
             else:
                 x = blk(x, positions, segment_ids, layer_cache, cache_aux)
         if cfg.final_norm:

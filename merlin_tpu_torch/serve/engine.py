@@ -23,6 +23,10 @@ B6), interleaved with decode under a per-step window budget.
 Decode steps attend through the paged decode kernel (B3, or B4 with
 ALiBi); ``spec_draft=k`` replaces them with prompt-lookup verify windows
 of k + 1 tokens (paged window kernel B5) that commit the accepted prefix.
+A ``scan_layers`` model serves from one stacked pool, (L, P, page,
+hkv*d) tensors that the decoder views flat, each layer offsetting the page
+tables by ``layer * P``; the page ids the pool hands out are per layer, so
+the trash page is page 0 of every layer.
 ``cache_dtype=torch.int8`` keeps the pool as int8 pages with f32 scale
 pages (half the bytes of bf16 pages): decode then attends through B7 at
 s_q = 1, verify windows through B7 and prefill windows through B8, and the
@@ -167,7 +171,12 @@ class ServingEngine:
                                    dtype=cache_dtype, layout="paged",
                                    page_size=page_size, device=self.device)
         self.pages_per_slot = self.cache["page_tables"].shape[1]
-        total_pages = self.cache["layers"][0]["k_pages"].shape[0]
+        # a scanned decoder's pool is one dict of (L, P, ...) tensors whose
+        # page ids are per layer (engine.py:188-192)
+        layers = self.cache["layers"]
+        self._stacked = isinstance(layers, dict)
+        total_pages = (layers["k_pages"].shape[1] if self._stacked
+                       else layers[0]["k_pages"].shape[0])
         self.pool = PagePool(total_pages, page_size, self.pages_per_slot)
         self.pool.allocate(_TRASH, 1)   # pins physical page 0
         # host mirror of the device page tables; rows of zeros alias the
@@ -240,10 +249,16 @@ class ServingEngine:
     def _insert(self, small_layers, phys, slot, small_lengths):
         """Scatter one prefilled sequence's pages (and, for an int8 pool,
         its scale pages) into pool pages ``phys`` (arbitrary, not
-        contiguous); each head-packed page is one row block. In place."""
-        for big, small in zip(self.cache["layers"], small_layers):
-            for key in big:
-                big[key][phys] = small[key].to(big[key].dtype)
+        contiguous); each head-packed page is one row block. A stacked
+        pool takes them along its pages axis 1, every layer at once
+        (``engine.py:255-275``). In place."""
+        if self._stacked:
+            for key, big in self.cache["layers"].items():
+                big[:, phys] = small_layers[key].to(big.dtype)
+        else:
+            for big, small in zip(self.cache["layers"], small_layers):
+                for key in big:
+                    big[key][phys] = small[key].to(big[key].dtype)
         self.cache["lengths"] = _with(self.cache["lengths"], slot,
                                       small_lengths[0])
 

@@ -23,7 +23,10 @@ a speculative request builds its generator for its own token budget (there
 is no compile to amortize, so no budget buckets and no generator cache);
 ``device`` places every generator and the engine (the card by default);
 on a CUDA device ``engine_cache_dtype="f32"`` is refused, since the paged
-kernels take bf16 or int8 pages only.
+kernels take bf16 or int8 pages only. ``--scan-decode`` builds the LM
+with ``scan_layers`` (stacked weights; a composite checkpoint stacks at
+load), which the engine serves from one stacked pool and the generators
+from a stacked dense cache.
 
     python -m merlin_tpu_torch.serve.worker --controller-address \\
         http://localhost:21001 --port 21002 --engine
@@ -348,11 +351,12 @@ def serve(bundle, *, host: str = "0.0.0.0", port: int = 21002,
     return server
 
 
-def main(argv: Optional[List[str]] = None):
+def parse_worker_args(argv: Optional[List[str]] = None):
+    """The worker's command line -> (its own arguments, and the model, data
+    and training arguments of the rest, ``--model-path`` and
+    ``--scan-decode`` applied)."""
     import argparse
 
-    from merlin_tpu_torch.models.builder import (
-        build_model_tokenizer, init_or_load_params, quantize_bundle_lm_int8)
     from merlin_tpu_torch.train.arguments import parse_args
 
     p = argparse.ArgumentParser()
@@ -393,8 +397,9 @@ def main(argv: Optional[List[str]] = None):
                    help="weight-only int8 LM kernels (per-output-channel "
                         "scales); the tower and projector stay as they are")
     p.add_argument("--scan-decode", action="store_true",
-                   help="scan the LM layer stack (not ported yet: the "
-                        "decoder refuses it)")
+                   help="build the LM as scan_layers (one block with "
+                        "stacked weights, one stacked KV pool; checkpoints "
+                        "stack at load)")
     args, rest = p.parse_known_args(argv)
 
     margs, dargs, targs = parse_args(rest)
@@ -402,6 +407,14 @@ def main(argv: Optional[List[str]] = None):
         margs.model_name_or_path = args.model_path
     if args.scan_decode:
         margs.scan_layers = True
+    return args, margs, dargs, targs
+
+
+def main(argv: Optional[List[str]] = None):
+    from merlin_tpu_torch.models.builder import (
+        build_model_tokenizer, init_or_load_params, quantize_bundle_lm_int8)
+
+    args, margs, dargs, targs = parse_worker_args(argv)
     bundle = build_model_tokenizer(margs, dargs, targs, tiny=args.tiny)
     init_or_load_params(bundle, composite_checkpoint=margs.pretrain_model,
                         device=args.device)

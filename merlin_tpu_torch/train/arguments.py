@@ -3,8 +3,9 @@
 
 The fields are the JAX package's, so one command line parses into either
 package. The port's trainer runs on one card: the mesh fields are read by
-no code of the port yet (parallelism is a later slice), and LoRA and
-``scan_layers`` are refused where they would be read. Parse from a command
+no code of the port yet (parallelism is a later slice), and the Trainer
+refuses ``lora_enable`` (trap C30; ``train/lora.py`` holds the functions).
+Parse from a command
 line with :func:`parse_args` (``transformers.HfArgumentParser`` when it is
 installed, plain argparse otherwise).
 """

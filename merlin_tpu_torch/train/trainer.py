@@ -34,7 +34,11 @@ class Trainer:
 
     def __init__(self, bundle, training_args, *, device="cuda"):
         if training_args.lora_enable:
-            raise NotImplementedError("LoRA is not ported yet")
+            # JAX's trainer drops lora_enable (trap C30): wiring
+            # the factors in here would be a feature JAX lacks
+            raise NotImplementedError(
+                "LoRA in the Trainer: JAX's trainer ignores lora_enable; "
+                "train factors with merlin_tpu_torch.train.lora")
         self.bundle = bundle
         self.args = training_args
         self.device = torch.device(device)

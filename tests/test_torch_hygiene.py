@@ -6,8 +6,8 @@
   * the entry points default to the card (``device="cuda"``), the
     checkpoint reader too, and a checkpoint read for another device never
     lands on the CPU;
-  * the decoder refuses only the options still to be ported
-    (``scan_layers``), and builds with int8 weights and with ``remat``;
+  * the decoder refuses no option any more: it builds with
+    ``scan_layers``, int8 weights and ``remat``;
   * a kernel wrapper, or the attention dispatcher, given a tensor that is
     not on the CPU never reaches the plain version: read from its code (the
     CPU test has no card), and shown at run time with tensors on the meta
@@ -55,6 +55,14 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "merlin_tpu")
 
 def _port_files():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("module", ["train/lora.py", "serve/web.py",
+                                    "serve/tools.py"])
+def test_new_modules_are_checked(module):
+    """The LoRA functions and the web and tools copies stand on the port:
+    the import checks below read them."""
+    assert PKG / module in _port_files()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -340,19 +348,17 @@ def test_paged_wrappers_refuse_non_cpu_tensors(dtype):
         assert [w.launches for w in PAGED_WRAPPERS] == before
 
 
-@pytest.mark.parametrize("option,refused", [
-    (dict(paged_multi_query=True), False),
-    (dict(scan_layers=True), True),
-    (dict(remat=True), False),
-    (dict(weight_dtype="int8"), False)],
+@pytest.mark.parametrize("option", [
+    dict(paged_multi_query=True), dict(scan_layers=True), dict(remat=True),
+    dict(weight_dtype="int8")],
     ids=["paged_multi_query", "scan_layers", "remat", "int8_weights"])
-def test_decoder_refuses_only_unported_options(option, refused):
+def test_decoder_refuses_only_unported_options(option):
+    """Every option is ported: the decoder builds with each."""
     cfg = tiny(**option)
-    if refused:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            CausalLM(cfg)
-    else:
-        model = CausalLM(cfg)
-        assert model.cfg == cfg
-        if cfg.weight_dtype == "int8":
-            assert model.lm_head.kernel_q8.dtype == torch.int8
+    model = CausalLM(cfg)
+    assert model.cfg == cfg
+    if cfg.weight_dtype == "int8":
+        assert model.lm_head.kernel_q8.dtype == torch.int8
+    if cfg.scan_layers:
+        assert model.layers.block.attn.q_proj.kernel.shape[0] == \
+            cfg.num_layers
