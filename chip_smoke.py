@@ -227,9 +227,27 @@ the LM quantized to int8) and of Baichuan-13B:
                   4th batch (the cursor with one sample dropped must fail),
                   and the native tar loader, built by the host compiler,
                   against the Python tar path.
+  M. mesh       - the parallelism code on a one-rank NCCL group (FileStore
+                  rendezvous in a temporary directory; the card machine has
+                  one H100, so no multi-rank path runs here) with the (1, 1,
+                  1, 1) mesh, the group torn down after each part. M2 after
+                  E1/E2 and after E4: ``ServingEngine(mesh=,
+                  param_shardings=)`` serves E1's, E2's (chunked + spec) and
+                  E4's (int8 weights and pages) prompts and settings again;
+                  tokens and launches must equal the meshless runs', every
+                  page come back and ``close()`` restore the global mesh.
+                  M1 after T1: T1's model, recipe and batch through the
+                  Trainer over the mesh (FSDP2 over (data, fsdp), the rules'
+                  tensor plan), 3 steps: losses against T1's and a meshless
+                  rerun's, every leaf's update against the rerun's,
+                  launches T1's per step, every trainable parameter a
+                  DTensor with the rules' placements; the tower unit's
+                  gradients left out of the update, and the LM head's
+                  alone (planted), must each fail the leaf check;
+                  ``host_allreduce_min`` and ``barrier`` over NCCL.
 
-Prints the serving, front-end, evaluation, checkpoint, training and data
-readings and the kernel table as JSON lines before the last, and as the last
+Prints the serving, front-end, evaluation, checkpoint, training, data and
+mesh readings and the kernel table as JSON lines before the last, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Needs a CUDA card; exits 2 without one.
 
@@ -1962,15 +1980,17 @@ SERVING = dict(num_slots=4, max_len=2048, page_size=128, prompt_bucket=128)
 SERVING_LENGTHS = [100, 300, 700, 1100, 130, 1500]
 
 
-def serve_vicuna(model, rng):
+def serve_vicuna(model, rng, prompts):
     """E1 and E2 on the full-width Vicuna-7B MMGPT, text-only requests as
-    the worker's engine path serves them."""
+    the worker's engine path serves them; their prompts go into
+    ``prompts`` (phase M2 serves them again)."""
+    prompts["E1"] = serving_prompts(rng, SERVING_LENGTHS, 32000)
     e1 = run_engine("E1 vicuna-7b (whole-prompt admission, decode)", model,
-                    serving_prompts(rng, SERVING_LENGTHS, 32000),
-                    ["B2", "B3"], chunk_steps=8, pipeline=1, **SERVING)
+                    prompts["E1"], ["B2", "B3"], chunk_steps=8, pipeline=1,
+                    **SERVING)
+    prompts["E2"] = serving_prompts(rng, SERVING_LENGTHS, 32000, period=48)
     e2 = run_engine("E2 vicuna-7b (chunked prefill C=128, spec k=4)", model,
-                    serving_prompts(rng, SERVING_LENGTHS, 32000, period=48),
-                    ["B5", "B6"], prefill_chunk=128,
+                    prompts["E2"], ["B5", "B6"], prefill_chunk=128,
                     prefill_windows_per_step=4, spec_draft=4, chunk_steps=1,
                     **SERVING)
     return {"E1": e1, "E2": e2}
@@ -1998,13 +2018,14 @@ def build_int8_vicuna(model, cfg):
     return qmodel.eval()
 
 
-def serve_vicuna_int8(model, rng):
+def serve_vicuna_int8(model, rng, prompts):
     """E4 on the int8-weight Vicuna-7B MMGPT over int8 pages: short prompts
     whole (B2, quantized into the pages), long ones in 128-token windows
     (B8), decode through B7 at s_q = 1."""
+    prompts["E4"] = serving_prompts(rng, SERVING_LENGTHS, 32000)
     return run_engine(
         "E4 vicuna-7b int8 weights + int8 pages (hybrid C=128 min 256)",
-        model, serving_prompts(rng, SERVING_LENGTHS, 32000),
+        model, prompts["E4"],
         ["B2", "B7", "B8"], cache_dtype=torch.int8, prefill_chunk=128,
         prefill_chunk_min=256, chunk_steps=8, pipeline=1, **SERVING)
 
@@ -4316,7 +4337,8 @@ def run_training(tag, model, model_args, targs, steps, rng, **batch_kw):
     """Train ``steps`` steps through ``Trainer.train`` on one repeated batch
     (``train_batch`` with ``batch_kw``) with the launch counts set to 0
     just before and read just after. Returns (per-step metrics, launch
-    counts, peak bytes)."""
+    counts, peak bytes, the profile); the batch is kept as
+    ``run_training.batch``."""
     from merlin_tpu_torch.models.builder import make_bundle
     from merlin_tpu_torch.train.trainer import Trainer
 
@@ -4325,10 +4347,12 @@ def run_training(tag, model, model_args, targs, steps, rng, **batch_kw):
     trainer.init_state()
     batch = train_batch(rng, model.cfg.image_token_len,
                         rows=targs.gradient_accumulation_steps, **batch_kw)
+    run_training.batch = batch
     seen = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
+    t_train = time.perf_counter()
     trainer.train(iter([batch] * steps), num_steps=steps,
                   log_fn=lambda step, m: seen.append(m))
     torch.cuda.synchronize()
@@ -4455,7 +4479,8 @@ def run_t1(rng):
     return dict(losses=losses, counts=counts, peak_bytes=peak,
                 step_time_s=seen[-1]["step_time_s"],
                 tokens_per_sec=seen[-1]["tokens_per_sec"],
-                mfu=seen[-1]["mfu"], profile=prof)
+                mfu=seen[-1]["mfu"], profile=prof,
+                batch=run_training.batch)
 
 
 def run_t2(rng):
@@ -5427,6 +5452,277 @@ def ptxas_report(pieces=SPILL_CHECKED):
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase M: the mesh path on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+M_STEPS = 3                  # M1's steps: T1's first three
+M_LOSS_RTOL = 1e-5           # M1's losses against T1's and the rerun's. Not
+                             # bit for bit: dq's f32 atomics add in a
+                             # varying order (C17), so even T1 and its
+                             # meshless rerun part at step 3 (by 4.6e-7 on
+                             # an H100), and Adam turns the gradients of
+                             # elements near its eps into steps of ~lr
+M_LEAF_LIMIT = 0.5           # every leaf's 3-step update (parameters after
+                             # minus before) against the meshless rerun's:
+                             # |difference|_2 / |rerun's update|_2. Sound
+                             # runs read at most 0.16 on an H100, a key
+                             # bias; a leaf whose gradient is left out
+                             # moves by its decay alone and reads ~1. The
+                             # key biases are left out (their exact
+                             # gradient is 0: Adam steps on rounding noise
+                             # in both runs, C14), as in the CPU tests
+
+
+class MeshGroup:
+    """A one-rank NCCL process group (FileStore rendezvous in a temporary
+    directory) with the (1, 1, 1, 1) mesh over it, for the duration of a
+    ``with``; no fallback: a group that does not come up fails the phase.
+    The group is torn down after, so the phases without a mesh run as
+    before."""
+
+    def __enter__(self):
+        import tempfile
+
+        import torch.distributed as dist
+        from merlin_tpu_torch.core.mesh import MeshConfig, create_mesh
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_m_")
+        dist.init_process_group("nccl", init_method=f"file://{self.dir}/rdzv",
+                                rank=0, world_size=1)
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"M: backend {dist.get_backend()}")
+        self.mesh = create_mesh(MeshConfig(data=1, fsdp=1, seq=1, tensor=1))
+        return self.mesh
+
+    def __exit__(self, *exc):
+        import shutil
+
+        import torch.distributed as dist
+        from merlin_tpu_torch.core.mesh import set_global_mesh
+
+        set_global_mesh(None)
+        dist.destroy_process_group()
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return False
+
+
+def m_serve(tag, model, prompts, ref, mesh, **engine_kw):
+    """One M2 run: ``ServingEngine(mesh=, param_shardings=)`` on ``model``
+    with ``engine_kw`` serves ``prompts`` (32 new tokens each, as
+    ``run_engine``); its tokens and launches must equal the meshless run
+    ``ref`` (run_engine's (counts, readings)), every page must come back
+    and ``close()`` must restore the global mesh."""
+    from merlin_tpu_torch.core.mesh import get_global_mesh
+    from merlin_tpu_torch.core.partitioning import (
+        logical_axes, sharding_for_tree)
+    from merlin_tpu_torch.serve.engine import ServingEngine
+
+    shardings = sharding_for_tree(logical_axes(model), mesh, strict=False)
+    engine = ServingEngine(model, eos_id=-1, device="cuda", mesh=mesh,
+                           param_shardings=shardings, **engine_kw)
+    set_while_running = get_global_mesh() is mesh
+    free_start = engine.pool.free_pages
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new_tokens=32) for p in prompts]
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    free_end = engine.pool.free_pages
+    engine.close()
+    restored = get_global_mesh() is None
+    tokens = [r.generated for r in reqs]
+    n_tok = sum(len(t) for t in tokens)
+    same = tokens == ref[1]["tokens"]
+    log(f"M2 {tag}: {len(prompts)} requests on the (1, 1, 1, 1) NCCL mesh, "
+        f"{n_tok} tokens in {wall:.3f} s -> {n_tok / wall:.2f} tok/s; "
+        f"tokens equal the meshless run's: {same}; launches {counts} "
+        f"(meshless {ref[0]}); free pages {free_end} of {free_start}; "
+        f"global mesh set while serving {set_while_running}, restored by "
+        f"close() {restored}")
+    if not (same and counts == ref[0] and free_end == free_start
+            and set_while_running and restored):
+        raise AssertionError(f"M2 {tag} failed")
+    return counts, dict(tok_s=n_tok / wall, wall_s=wall, tokens_equal=same)
+
+
+def run_m2_bf16(model, prompts, served):
+    """M2 on E1's Vicuna-7B: E1's traffic and settings (bf16 pool, whole
+    prompts, B2/B3) and E2's (chunked prefill + spec k=4, B6/B5)."""
+    with MeshGroup() as mesh:
+        return {"M2 bf16 pool (E1)": m_serve(
+                    "bf16 pool (E1)", model, prompts["E1"], served["E1"],
+                    mesh, chunk_steps=8, pipeline=1, **SERVING),
+                "M2 chunked + spec (E2)": m_serve(
+                    "chunked + spec (E2)", model, prompts["E2"],
+                    served["E2"], mesh, prefill_chunk=128,
+                    prefill_windows_per_step=4, spec_draft=4, chunk_steps=1,
+                    **SERVING)}
+
+
+def run_m2_int8(qmodel, prompts, served):
+    """M2 on E4's int8-weight Vicuna-7B over E4's int8 pool (B2/B8/B7)."""
+    with MeshGroup() as mesh:
+        return {"M2 int8 pool (E4)": m_serve(
+            "int8 pool (E4)", qmodel, prompts["E4"], served["E4"], mesh,
+            cache_dtype=torch.int8, prefill_chunk=128, prefill_chunk_min=256,
+            chunk_steps=8, pipeline=1, **SERVING)}
+
+
+def m_train(tag, batch, mesh=None, plant=None, keep_init=False):
+    """T1's model and recipe (8 LM layers, seed 0) trained M_STEPS steps on
+    T1's batch, on ``mesh`` when given (FSDP2 over (data, fsdp), the rules'
+    tensor plan). ``plant``: a predicate on parameter names whose
+    gradients are left out of the update (zeroed before the optimizer
+    step). Returns the
+    metrics, the launches, the peak bytes, the trainable parameters after
+    the steps (on the host; with ``keep_init`` also before them) and the
+    placement problems found."""
+    from merlin_tpu_torch.core.parallel import check_placements, local
+    from merlin_tpu_torch.models.builder import make_bundle
+    from merlin_tpu_torch.train.arguments import ModelArguments
+    from merlin_tpu_torch.train.trainer import Trainer
+
+    free_cuda()         # the run before's model, held in reference cycles
+    t_build = time.perf_counter()
+    model = build_train_model(8)
+    bundle = make_bundle(model, ModelArguments(), orig_vocab_size=32000)
+    trainer = Trainer(bundle, train_args(gradient_accumulation_steps=2,
+                                         max_steps=4),
+                      mesh=mesh, device="cuda")
+    trainer.init_state()
+    bad = check_placements(model, trainer.parallel) if mesh else []
+    init = ({n: local(p).detach().to("cpu", copy=True)
+             for n, p in model.named_parameters() if p.requires_grad}
+            if keep_init else None)
+    if plant:
+        step = trainer.optimizer.step
+
+        def left_out(grads):
+            for n, g in grads.items():
+                if plant(n):
+                    g.zero_()
+            return step(grads)
+        trainer.optimizer.step = left_out
+    seen = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t_train = time.perf_counter()
+    trainer.train(iter([batch] * M_STEPS), num_steps=M_STEPS,
+                  log_fn=lambda i, m: seen.append(m))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    params = {n: local(p).detach().to("cpu", copy=True)
+              for n, p in model.named_parameters() if p.requires_grad}
+    if plant:
+        del trainer.optimizer.step      # the cycle through left_out
+    trainer.close()
+    log(f"M1 {tag}: {time.perf_counter() - t_build:.1f} s in all, "
+        f"{t_train - t_build:.1f} s to build, "
+        f"{time.perf_counter() - t_train:.1f} s to train and copy out")
+    for m in seen:
+        log(f"M1 {tag} step: loss {m['loss']:.7f}, grad_norm "
+            f"{m['grad_norm']:.4f}, update_norm {m['update_norm']:.4e}, "
+            f"step {m['step_time_s']:.3f} s, "
+            f"{m.get('tokens_per_sec', float('nan')):.1f} tok/s")
+    del trainer, bundle, model
+    free_cuda()
+    if keep_init:
+        params = (params, init)
+    return seen, counts, peak, params, bad
+
+
+def m_update_gap(params, ref, updates):
+    """Per leaf, |params - ref|_2 / |ref - init|_2 (``updates``: the
+    reference's update norms): how far a run's update lies from the
+    reference run's, as a share of it. Returns the leaves the check holds
+    to M_LEAF_LIMIT that exceed it, the worst of those leaves with its
+    share, and the median share of each FSDP unit's leaves (the tower, the
+    projector, the root: the LM), which is information."""
+    shares = {n: (params[n] - want).norm().item() / updates[n]
+              for n, want in ref.items() if updates[n] > 0}
+    units = collections.defaultdict(list)
+    for n, share in shares.items():
+        units[n.split(".")[0]].append(share)
+    held = {n: v for n, v in shares.items() if not n.endswith("k_proj.bias")}
+    worst = max(held, key=held.get)
+    over = sorted(n for n, v in held.items() if v > M_LEAF_LIMIT)
+    return (over, (worst, held[worst]),
+            {u: float(np.median(v)) for u, v in units.items()})
+
+
+def run_m1(t1, smi):
+    """M1: the Trainer on the (1, 1, 1, 1) NCCL mesh in T1's configuration
+    and batch, 3 steps: the losses against T1's first three and a meshless
+    rerun's, each leaf's update against the rerun's, launches per step
+    equal to T1's, every trainable parameter a DTensor on the mesh
+    with the rules' placements; two planted faults must fail the
+    parameter check: the tower's FSDP unit's gradients left out of the
+    update, and one leaf's (the LM head's); ``host_allreduce_min`` and
+    ``barrier`` over NCCL."""
+    from merlin_tpu_torch.utils.dist import barrier, host_allreduce_min
+
+    batch = t1["batch"]
+    plain, _, _, (ref, init), _ = m_train("meshless rerun", batch,
+                                          keep_init=True)
+    updates = {n: (want - init[n]).norm().item() for n, want in ref.items()}
+    del init
+    planted = {"the tower unit's gradients left out":
+               lambda n: n.startswith("vision_tower."),
+               "the LM head's gradient left out":
+               lambda n: n == "lm.lm_head.kernel"}
+    with MeshGroup() as mesh:
+        agreed = host_allreduce_min(7)
+        barrier("M1")
+        seen, counts, peak, params, bad = m_train("(1, 1, 1, 1) mesh", batch,
+                                                  mesh)
+        over, worst, medians = m_update_gap(params, ref, updates)
+        del params
+        caught = {}
+        for tag, plant in planted.items():
+            _, _, _, params, _ = m_train(f"planted: {tag}", batch, mesh,
+                                         plant=plant)
+            p_over, p_worst, p_medians = m_update_gap(params, ref, updates)
+            del params
+            caught[tag] = dict(leaves_over=len(p_over),
+                               planted_over=sum(map(plant, p_over)),
+                               worst_leaf=p_worst, unit_medians=p_medians)
+    del ref
+    losses = [m["loss"] for m in seen]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in
+                   zip(losses, t1["losses"][:M_STEPS]))
+    rerun_gap = max(abs(m["loss"] - r["loss"]) / abs(r["loss"])
+                    for m, r in zip(seen, plain))
+    want = {k: v * M_STEPS // 4 for k, v in t1["counts"].items()}
+    log(f"M1 checks: losses {losses} vs T1's {t1['losses'][:M_STEPS]} (rel "
+        f"{loss_gap:.3e}), vs the meshless rerun's "
+        f"{[r['loss'] for r in plain]} (rel {rerun_gap:.3e}), tol "
+        f"{M_LOSS_RTOL}; each leaf's update vs the rerun's: worst leaf "
+        f"{worst[0]} {worst[1]:.3e}, leaves over {M_LEAF_LIMIT}: {over[:4]}; "
+        f"the median of each FSDP unit {medians}; planted faults {caught}, "
+        f"each must put its own leaves over; launches {counts} (T1 x 3/4: "
+        f"{want}); placement problems {bad[:4]}; host_allreduce_min(7) = "
+        f"{agreed}; peak {peak} bytes; card {smi}")
+    if not (loss_gap <= M_LOSS_RTOL and rerun_gap <= M_LOSS_RTOL
+            and not over
+            and all(c["planted_over"] > 0 for c in caught.values())
+            and counts == want and not bad and agreed == 7):
+        raise AssertionError(f"M1 failed: {losses} {worst} {over[:4]} "
+                             f"{caught} {counts} {bad[:4]}")
+    return dict(losses=losses, counts=counts, peak_bytes=peak,
+                step_time_s=[m["step_time_s"] for m in seen],
+                tokens_per_sec=seen[-1].get("tokens_per_sec"),
+                meshless_step_time_s=[m["step_time_s"] for m in plain],
+                loss_rel_t1=loss_gap, loss_rel_rerun=rerun_gap,
+                update_share_worst_leaf=worst, update_share_limit=M_LEAF_LIMIT,
+                update_share_median=medians, planted=caught)
+
+
 def free_cuda():
     gc.collect()
     torch.cuda.empty_cache()
@@ -5475,7 +5771,12 @@ def main() -> int:
     model, cfg = build_full_model()
     fwd_counts, _ = run_forward(model, cfg, rng)
     g = run_generation(model, cfg, rng)
-    served = serve_vicuna(model, rng)
+    e_prompts = {}
+    served = serve_vicuna(model, rng, e_prompts)
+    m_seconds = {}
+    t0 = time.perf_counter()
+    mesh_served = run_m2_bf16(model, e_prompts, served)
+    m_seconds["M2 (E1, E2)"] = time.perf_counter() - t0
     scanned, smodel = serve_scanned(model, np.random.default_rng(13))
     qmodel = build_int8_vicuna(model, cfg)
     sqmodel = build_int8_vicuna(smodel, smodel.cfg)
@@ -5483,7 +5784,10 @@ def main() -> int:
     del model, smodel                 # the int8 LM replaces the bf16 one
     gc.collect()
     torch.cuda.empty_cache()
-    served["E4"] = serve_vicuna_int8(qmodel, rng)
+    served["E4"] = serve_vicuna_int8(qmodel, rng, e_prompts)
+    t0 = time.perf_counter()
+    mesh_served.update(run_m2_int8(qmodel, e_prompts, served))
+    m_seconds["M2 (E4)"] = time.perf_counter() - t0
     scanned["S4"] = serve_scanned_int8(qmodel, sqmodel,
                                        np.random.default_rng(16))
     del qmodel, sqmodel               # E3's model replaces the 7B one
@@ -5504,6 +5808,11 @@ def main() -> int:
     t0_reading = check_train_reference(rng)
     free_cuda()
     t1 = run_t1(rng)
+    free_cuda()
+    t0 = time.perf_counter()
+    m1 = run_m1(t1, smi)
+    m_seconds["M1"] = time.perf_counter() - t0
+    del t1["batch"]
     free_cuda()
     t2 = run_t2(rng)
     free_cuda()
@@ -5556,6 +5865,9 @@ def main() -> int:
                                            for e in sorted(scanned)}
         row["launches_lora"] = lora["counts"][key]
         row["launches_tower_training"] = t3["counts"][key]
+        row["launches_mesh_training"] = m1["counts"][key]
+        row["launches_mesh_serving"] = {e: mesh_served[e][0][key]
+                                        for e in mesh_served}
     log(json.dumps({"serving": {
         e: {k: v for k, v in served[e][1].items() if k != "tokens"}
         for e in served}}))
@@ -5575,6 +5887,12 @@ def main() -> int:
             k: v for k, v in lora.items() if k != "counts"},
         "tower_training": {k: v for k, v in t3.items() if k != "counts"},
         "card": smi}))
+    log(json.dumps({"mesh": {
+        "M1": {k: v for k, v in m1.items() if k != "counts"},
+        "M2": {e: r[1] for e, r in mesh_served.items()},
+        "seconds": m_seconds,
+        "note": "one rank (NCCL, world 1): no multi-rank number",
+        "card": smi}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,12 @@ Reference pipeline (pair_webdataset.py:38-49):
   -> split_by_worker -> tarfile_to_samples -> shuffle(1000, weak) -> decode
 
 Here each stage is a small generator; distribution is by process index
-(``torch.distributed``'s rank when a process group is initialized, else 0
-of 1: :func:`process_index_count`) and an optional worker id.
+and an optional worker id. The process index is the NODE's
+(:func:`process_index_count`): JAX's process is a host, whose devices all
+take rows of the one batch it reads, so every rank of a node reads the
+same stream and the train step hands each rank the rows of its (data,
+fsdp) coordinate. Two ranks of one tensor group therefore see the same
+samples.
 Every stage swallows-and-logs per-sample failures (the reference's
 ``warn_and_continue`` fault tolerance, SURVEY.md §5).
 """
@@ -25,15 +29,30 @@ logger = logging.getLogger("merlin_tpu_torch.data")
 IMAGE_EXTS = ("jpg", "jpeg", "png", "webp")
 
 
-def process_index_count() -> Tuple[int, int]:
-    """(rank, world size) of the initialized ``torch.distributed`` process
-    group, else (0, 1): the port's ``jax.process_index()`` and
-    ``jax.process_count()``."""
+def local_world_size() -> int:
+    """Ranks on this node: torchrun's ``LOCAL_WORLD_SIZE``, else the whole
+    process group (one node), else 1."""
     import torch.distributed as dist
 
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_WORLD_SIZE"])
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+        return dist.get_world_size()
+    return 1
+
+
+def process_index_count() -> Tuple[int, int]:
+    """(node index, node count) of the initialized ``torch.distributed``
+    process group, else (0, 1): the port's ``jax.process_index()`` and
+    ``jax.process_count()``, a JAX process being a host. The index is
+    torchrun's ``GROUP_RANK``, else rank // ``LOCAL_WORLD_SIZE``."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0, 1
+    local = local_world_size()
+    index = int(os.environ.get("GROUP_RANK", dist.get_rank() // local))
+    return index, max(dist.get_world_size() // local, 1)
 
 
 def infinite_shard_list(shards: Sequence[str], seed: int = 3407

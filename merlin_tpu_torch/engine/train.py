@@ -1,5 +1,4 @@
-"""Training entry point (counterpart of ``merlin_tpu/engine/train.py``), on
-one card.
+"""Training entry point (counterpart of ``merlin_tpu/engine/train.py``).
 
     python -m merlin_tpu_torch.engine.train \
         --model_name_or_path lmsys/vicuna-7b-v1.5 \
@@ -13,10 +12,18 @@ auto-resume from the newest checkpoint-* (parameters, optimizer and the
 data cursor, loaded before the first batch is drawn) -> train -> final
 save.
 
-The process index is ``torch.distributed``'s rank when a process group is
-initialized, else 0 of 1. The global batch is
-``per_device_train_batch_size x gradient_accumulation_steps`` on the one
-card (JAX multiplies by its local device count too).
+Under ``torchrun`` (``init_distributed``: NCCL on the cards, gloo on the
+CPU) the Trainer trains on the mesh of the ``--mesh_data/fsdp/seq/tensor``
+flags (``mesh_from_args``), e.g.
+
+    torchrun --nproc_per_node 8 -m merlin_tpu_torch.engine.train \
+        --mesh_fsdp 4 --mesh_tensor 2 ... --output_dir output/pretrain
+
+A process reads the data stream of its NODE (``process_index_count``: a
+JAX process is a host): the node's batch is ``per_device_train_batch_size
+x gradient_accumulation_steps x`` its ranks (JAX's local device count),
+and each rank trains on the rows of its (data, fsdp) coordinate. On one
+process there is no mesh and the batch is per_device x accum.
 """
 
 from __future__ import annotations
@@ -24,13 +31,18 @@ from __future__ import annotations
 import os
 from typing import Optional, Sequence
 
+import torch
+
 from merlin_tpu_torch.data.builder import (
     batch_iterator, build_dataloader, resume_data)
-from merlin_tpu_torch.data.shards import process_index_count
+from merlin_tpu_torch.data.shards import (
+    local_world_size, process_index_count)
 from merlin_tpu_torch.models.builder import (
     build_model_tokenizer, init_or_load_params)
 from merlin_tpu_torch.train.arguments import parse_args
-from merlin_tpu_torch.train.trainer import Trainer
+from merlin_tpu_torch.train.trainer import Trainer, mesh_from_args
+from merlin_tpu_torch.utils.dist import (
+    get_rank, get_world_size, init_distributed)
 from merlin_tpu_torch.utils.logging import log_model_parameters, setup_logger
 
 
@@ -39,9 +51,11 @@ def train(argv: Optional[Sequence[str]] = None, *, tiny: bool = False,
     """Train from the command line ``argv`` (``sys.argv`` when None) on
     ``device``; returns the last step's metrics."""
     model_args, data_args, training_args = parse_args(argv)
+    init_distributed()
     rank, world = process_index_count()
-    logger = setup_logger(training_args.output_dir, rank)
-    logger.info("device: %s (process %d of %d)", device, rank, world)
+    logger = setup_logger(training_args.output_dir, get_rank())
+    logger.info("device: %s (rank %d of %d, node %d of %d)", device,
+                get_rank(), get_world_size(), rank, world)
 
     bundle = build_model_tokenizer(model_args, data_args, training_args,
                                    tiny=tiny)
@@ -59,9 +73,12 @@ def train(argv: Optional[Sequence[str]] = None, *, tiny: bool = False,
                             training_args, process_index=rank,
                             process_count=world)
     global_batch = (training_args.per_device_train_batch_size
-                    * training_args.gradient_accumulation_steps)
+                    * training_args.gradient_accumulation_steps
+                    * local_world_size())
 
-    trainer = Trainer(bundle, training_args, device=device)
+    mesh = (mesh_from_args(training_args, torch.device(device).type)
+            if get_world_size() > 1 else None)
+    trainer = Trainer(bundle, training_args, mesh=mesh, device=device)
     trainer.init_state()
     start = 0
     if trainer.maybe_resume():
@@ -74,6 +91,7 @@ def train(argv: Optional[Sequence[str]] = None, *, tiny: bool = False,
         sampler=data["sampler"], start=start)
     metrics = trainer.train(batches)
     trainer.save_final()
+    trainer.close()
     logger.info("done: %s", metrics)
     return metrics
 

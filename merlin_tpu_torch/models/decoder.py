@@ -47,6 +47,8 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from merlin_tpu_torch.core.parallel import copy_to_group, gather_from_group
+from merlin_tpu_torch.core.partitioning import set_param_axes
 from merlin_tpu_torch.models.layers import (
     DenseGeneral, Embed, GatedMLP, LayerNorm, RMSNorm, SimpleMLP,
     alibi_slopes, apply_rope, normal_param)
@@ -106,7 +108,7 @@ class DecoderConfig:
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16, *, layout: str = "dense",
                   page_size: int = 128, stacked: Optional[bool] = None,
-                  device="cuda") -> Dict[str, Any]:
+                  tensor_parallel: int = 1, device="cuda") -> Dict[str, Any]:
     """KV cache dict. The forward updates its buffers in place and returns
     the same layout with the bookkeeping advanced.
 
@@ -130,6 +132,10 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
     pps, page_size, ...) pages and scale pages whose page ids (the tables,
     the trash page 0) are per layer.
 
+    ``tensor_parallel=tp``: the pool of ONE rank of a tensor group, its
+    kv heads (hkv / tp lanes of d) and, for int8, 128 / tp scale lanes in
+    the same stride as the whole pool's (a lane shard is a head shard).
+
     A dense int8 cache is refused: it has no scales (trap C10).
     """
     if stacked is None:
@@ -148,10 +154,12 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
     if layout == "paged":
         pps = -(-max_len // page_size)
         total = batch * pps
-        shape = (total, page_size, cfg.kv_heads * cfg.head_size)
+        shape = (total, page_size,
+                 cfg.kv_heads // tensor_parallel * cfg.head_size)
         shapes = {"k_pages": (shape, dtype), "v_pages": (shape, dtype)}
         if dtype == torch.int8:
-            scales = ((total, page_size, paged.LANES), torch.float32)
+            scales = ((total, page_size, paged.LANES // tensor_parallel),
+                      torch.float32)
             shapes.update(k_scales=scales, v_scales=scales)
         return {
             "layers": assemble(shapes),
@@ -165,7 +173,8 @@ def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
         raise ValueError("an int8 KV cache needs layout='paged': the dense "
                          "cache has no scales, and casting K/V to int8 "
                          "without one loses them")
-    shape = ((batch, max_len, cfg.kv_heads, cfg.head_size), dtype)
+    shape = ((batch, max_len, cfg.kv_heads // tensor_parallel,
+              cfg.head_size), dtype)
     return {
         "layers": assemble({"k": shape, "v": shape}),
         "seg": torch.zeros((batch, max_len), dtype=torch.int32, device=device),
@@ -191,10 +200,13 @@ class Attention(nn.Module):
         h, hkv, d, e = cfg.num_heads, cfg.kv_heads, cfg.head_size, cfg.hidden_size
         kw = dict(use_bias=cfg.attention_bias, dtype=cfg.dtype,
                   weight_q8=cfg.weight_dtype == "int8")
-        self.q_proj = DenseGeneral(e, (h, d), **kw)
-        self.k_proj = DenseGeneral(e, (hkv, d), **kw)
-        self.v_proj = DenseGeneral(e, (hkv, d), **kw)
-        self.o_proj = DenseGeneral((h, d), e, **kw)
+        col = dict(kernel_axes=("embed", "heads", "kv"), **kw)
+        self.q_proj = DenseGeneral(e, (h, d), **col)
+        self.k_proj = DenseGeneral(e, (hkv, d), **col)
+        self.v_proj = DenseGeneral(e, (hkv, d), **col)
+        self.o_proj = DenseGeneral((h, d), e,
+                                   kernel_axes=("heads", "kv", "embed"), **kw)
+        self.tp_rank = 0
 
     def forward(self, x, positions, segment_ids, layer_cache, cache_aux):
         cfg = self.cfg
@@ -206,8 +218,14 @@ class Attention(nn.Module):
                         rotary_dim=rotary_dim)
             q = apply_rope(q, positions, **rope)
             k = apply_rope(k, positions, **rope)
-        slopes = (alibi_slopes(cfg.num_heads, device=x.device)
-                  if cfg.positional == "alibi" else None)
+        slopes = None
+        if cfg.positional == "alibi":
+            slopes = alibi_slopes(cfg.num_heads, device=x.device)
+            h_local = q.shape[2]
+            if h_local < cfg.num_heads:
+                # this rank's heads under tensor parallelism
+                slopes = slopes[self.tp_rank * h_local:
+                                (self.tp_rank + 1) * h_local]
 
         if layer_cache is None:
             out = dispatch_attention(
@@ -244,6 +262,10 @@ class Attention(nn.Module):
                     segment_ids_kv=new_seg, alibi_slopes=slopes,
                     q_offset=idx)
         return self.o_proj(out)
+
+    def tensor_parallel_(self, dims, info, prefix) -> None:
+        del dims, prefix
+        self.tp_rank = info.tp_rank
 
     def _paged(self, q, k, v, segment_ids, slopes, layer_cache, cache_aux):
         """Attention on a paged cache; writes this call's K/V into the
@@ -311,7 +333,8 @@ class Attention(nn.Module):
         rows = tables.shape[1] * kp.shape[1]
         for pages, scales, new in ((kp, ks, k), (vp, vs, v)):
             values, sc = paged.quantize_pages(new.reshape(b, s, -1),
-                                              self.cfg.head_size)
+                                              self.cfg.head_size,
+                                              lanes=scales.shape[-1])
             _prompt_rows(pages, b, rows, layer_index)[:, :s] = values
             _prompt_rows(scales, b, rows, layer_index)[:, :s] = sc
         return dispatch_attention(
@@ -394,6 +417,8 @@ class ScannedLayers(nn.Module):
                                    for blk in blocks])
             setattr(self.block.get_submodule(owner), leaf,
                     nn.Parameter(stacked, requires_grad=param.requires_grad))
+        for module in self.block.modules():
+            module.stacked_layers = True   # its parameters lead with L
 
     def _layer_caches(self, kv_cache, cache_aux):
         """(layer cache, cache aux) for each layer."""
@@ -434,6 +459,7 @@ class CausalLM(nn.Module):
             # per-channel scale cannot represent (decoder.py:622-628)
             raise ValueError("int8 weights: a NormHead stays full precision")
         self.cfg = cfg
+        self.tp_group = None
         self.embed_tokens = Embed(cfg.vocab_size, cfg.hidden_size,
                                   dtype=cfg.dtype)
         if cfg.positional == "learned":
@@ -450,11 +476,24 @@ class CausalLM(nn.Module):
             if cfg.normhead:
                 self.lm_head_kernel = normal_param(
                     (cfg.hidden_size, cfg.vocab_size))
+                set_param_axes(self, lm_head_kernel=("embed", "vocab"))
             else:
                 self.lm_head = DenseGeneral(
                     cfg.hidden_size, cfg.vocab_size,
                     use_bias=cfg.lm_head_bias, dtype=cfg.dtype,
-                    weight_q8=cfg.weight_dtype == "int8")
+                    weight_q8=cfg.weight_dtype == "int8",
+                    kernel_axes=("embed", "vocab"))
+
+    def tensor_parallel_(self, dims, info, prefix) -> None:
+        """Gather the logits over the tensor group when the head's (or the
+        tied table's) vocabulary is cut."""
+        pre = f"{prefix}." if prefix else ""
+        head = ("embed_tokens.embedding" if self.cfg.tie_word_embeddings
+                else "lm_head_kernel" if self.cfg.normhead
+                else "lm_head.kernel_q8" if self.cfg.weight_dtype == "int8"
+                else "lm_head.kernel")
+        if pre + head in info.tp_dims:
+            self.tp_group = info.tp_group
 
     @property
     def blocks(self):
@@ -467,16 +506,22 @@ class CausalLM(nn.Module):
         return self.embed_tokens(input_ids)
 
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """f32 logits over the whole vocabulary (gathered over the tensor
+        group when the head holds a slice of it)."""
         cfg = self.cfg
         if cfg.tie_word_embeddings:
-            return self.embed_tokens.attend(hidden)
-        if cfg.normhead:
+            logits = self.embed_tokens.attend(hidden)
+        elif cfg.normhead:
+            hidden = copy_to_group(hidden, self.tp_group)
             kernel = self.lm_head_kernel.float()
             kernel = kernel / (torch.linalg.vector_norm(
                 kernel, dim=0, keepdim=True) + 1e-7)
             # bf16 operands, f32 products and sums (preferred_element_type)
-            return hidden.to(cfg.dtype).float() @ kernel.to(cfg.dtype).float()
-        return self.lm_head(hidden)
+            logits = hidden.to(cfg.dtype).float() @ kernel.to(
+                cfg.dtype).float()
+        else:
+            logits = self.lm_head(hidden)
+        return gather_from_group(logits, self.tp_group, dim=-1)
 
     def forward(self, input_ids=None, *, inputs_embeds=None, positions=None,
                 segment_ids=None, kv_cache=None, return_hidden=False):
@@ -557,6 +602,17 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     optional z-loss (``decoder.py:804-822``). logits (b, s, V); labels
     (b, s), already shifted by the caller. Returns (mean loss over the
     valid tokens, their count); the mean divides by at least 1."""
+    total, count = cross_entropy_sum(logits, labels,
+                                     ignore_index=ignore_index,
+                                     z_loss_weight=z_loss_weight)
+    return total / count.clamp_min(1), count
+
+
+def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor, *,
+                      ignore_index: int = -100, z_loss_weight: float = 0.0):
+    """(sum of the per-token losses over the valid tokens, their count):
+    the parts of :func:`cross_entropy_loss` that a mesh sums over the
+    (data, fsdp) ranks before dividing."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logits = logits.float()
@@ -565,5 +621,4 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     if z_loss_weight:
         nll = nll + z_loss_weight * logz.square()
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    count = valid.sum()
-    return nll.sum() / count.clamp_min(1), count
+    return nll.sum(), valid.sum()

@@ -21,7 +21,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from merlin_tpu_torch.core.parallel import copy_to_group, reduce_from_group
+from merlin_tpu_torch.core.partitioning import set_param_axes
+
 Shape = Union[int, Sequence[int]]
+Axes = Tuple[Optional[str], ...]
 
 
 def _tuple(x: Shape) -> Tuple[int, ...]:
@@ -39,6 +43,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(dim))
+        set_param_axes(self, scale=("norm",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
@@ -55,6 +60,7 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
+        set_param_axes(self, scale=("norm",), bias=("norm",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
@@ -123,16 +129,25 @@ class DenseGeneral(nn.Module):
     with :func:`merlin_tpu_torch.models.convert.quantize_decoder_params_int8`.
     The int8 kernel is for inference: a gradient asked of its output
     raises.
+
+    ``kernel_axes`` are the kernel's logical axes (JAX's), from which the
+    bias and the int8 scale take the output dims'. Under tensor
+    parallelism (:meth:`tensor_parallel_`) the layer holds its rank's
+    slice: cut on an output dim it is column-parallel (its input's
+    gradient is all-reduced), cut on an input dim row-parallel (its f32
+    product is all-reduced before the scale, the bias and the rounding).
     """
 
     def __init__(self, in_shape: Shape, features: Shape, *,
                  use_bias: bool = False, dtype: torch.dtype = torch.bfloat16,
-                 weight_q8: bool = False):
+                 weight_q8: bool = False, kernel_axes: Axes = ()):
         super().__init__()
         self.in_shape = _tuple(in_shape)
         self.features = _tuple(features)
         self.dtype = dtype
         self.weight_q8 = weight_q8
+        self.tp_mode: Optional[str] = None      # None | "col" | "row"
+        self.tp_group = None
         if weight_q8:
             self.kernel_q8 = nn.Parameter(
                 torch.zeros(self.in_shape + self.features, dtype=torch.int8),
@@ -142,22 +157,49 @@ class DenseGeneral(nn.Module):
             self.kernel = normal_param(self.in_shape + self.features)
         self.bias = (nn.Parameter(torch.zeros(self.features))
                      if use_bias else None)
+        kernel_axes = tuple(kernel_axes)
+        out_axes = kernel_axes[len(self.in_shape):] if kernel_axes else ()
+        set_param_axes(self, **{("kernel_q8" if weight_q8 else "kernel"):
+                                kernel_axes, "kernel_scale": out_axes,
+                                "bias": out_axes})
+
+    def tensor_parallel_(self, dims, info, prefix) -> None:
+        """Wire the collectives once :func:`~merlin_tpu_torch.core.
+        parallel.apply_tensor_parallel` has cut ``dims`` (own parameter ->
+        cut dim) to this rank's slice."""
+        del prefix
+        lead = 1 if getattr(self, "stacked_layers", False) else 0
+        kdim = dims.get("kernel_q8" if self.weight_q8 else "kernel")
+        if kdim is None:
+            return
+        kdim -= lead
+        n_in = len(self.in_shape)
+        if kdim < n_in:
+            shape = list(self.in_shape)
+            shape[kdim] //= info.tp_size
+            self.in_shape, self.tp_mode = tuple(shape), "row"
+        else:
+            shape = list(self.features)
+            shape[kdim - n_in] //= info.tp_size
+            self.features, self.tp_mode = tuple(shape), "col"
+        self.tp_group = info.tp_group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_in = len(self.in_shape)
         batch = x.shape[:x.dim() - n_in]
         k_in = math.prod(self.in_shape)
         k_out = math.prod(self.features)
+        if self.tp_mode == "col":
+            x = copy_to_group(x, self.tp_group)
         x2 = x.to(self.dtype).reshape(-1, k_in)
+        kernel = self.kernel_q8 if self.weight_q8 else self.kernel
+        out = MatmulF32.apply(x2, kernel.to(self.dtype).reshape(k_in, k_out))
+        if self.tp_mode == "row":
+            out = reduce_from_group(out, self.tp_group)
         if self.weight_q8:
-            out = MatmulF32.apply(
-                x2, self.kernel_q8.to(self.dtype).reshape(k_in, k_out))
             out = out * self.kernel_scale.float().reshape(k_out)
             if out.requires_grad:
                 out.register_hook(_inference_only)
-        else:
-            out = MatmulF32.apply(
-                x2, self.kernel.to(self.dtype).reshape(k_in, k_out))
         if self.bias is not None:
             out = out + self.bias.float().reshape(k_out)
         return out.to(self.dtype).reshape(batch + self.features)
@@ -170,6 +212,10 @@ class Embed(nn.Module):
     the JAX package, instead of raising: on the card an index error would be
     a device assert that kills the context, and a host-side check would
     cost a sync per decode step. Negative ids in [-V, 0) wrap, as in JAX.
+
+    Under tensor parallelism the table holds this rank's vocabulary rows
+    (from ``vocab_start``): ids of other ranks read zero rows, and the
+    rows are all-reduced over the group (exact: one rank contributes).
     """
 
     def __init__(self, num_embeddings: int, features: int,
@@ -177,16 +223,39 @@ class Embed(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.embedding = normal_param((num_embeddings, features))
+        self.vocab_start = 0
+        self.vocab_size = None       # the full vocabulary, once cut
+        self.tp_group = None
+        set_param_axes(self, embedding=("vocab", "embed"))
+
+    def tensor_parallel_(self, dims, info, prefix) -> None:
+        """Hold vocabulary rows [rank * V / tp, (rank + 1) * V / tp)."""
+        del prefix
+        if dims.get("embedding") == 0:
+            n_local = self.embedding.shape[0]
+            self.vocab_size = n_local * info.tp_size
+            self.vocab_start = info.tp_rank * n_local
+            self.tp_group = info.tp_group
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        n = self.embedding.shape[0]
+        n = self.vocab_size or self.embedding.shape[0]
         idx = torch.where(ids < 0, ids + n, ids)
         oob = (idx < 0) | (idx >= n)
-        rows = F.embedding(idx.clamp(0, n - 1), self.embedding).to(self.dtype)
-        return torch.where(oob[..., None], float("nan"), rows)
+        if self.tp_group is None:
+            rows = F.embedding(idx.clamp(0, n - 1), self.embedding)
+        else:
+            n_local = self.embedding.shape[0]
+            lidx = idx - self.vocab_start
+            mine = (lidx >= 0) & (lidx < n_local)
+            rows = F.embedding(lidx.clamp(0, n_local - 1), self.embedding)
+            rows = reduce_from_group(
+                torch.where(mine[..., None], rows, 0.0), self.tp_group)
+        return torch.where(oob[..., None], float("nan"), rows.to(self.dtype))
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
-        """Tied decode: hidden @ embedding^T -> f32 logits."""
+        """Tied decode: hidden @ embedding^T -> f32 logits (this rank's
+        vocabulary columns under tensor parallelism)."""
+        x = copy_to_group(x, self.tp_group)
         # operands in the compute dtype, f32 products and sums
         return x.to(self.dtype).float() @ self.embedding.to(self.dtype).float().T
 
@@ -266,9 +335,12 @@ class GatedMLP(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, weight_q8: bool = False):
         super().__init__()
         kw = dict(dtype=dtype, weight_q8=weight_q8)
-        self.gate_proj = DenseGeneral(dim, intermediate, **kw)
-        self.up_proj = DenseGeneral(dim, intermediate, **kw)
-        self.down_proj = DenseGeneral(intermediate, dim, **kw)
+        self.gate_proj = DenseGeneral(dim, intermediate,
+                                      kernel_axes=("embed", "mlp"), **kw)
+        self.up_proj = DenseGeneral(dim, intermediate,
+                                    kernel_axes=("embed", "mlp"), **kw)
+        self.down_proj = DenseGeneral(intermediate, dim,
+                                      kernel_axes=("mlp", "embed"), **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -286,8 +358,10 @@ class SimpleMLP(nn.Module):
             raise ValueError(f"unknown activation {activation}")
         self.activation = activation
         kw = dict(use_bias=True, dtype=dtype, weight_q8=weight_q8)
-        self.fc1 = DenseGeneral(dim, intermediate, **kw)
-        self.fc2 = DenseGeneral(intermediate, dim, **kw)
+        self.fc1 = DenseGeneral(dim, intermediate,
+                                kernel_axes=("embed", "mlp"), **kw)
+        self.fc2 = DenseGeneral(intermediate, dim,
+                                kernel_axes=("mlp", "embed"), **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.fc1(x)

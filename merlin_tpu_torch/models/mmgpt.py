@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from merlin_tpu_torch.models.decoder import (
-    CausalLM, DecoderConfig, cross_entropy_loss)
+    CausalLM, DecoderConfig, cross_entropy_loss, cross_entropy_sum)
 from merlin_tpu_torch.models.projectors import build_projector
 from merlin_tpu_torch.models.vision_builder import build_vision_tower
 from merlin_tpu_torch.utils.constants import IGNORE_INDEX
@@ -103,10 +103,12 @@ class MMGPT(nn.Module):
 
     def forward(self, input_ids, *, images: Optional[torch.Tensor] = None,
                 positions=None, segment_ids=None, kv_cache=None,
-                labels: Optional[torch.Tensor] = None):
+                labels: Optional[torch.Tensor] = None,
+                loss_parts: bool = False):
         """images: (b, n_img, H, W, C) or None (text-only / decode step).
         Returns (logits, new_kv_cache), and the loss third when ``labels``
-        (b, s) are given."""
+        (b, s) are given: the mean over the valid tokens, or with
+        ``loss_parts`` the (sum, count) pair a mesh reduces first."""
         embeds = self.lm.embed(input_ids)
         if images is not None:
             b, n = images.shape[:2]
@@ -120,7 +122,7 @@ class MMGPT(nn.Module):
             return logits, new_cache
         shifted = torch.cat([labels[:, 1:], torch.full_like(
             labels[:, :1], IGNORE_INDEX)], dim=1)
-        loss, _ = cross_entropy_loss(logits, shifted,
-                                     ignore_index=IGNORE_INDEX,
-                                     z_loss_weight=self.cfg.lm.z_loss_weight)
-        return logits, new_cache, loss
+        ce = cross_entropy_sum if loss_parts else cross_entropy_loss
+        loss, count = ce(logits, shifted, ignore_index=IGNORE_INDEX,
+                         z_loss_weight=self.cfg.lm.z_loss_weight)
+        return logits, new_cache, ((loss, count) if loss_parts else loss)

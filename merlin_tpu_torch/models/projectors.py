@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from merlin_tpu_torch.core.partitioning import set_param_axes
 from merlin_tpu_torch.models.layers import (
     DenseGeneral, LayerNorm, MatmulF32, normal_param)
 from merlin_tpu_torch.ops.attention import mha_reference
@@ -53,6 +54,8 @@ class StridedConv(nn.Module):
         self.dtype = dtype
         self.kernel = normal_param(tuple(kernel_size) + (cin, features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        set_param_axes(self, kernel=("conv_hw", "conv_hw", "conv_in",
+                                     "conv_out"), bias=("conv_out",))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kh, kw = self.kernel_size
@@ -82,7 +85,8 @@ class MLPProjector(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.proj = DenseGeneral(in_features, out_features, use_bias=True,
-                                 dtype=dtype)
+                                 dtype=dtype,
+                                 kernel_axes=("vit_embed", "embed"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(x)
@@ -118,6 +122,7 @@ class QWenProjector(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.proj = normal_param((in_features, out_features))
+        set_param_axes(self, proj=("vit_embed", "embed"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, p, c = x.shape
@@ -140,7 +145,8 @@ class SAMProjector(nn.Module):
         self.conv2 = StridedConv(2 * c, 4 * c, stride=2, padding=1,
                                  use_bias=False, dtype=dtype)
         self.proj = DenseGeneral(4 * c, out_features, use_bias=True,
-                                 dtype=dtype)
+                                 dtype=dtype,
+                                 kernel_axes=("vit_embed", "embed"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, p, c = x.shape
@@ -201,15 +207,22 @@ class Resampler(nn.Module):
         self.dtype = dtype
         self.query = normal_param((num_queries, dim))
         self.pos_embed = nn.Parameter(resampler_pos_init(num_queries, dim))
-        self.kv_proj = DenseGeneral(in_features, dim, dtype=dtype)
+        self.kv_proj = DenseGeneral(in_features, dim, dtype=dtype,
+                                    kernel_axes=("vit_embed", "embed"))
         self.ln_kv = LayerNorm(dim)
         self.ln_q = LayerNorm(dim)
-        self.q_attn = DenseGeneral(dim, (h, d), use_bias=True, dtype=dtype)
-        self.k_attn = DenseGeneral(dim, (h, d), use_bias=True, dtype=dtype)
-        self.v_attn = DenseGeneral(dim, (h, d), use_bias=True, dtype=dtype)
-        self.out_attn = DenseGeneral((h, d), dim, use_bias=True, dtype=dtype)
+        col = dict(use_bias=True, dtype=dtype,
+                   kernel_axes=("embed", "heads", "kv"))
+        self.q_attn = DenseGeneral(dim, (h, d), **col)
+        self.k_attn = DenseGeneral(dim, (h, d), **col)
+        self.v_attn = DenseGeneral(dim, (h, d), **col)
+        self.out_attn = DenseGeneral((h, d), dim, use_bias=True, dtype=dtype,
+                                     kernel_axes=("heads", "kv", "embed"))
         self.ln_post = LayerNorm(dim)
         self.proj = normal_param((dim, out_features))
+        set_param_axes(self, query=("vit_patches", "embed"),
+                       pos_embed=("vit_patches", "embed"),
+                       proj=("embed", "embed"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, p, c = x.shape

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from merlin_tpu_torch.core.partitioning import set_param_axes
 from merlin_tpu_torch.models.layers import (
     DenseGeneral, LayerNorm, MatmulF32, SimpleMLP, normal_param)
 from merlin_tpu_torch.models.projectors import StridedConv
@@ -126,13 +127,18 @@ class SAMAttention(nn.Module):
         e, nh = cfg.embed_dim, cfg.num_heads
         d = e // nh
         self.cfg = cfg
-        self.qkv = DenseGeneral(e, (3, nh, d), use_bias=True, dtype=cfg.dtype)
+        self.qkv = DenseGeneral(e, (3, nh, d), use_bias=True, dtype=cfg.dtype,
+                                kernel_axes=("vit_embed", None, "vit_heads",
+                                             "kv"))
         if cfg.use_rel_pos:
             self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1,
                                                       d))
             self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1,
                                                       d))
-        self.proj = DenseGeneral(e, e, use_bias=True, dtype=cfg.dtype)
+        self.proj = DenseGeneral(e, e, use_bias=True, dtype=cfg.dtype,
+                                 kernel_axes=("vit_embed", "vit_embed"))
+        set_param_axes(self, rel_pos_h=("vit_patches", "kv"),
+                       rel_pos_w=("vit_patches", "kv"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -155,15 +161,23 @@ class SAMAttention(nn.Module):
         return self.proj(out)
 
 
+def _flax_layer_norm(dim: int, eps: float) -> LayerNorm:
+    """A LayerNorm with no logical axes: the JAX tower uses flax's own
+    ``nn.LayerNorm`` here, whose parameters carry none (replicated)."""
+    norm = LayerNorm(dim, eps=eps)
+    norm.param_axes = {}
+    return norm
+
+
 class SAMBlock(nn.Module):
     def __init__(self, cfg: SAMViTConfig, window_size: int):
         super().__init__()
         self.window_size = window_size
-        self.norm1 = LayerNorm(cfg.embed_dim, eps=cfg.layer_norm_eps)
+        self.norm1 = _flax_layer_norm(cfg.embed_dim, cfg.layer_norm_eps)
         size = (window_size, window_size) if window_size > 0 \
             else (cfg.grid, cfg.grid)
         self.attn = SAMAttention(cfg, input_size=size)
-        self.norm2 = LayerNorm(cfg.embed_dim, eps=cfg.layer_norm_eps)
+        self.norm2 = _flax_layer_norm(cfg.embed_dim, cfg.layer_norm_eps)
         self.mlp = SimpleMLP(cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio),
                              activation="gelu", dtype=cfg.dtype)
 
@@ -208,17 +222,19 @@ class SAMImageEncoder(nn.Module):
         self.patch_embed = PatchEmbed(e, cfg.patch_size, 3, use_bias=True,
                                       dtype=cfg.dtype)
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.grid, cfg.grid, e))
+        set_param_axes(self, pos_embed=(None, "vit_patches", "vit_patches",
+                                        "vit_embed"))
         for i in range(cfg.depth):
             win = 0 if i in cfg.global_attn_indexes else cfg.window_size
             self.add_module(f"blocks_{i}", SAMBlock(cfg, window_size=win))
         # neck: 1x1 conv -> LN -> 3x3 conv -> LN (channels-last LN == LN2d)
         self.neck_conv1 = PointwiseConv(e, cfg.out_chans, dtype=cfg.dtype)
-        self.neck_ln1 = LayerNorm(cfg.out_chans, eps=1e-6)
+        self.neck_ln1 = _flax_layer_norm(cfg.out_chans, 1e-6)
         self.neck_conv2 = StridedConv(cfg.out_chans, cfg.out_chans,
                                       kernel_size=(3, 3), stride=1,
                                       padding=1, use_bias=False,
                                       dtype=cfg.dtype)
-        self.neck_ln2 = LayerNorm(cfg.out_chans, eps=1e-6)
+        self.neck_ln2 = _flax_layer_norm(cfg.out_chans, 1e-6)
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

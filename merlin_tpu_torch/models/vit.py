@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from merlin_tpu_torch.models.convert import _o_kernel, _qkv_kernel
+from merlin_tpu_torch.core.partitioning import set_param_axes
 from merlin_tpu_torch.models.layers import (
     DenseGeneral, LayerNorm, SimpleMLP, normal_param)
 from merlin_tpu_torch.models.projectors import sincos_2d_pos_embed
@@ -111,6 +112,8 @@ class PatchEmbed(nn.Module):
         self.dtype = dtype
         self.kernel = normal_param((patch, patch, cin, features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        set_param_axes(self, kernel=("conv_hw", "conv_hw", "conv_in",
+                                     "vit_embed"), bias=("vit_embed",))
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         b, H, W, cin = pixels.shape
@@ -131,10 +134,14 @@ class ViTBlock(nn.Module):
         e, h = cfg.hidden_size, cfg.num_heads
         d = e // h
         self.norm1 = LayerNorm(e, eps=cfg.layer_norm_eps)
-        self.q_proj = DenseGeneral(e, (h, d), use_bias=True, dtype=cfg.dtype)
-        self.k_proj = DenseGeneral(e, (h, d), use_bias=True, dtype=cfg.dtype)
-        self.v_proj = DenseGeneral(e, (h, d), use_bias=True, dtype=cfg.dtype)
-        self.o_proj = DenseGeneral((h, d), e, use_bias=True, dtype=cfg.dtype)
+        col = dict(use_bias=True, dtype=cfg.dtype,
+                   kernel_axes=("vit_embed", "vit_heads", "kv"))
+        self.q_proj = DenseGeneral(e, (h, d), **col)
+        self.k_proj = DenseGeneral(e, (h, d), **col)
+        self.v_proj = DenseGeneral(e, (h, d), **col)
+        self.o_proj = DenseGeneral((h, d), e, use_bias=True, dtype=cfg.dtype,
+                                   kernel_axes=("vit_heads", "kv",
+                                                "vit_embed"))
         self.norm2 = LayerNorm(e, eps=cfg.layer_norm_eps)
         self.mlp = SimpleMLP(e, cfg.intermediate_size,
                              activation=cfg.activation, dtype=cfg.dtype)
@@ -166,6 +173,8 @@ class ViT(nn.Module):
         if cfg.pos_embed == "learned":
             self.position_embedding = normal_param(
                 (cfg.num_positions, cfg.hidden_size))
+        set_param_axes(self, class_embedding=("vit_embed",),
+                       position_embedding=("vit_patches", "vit_embed"))
         self._fixed_pos: Dict[torch.device, torch.Tensor] = {}
         if cfg.use_pre_layernorm:
             self.pre_norm = LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)

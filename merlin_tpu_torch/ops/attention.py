@@ -7,17 +7,27 @@ Counterpart of ``merlin_tpu/ops/attention.py``. Layout throughout:
     package's): finite ``NEG_INF`` masking, f32 softmax, ``q_offset`` and
     ``k_positions`` for decode steps against a cache.
   * :func:`attention` - the self-attention dispatcher, with the JAX
-    package's routing rule: bidirectional short-KV calls go to the one-pass
-    kernel (B1), the rest of the flash-eligible calls to the flash forward
-    kernel (B2), short sequences and CPU tensors to :func:`mha_reference`.
-    The ring-attention and mesh branches of the JAX dispatcher are left out:
-    the port runs on one card. Both kernel routes are differentiable: B1's
-    route runs B12/B13 when a gradient is asked for, B2's runs B10/B11 in
-    the backward.
+    package's routing rule: under a global mesh whose seq axis is split,
+    ring attention (:mod:`merlin_tpu_torch.ops.ring_attention`) first;
+    then bidirectional short-KV calls go to the one-pass kernel (B1), the
+    rest of the flash-eligible calls to the flash forward kernel (B2),
+    short sequences and CPU tensors to :func:`mha_reference`. Both kernel
+    routes are differentiable: B1's route runs B12/B13 when a gradient is
+    asked for, B2's runs B10/B11 in the backward.
+
+On a mesh the kernel routes take each rank's LOCAL batch rows and heads,
+as JAX's ``shard_map`` wraps do: the train step hands a rank its (data,
+fsdp) rows and tensor parallelism leaves it its heads, so the tensors that
+reach the dispatcher are already the shard. Where JAX's divisibility test
+fails (rows or heads that the mesh does not divide) GSPMD would gather the
+operands; the port raises instead, when the rows are split
+(:func:`merlin_tpu_torch.train.step.local_rows`) and when the heads are
+cut (:func:`merlin_tpu_torch.core.parallel.apply_tensor_parallel`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -92,6 +102,34 @@ def mha_reference(
     return out.to(q.dtype)
 
 
+def _ring_first(dispatch):
+    """Wrap the single-device dispatcher with the mesh branch that JAX's
+    takes first (``merlin_tpu/ops/attention.py:180-189``): when the global
+    mesh splits seq, sq == skv, there is no ALiBi, h == hkv and the seq
+    axis divides sq, the call runs as ring attention."""
+    @functools.wraps(dispatch)
+    def route(q, k, v, *, causal=True, segment_ids_q=None,
+              segment_ids_kv=None, alibi_slopes=None, scale=None):
+        from merlin_tpu_torch.core.mesh import axis_size, get_global_mesh
+
+        mesh = get_global_mesh()
+        n_seq = axis_size(mesh, "seq")
+        sq = q.shape[1]
+        if (n_seq > 1 and sq == k.shape[1] and alibi_slopes is None
+                and q.shape[2] == k.shape[2] and sq % n_seq == 0):
+            from merlin_tpu_torch.ops.ring_attention import (
+                ring_self_attention)
+
+            return ring_self_attention(q, k, v, mesh=mesh, causal=causal,
+                                       segment_ids=segment_ids_q, scale=scale)
+        return dispatch(q, k, v, causal=causal, segment_ids_q=segment_ids_q,
+                        segment_ids_kv=segment_ids_kv,
+                        alibi_slopes=alibi_slopes, scale=scale)
+
+    return route
+
+
+@_ring_first
 def attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True,
@@ -102,7 +140,7 @@ def attention(
 ) -> torch.Tensor:
     """Self-attention dispatcher (q_offset = 0).
 
-    Routing (``merlin_tpu/ops/attention.py:192-206``): CPU tensors, sq < 128
+    Ring attention first (:func:`_ring_first`). Then routing (``merlin_tpu/ops/attention.py:192-206``): CPU tensors, sq < 128
     or d > 256 go to :func:`mha_reference`; a non-causal call with no ALiBi,
     no segment ids, no GQA, skv <= 4096 and d <= 128 goes to the one-pass
     kernel (B1; B12/B13 under autograd); everything else to the flash

@@ -234,14 +234,15 @@ def _quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q8.to(torch.int8), sc
 
 
-def quantize_pages(pages: torch.Tensor, head_dim: int
+def quantize_pages(pages: torch.Tensor, head_dim: int, lanes: int = LANES
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(P, page, hkv*d) float -> (int8 values of the same shape, scales
-    (P, page, 128) f32): one scale per (token, kv head), strided lanes."""
+    (P, page, lanes) f32): one scale per (token, kv head), strided lanes
+    (a tensor-parallel rank's pool has 128 / tp lanes)."""
     p_, page, packed = pages.shape
     hkv = packed // head_dim
     values, sc = _quantize_rows(pages.reshape(p_, page, hkv, head_dim))
-    return values.reshape(p_, page, packed), _scale_row(sc, LANES)
+    return values.reshape(p_, page, packed), _scale_row(sc, lanes)
 
 
 def dequantize_pages(values: torch.Tensor, scales: torch.Tensor,

@@ -37,8 +37,19 @@ What differs from the JAX engine: the model holds its weights (there is no
 Python loops; page writes and the admission scatter update the pool in
 place; random sampling draws from one ``torch.Generator`` seeded from
 ``rng_seed`` (JAX folds the request id into a key), so sampled tokens
-differ from JAX's while greedy ones agree. Left out: ``mesh`` and
-``param_shardings`` (with the parallelism slice).
+differ from JAX's while greedy ones agree.
+
+Tensor-parallel serving (``mesh=``, ``engine.py:158-222``): every rank of
+the mesh runs the same engine on the same requests; the model is cut to
+the rank's heads, MLP columns and vocabulary rows by ``param_shardings``
+(name -> placements, :func:`merlin_tpu_torch.core.partitioning.
+sharding_for_tree`; the rules' when None) unless it was cut already, and
+the pool holds the rank's head-packed lanes (a lane shard IS a head
+shard), its int8 scale pages 128 / tp lanes in the whole pool's stride.
+The paged kernels run on those local lanes; the logits are gathered, so
+every rank picks the same tokens. The checks are JAX's: the heads must
+divide the tensor axis, and an int8 pool needs kv_heads | 128.
+:meth:`close` restores the global mesh the engine replaced.
 """
 
 from __future__ import annotations
@@ -55,6 +66,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from merlin_tpu_torch.core.mesh import (
+    axis_size, get_global_mesh, set_global_mesh)
+from merlin_tpu_torch.core.parallel import apply_tensor_parallel
 from merlin_tpu_torch.generate.speculative import _scatter_rows
 from merlin_tpu_torch.models.decoder import DecoderConfig, init_kv_cache
 from merlin_tpu_torch.ops.paged_attention import PagePool
@@ -69,6 +83,11 @@ def _multi_query_model(model: nn.Module) -> nn.Module:
     instead of identity-mapped prefill)."""
     shared = {id(t): t for t in itertools.chain(model.parameters(),
                                                  model.buffers())}
+    for module in model.modules():       # process groups and the mesh too
+        for key in ("tp_group", "parallel_info"):
+            value = getattr(module, key, None)
+            if value is not None:
+                shared[id(value)] = value
     clone = copy.deepcopy(model, shared)
     for module in clone.modules():
         cfg = getattr(module, "cfg", None)
@@ -118,7 +137,8 @@ class ServingEngine:
                  chunk_steps: int = 8, pipeline: int = 1,
                  spec_draft: int = 0, spec_ngram: int = 2,
                  prefill_chunk: int = 0, prefill_windows_per_step: int = 4,
-                 prefill_chunk_min: int = 0,
+                 prefill_chunk_min: int = 0, mesh=None,
+                 param_shardings=None,
                  device: Union[str, torch.device] = "cuda"):
         self.device = torch.device(device)
         # speculative windows: each step, every active slot proposes k
@@ -167,9 +187,29 @@ class ServingEngine:
         lm_cfg = model.cfg.lm if hasattr(model.cfg, "lm") else model.cfg
         self.lm_cfg = lm_cfg
         self._cache_dtype = cache_dtype
+        # --- tensor-parallel serving over a device mesh ------------------
+        self.mesh = mesh
+        self._prev_mesh = None
+        self.tp = axis_size(mesh, "tensor")
+        if self.tp > 1:
+            if cache_dtype == torch.int8 and 128 % lm_cfg.kv_heads:
+                raise ValueError(
+                    "tensor-sharded int8 pools need kv_heads | 128 (the "
+                    "strided scale-lane layout must align to the shard)")
+            if lm_cfg.num_heads % self.tp or lm_cfg.kv_heads % self.tp:
+                raise ValueError(
+                    f"heads ({lm_cfg.num_heads}/{lm_cfg.kv_heads}) must "
+                    f"divide the tensor axis ({self.tp})")
+            if getattr(model, "parallel_info", None) is None:
+                apply_tensor_parallel(model, mesh, param_shardings)
+        if mesh is not None:
+            self._prev_mesh = get_global_mesh()
+            set_global_mesh(mesh)
         self.cache = init_kv_cache(lm_cfg, num_slots, max_len=max_len,
                                    dtype=cache_dtype, layout="paged",
-                                   page_size=page_size, device=self.device)
+                                   page_size=page_size,
+                                   tensor_parallel=self.tp,
+                                   device=self.device)
         self.pages_per_slot = self.cache["page_tables"].shape[1]
         # a scanned decoder's pool is one dict of (L, P, ...) tensors whose
         # page ids are per layer (engine.py:188-192)
@@ -446,7 +486,7 @@ class ServingEngine:
             small = init_kv_cache(
                 self.lm_cfg, 1, max_len=ids.shape[1], layout="paged",
                 page_size=self.page_size, dtype=self._cache_dtype,
-                device=self.device)
+                tensor_parallel=self.tp, device=self.device)
             next_logits, small, length = self._prefill(
                 self._upload(ids), mask, small)
             self._insert(small["layers"],
@@ -738,7 +778,10 @@ class ServingEngine:
     def close(self):
         """Drop the engine's device buffers (the KV pool, the device
         mirrors) and its references to the model, so that the next
-        engine's pool fits beside the weights. Idempotent."""
+        engine's pool fits beside the weights, and restore the global mesh
+        the engine replaced (when it is still the engine's). Idempotent."""
+        if self.mesh is not None and get_global_mesh() is self.mesh:
+            set_global_mesh(self._prev_mesh)
         self.cache = None
         self.model = self.multi_model = None
         self._prefilling.clear()

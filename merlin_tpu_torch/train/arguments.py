@@ -2,9 +2,10 @@
 ``merlin_tpu/train/arguments.py``).
 
 The fields are the JAX package's, so one command line parses into either
-package. The port's trainer runs on one card: the mesh fields are read by
-no code of the port yet (parallelism is a later slice), and the Trainer
-refuses ``lora_enable`` (trap C30; ``train/lora.py`` holds the functions).
+package. The mesh fields (``mesh_data/fsdp/seq/tensor``,
+``dcn_data_parallelism``) shape the training mesh (``trainer.
+mesh_from_args``, under ``torchrun``); the Trainer refuses ``lora_enable`` (trap C30;
+``train/lora.py`` holds the functions).
 Parse from a command
 line with :func:`parse_args` (``transformers.HfArgumentParser`` when it is
 installed, plain argparse otherwise).
@@ -97,7 +98,7 @@ class TrainingArguments:
     lora_r: int = 64
     lora_alpha: int = 16
     lora_dropout: float = 0.05
-    # mesh / parallelism (TPU-specific)
+    # mesh / parallelism: the Trainer's mesh under a process group
     mesh_data: int = -1
     mesh_fsdp: int = 1
     mesh_seq: int = 1

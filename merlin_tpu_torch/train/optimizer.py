@@ -23,6 +23,15 @@ the flax path (``vision_tower.vit.layers_3.q_proj.kernel``). The update is
 computed in the gradient buffers by ``torch._foreach_*`` ops over runs of
 tensors, so the step copies neither the parameters nor the gradients; its
 only temporaries are the Adam denominators of one run.
+
+On a mesh (``parallel=``, :class:`merlin_tpu_torch.core.parallel.
+ParallelInfo`) the chain runs on each rank's local shards (FSDP2's
+DTensors' local tensors, the tensor slices), element for element the
+same; the clip's norm, and the reported norms, are of the WHOLE tree
+(``optimizer.py:138``): each shard's squares weighted by 1 / the number of
+ranks that hold it, summed over the world. The decay masks and the LLRD
+scales are read by name, as before; the embedding row mask is cut to the
+rows this rank holds.
 """
 
 from __future__ import annotations
@@ -32,6 +41,9 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from merlin_tpu_torch.core.parallel import local
 
 
 def path_names(name: str) -> Tuple[str, ...]:
@@ -128,8 +140,13 @@ class Optimizer:
                  b2: float, eps: float, weight_decay: float,
                  max_grad_norm: float, schedule: Callable[[int], float],
                  scale_fn: Callable[[Tuple[str, ...]], float],
-                 embed_row_mask: Optional[np.ndarray] = None):
+                 embed_row_mask: Optional[np.ndarray] = None,
+                 parallel=None):
         self.params = params
+        self.parallel = parallel
+        self._norm_weight = (None if parallel is None else
+                             {n: 1.0 / parallel.replication(n, p)
+                              for n, p in params.items()})
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
@@ -140,8 +157,11 @@ class Optimizer:
         if embed_row_mask is not None:
             for n, p in params.items():
                 if path_names(n)[-2:] == ("embed_tokens", "embedding"):
-                    self.row_mask[n] = torch.as_tensor(
-                        embed_row_mask, dtype=p.dtype, device=p.device)[:, None]
+                    mask = torch.as_tensor(embed_row_mask)
+                    if parallel is not None:
+                        mask = mask[parallel.local_index(n, 0, p)]
+                    q = local(self.params[n])
+                    self.row_mask[n] = mask.to(q.device, q.dtype)[:, None]
         self.count = 0
         self.mu: Dict[str, torch.Tensor] = {}
         self.nu: Dict[str, torch.Tensor] = {}
@@ -149,16 +169,29 @@ class Optimizer:
     def init_state(self) -> None:
         """Zero moments for every trainable parameter, count 0."""
         self.count = 0
-        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.mu = {n: torch.zeros_like(local(p))
+                   for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(local(p))
+                   for n, p in self.params.items()}
+
+    def _norm(self, names, tensors) -> torch.Tensor:
+        """The global norm of the tree (of the whole tree on a mesh)."""
+        if self.parallel is None:
+            return global_norm(tensors)
+        norms = torch._foreach_norm(tensors)
+        sq = torch.stack([n.float().square() * self._norm_weight[name]
+                          for name, n in zip(names, norms)]).sum()
+        dist.all_reduce(sq)
+        return sq.sqrt()
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """``grads``: name -> the gradient of this rank's local part."""
         names = list(self.params)
         g = [grads[n] for n in names]
         mu = [self.mu[n] for n in names]
         nu = [self.nu[n] for n in names]
-        grad_norm = global_norm(g)
+        grad_norm = self._norm(names, g)
         # 1. clip: t / norm * max_norm once the norm reaches max_norm
         clip = grad_norm >= self.max_grad_norm
         one = torch.ones_like(grad_norm)
@@ -175,7 +208,7 @@ class Optimizer:
         bc2 = 1 - self.b2 ** count_inc
         lr = self.schedule(self.count)
         for lo, hi in _chunks([u.numel() for u in g], _CHUNK_ELEMENTS):
-            u, p = g[lo:hi], [self.params[n] for n in names[lo:hi]]
+            u, p = g[lo:hi], [local(self.params[n]) for n in names[lo:hi]]
             den = torch._foreach_div(nu[lo:hi], bc2)
             torch._foreach_sqrt_(den)
             torch._foreach_add_(den, self.eps)
@@ -192,8 +225,8 @@ class Optimizer:
             torch._foreach_mul_(u, -lr)              # 5. schedule
         for n, mask in self.row_mask.items():        # 6. frozen rows
             grads[n].mul_(mask)
-        update_norm = global_norm(g)
-        torch._foreach_add_([self.params[n] for n in names], g)
+        update_norm = self._norm(names, g)
+        torch._foreach_add_([local(self.params[n]) for n in names], g)
         self.count = count_inc
         return {"grad_norm": grad_norm, "update_norm": update_norm}
 
@@ -202,19 +235,22 @@ class Optimizer:
 
     def load_state_dict(self, state: Dict) -> None:
         self.count = int(state["count"])
+        own = {n: local(p) for n, p in self.params.items()}
         self.mu = {n: state["mu"][n].to(p.device, p.dtype)
-                   for n, p in self.params.items()}
+                   for n, p in own.items()}
         self.nu = {n: state["nu"][n].to(p.device, p.dtype)
-                   for n, p in self.params.items()}
+                   for n, p in own.items()}
 
 
 def build_optimizer(args, named_params: Iterable[Tuple[str, torch.Tensor]],
                     *, n_vit_layers: int = 24, n_llm_layers: int = 32,
                     trainable_fn: Optional[Callable] = None,
-                    embed_row_mask: Optional[np.ndarray] = None
+                    embed_row_mask: Optional[np.ndarray] = None,
+                    parallel=None
                     ) -> Tuple[Optimizer, Callable[[int], float]]:
     """The optimizer over the parameters ``trainable_fn`` accepts (all when
-    it is None), and its schedule. Call ``init_state`` before stepping."""
+    it is None), and its schedule. Call ``init_state`` before stepping.
+    ``parallel``: the model's placement on a mesh, once applied."""
     schedule = make_lr_schedule(args)
 
     def scale_fn(names):
@@ -227,5 +263,6 @@ def build_optimizer(args, named_params: Iterable[Tuple[str, torch.Tensor]],
     opt = Optimizer(params, b1=args.adam_beta1, b2=args.adam_beta2,
                     eps=args.adam_epsilon, weight_decay=args.weight_decay,
                     max_grad_norm=args.max_grad_norm, schedule=schedule,
-                    scale_fn=scale_fn, embed_row_mask=embed_row_mask)
+                    scale_fn=scale_fn, embed_row_mask=embed_row_mask,
+                    parallel=parallel)
     return opt, schedule

@@ -58,10 +58,14 @@ def _port_files():
 
 
 @pytest.mark.parametrize("module", ["train/lora.py", "serve/web.py",
-                                    "serve/tools.py"])
+                                    "serve/tools.py", "core/mesh.py",
+                                    "core/partitioning.py",
+                                    "core/parallel.py",
+                                    "ops/ring_attention.py", "utils/dist.py",
+                                    "utils/surgery.py"])
 def test_new_modules_are_checked(module):
-    """The LoRA functions and the web and tools copies stand on the port:
-    the import checks below read them."""
+    """The LoRA functions, the web and tools copies and the parallelism
+    modules stand on the port: the import checks below read them."""
     assert PKG / module in _port_files()
 
 

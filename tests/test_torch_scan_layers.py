@@ -4,8 +4,10 @@ JAX's ``stack_layer_params`` and bridged by ``params_from_flax``, runs
 through JAX's scanned ``CausalLM`` and the port's. f32 throughout; logits
 within 1e-5, the layout round trip exact, greedy tokens equal.
 
-``test_scan_layers_trains_on_sharded_mesh`` (dp2 x fsdp2 x tp2) waits for
-the port's parallelism slice (ROADMAP A9): the port has no mesh yet.
+``test_scan_layers_trains_on_sharded_mesh``: the tiny MMGPT with a
+scanned LM trained on dp2 x fsdp2 x tp2, the port's ``Trainer`` on an
+8-rank CPU gloo group against JAX's ``make_train_step(mesh=)``, with the
+tolerances of ``test_torch_mesh_train.py``.
 """
 
 import dataclasses
@@ -231,3 +233,32 @@ def test_flat_pool_is_a_view_and_refuses_a_copy():
     with pytest.raises(ValueError, match="contiguous"):
         with torch.no_grad():
             model(torch.ones((2, 1), dtype=torch.long), kv_cache=bad)
+
+
+def test_scan_layers_trains_on_sharded_mesh(eight_devices):
+    """The scanned stack under dp2 x fsdp2 x tp2: its stacked leaves take
+    the ("layers", ...) logical axes, so tensor parallelism cuts them one
+    dim further in (q_proj's heads at dim 2); two steps land on JAX's
+    metrics and parameters."""
+    from merlin_tpu.core.mesh import MeshConfig as JMeshConfig
+    from merlin_tpu.core.mesh import create_mesh as j_create_mesh
+
+    from merlin_tpu_torch.utils.dist import run_ranks, train_case
+    from test_torch_mesh_train import (
+        KW, ROWS, SHAPE, STEPS, _close, _jax_run, _lrs)
+    from test_torch_scan_train import _jax_bundle, _port_model
+    from test_torch_trainer import _batches
+
+    jb = _jax_bundle()
+    model = _port_model(jb)
+    batches = _batches(jb.config, STEPS, rows=ROWS)
+    spec = dict(cfg=model.cfg, state=model.state_dict(), train_kw=KW,
+                orig_vocab=jb.orig_vocab_size, batches=batches, shape=SHAPE)
+    got = run_ranks(train_case, 8, spec, timeout=240)[0]
+    jmesh = j_create_mesh(JMeshConfig(data=2, fsdp=2, tensor=2),
+                          devices=eight_devices)
+    _close((got["metrics"], got["params"]), _jax_run(jb, batches, jmesh),
+           lrs=_lrs())
+    assert got["placement_problems"] == []
+    assert got["tp_dims"]["lm.layers.block.attn.q_proj.kernel"] == 2
+    assert got["tp_dims"]["lm.layers.block.mlp.down_proj.kernel"] == 1
