@@ -35,7 +35,19 @@ the LM quantized to int8) and of Baichuan-13B:
                   last key tile dropped; a live page redirected to the
                   trash page, also one in the first and in the last key
                   split of a sequence; int8 scales read at lane hk instead
-                  of hk * stride) must fail the same check;
+                  of hk * stride) must fail the same check; then every
+                  f32 kernel: B1 (d = 64/80/104), B12, B13, B2 (512,
+                  2048 with padding, GQA/ALiBi/segments, d = 80/256) and
+                  the f32 backward (B10 + B11, a second run bit-identical)
+                  to 1e-5 of max |plain|, and B3-B9 over the pairs (bf16
+                  q, f32 pages), (f32, bf16), (f32, f32), (f32, int8)
+                  against their plain versions with the TPU kernels'
+                  rounding (C48), with ALiBi, groups 16/32, lengths 0/1/
+                  full and pages of 16; B7 at f32 q held to its bf16
+                  operands (C49: B9's f32 rule planted must fail), a
+                  dropped tile and a redirected page planted; times
+                  against FFMA's 67 TFLOP/s or the bytes, and SDPA at f32
+                  (its memory-efficient backend) as the yardstick;
   3. reference  - a narrow model on the card (through the kernels) against
                   the same weights on the CPU (plain path), both in bf16;
   4. forward    - uint8 640x480 frames -> preprocess -> tower -> projector
@@ -61,6 +73,22 @@ the LM quantized to int8) and of Baichuan-13B:
                   model, and a request's tokens read after another
                   request's prompt must fail that check. Prints tokens/s,
                   per-request TTFT and the KV pool's bytes.
+  F. float32    - the JAX package's f32 entry points on the card: F1 the
+                  ``parse_args(["--bf16", "False"])`` bundle (CLIP
+                  ViT-L/14-448 + conv + Vicuna-7B, 32 layers, f32 weights
+                  from a seed) forward at b=1, s=512 and greedy
+                  generation as phases 4-5 (B1 23, B2 32 on the f32
+                  kernels, every bf16 kernel 0); F2 that model behind the
+                  engine with E1's and E2's traffic over bf16 pages (C48's
+                  pair) and over f32 pages, and E4's hybrid admission
+                  over int8 pages (B2, B8, B7 with C49), every check of
+                  phase 6; F3 (in phase W, after W1) W1's bf16 bundle
+                  behind a worker with ``engine_cache_dtype="f32"``: one
+                  text (bf16 q over the f32 pool) and one image request,
+                  answers held as W1's; F4 (after T3) T1's recipe with
+                  ``bf16=False`` (f32 compute, LM cut to 8 layers, accum 2,
+                  2 steps): exact launches of the f32 B2, backward, B12 and
+                  B13, peak memory and a profiled step;
   S. scan_layers - the same models built with ``scan_layers`` (the LM's
                   layers stacked by ``stack_layer_params``) behind the
                   engine at 8 slots x 2304 tokens, pages of 128: one
@@ -274,6 +302,7 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend, sdpa_kernel
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores (FFMA)
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 OUT_RTOL = 2.0 ** -5         # per query row: max |kernel - plain| over d, of
                              # the row's max |plain|: 4 bf16 ulps there (one
@@ -294,6 +323,24 @@ Q8_GEN_RTOL = 1e-1           # the same over int8 pages: a key's int8 step
                              # bf16 pages); <= 4.7e-3 in E4/E5 on an H100
                              # 80GB HBM3 at 700 W; a swapped prompt gives
                              # 0.53-1.32
+
+F32 = "_f32"                 # an f32 kernel's count: "B2" -> "B2_f32"
+F32_RTOL = 1e-5              # an f32 kernel against its plain version where
+                             # every operand is f32: max |error| of max
+                             # |plain| over the tensor (summation order and
+                             # exp2 against exp; <= 1.9e-6 seen on an H100
+                             # 80GB HBM3 at 700 W); a dropped key tile or a
+                             # redirected page gives >= 7e-2
+C49_TOL = 2e-4               # B7 at f32 q against its bf16-operand plain
+                             # version, as ||kernel - plain|| / ||plain||:
+                             # p * v_scale's bf16 rounding flips at a few
+                             # keys between the two f32 orders (<= 3.4e-6
+                             # seen on the card; 2.3e-4 as max |err| of max
+                             # |plain|), where computing in f32 (C49's
+                             # planted fault) moves every row: 2.0e-3
+F32_DENSE_SOURCE = "merlin_tpu_torch/csrc/attention_f32.cu"
+F32_PAGED_SOURCE = "merlin_tpu_torch/csrc/paged_attention_f32.cu"
+F32_BWD_SOURCE = "merlin_tpu_torch/csrc/flash_attention_bwd_f32.cu"
 
 # B1, B2 and B12 run one forward kernel (two entry names, one body)
 B1_SOURCE = "merlin_tpu_torch/csrc/attention_fwd.cu"
@@ -471,8 +518,8 @@ def sdpa_fields(p, ms_key="ms") -> dict:
             "ratio_to_library": p["ratio"], "ratio_runs": p["ratios"]}
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1008,15 +1055,16 @@ def check_onepass_train(gen):
                         **sdpa_fields(p13, "whole_backward_ms"))}
 
 
-def paged_inputs(gen, b, h, hkv, d, lengths, s_q=0, page=128, pps=None):
+def paged_inputs(gen, b, h, hkv, d, lengths, s_q=0, page=128, pps=None,
+                 dtype=torch.bfloat16):
     """q, a pool of b * pps + 1 random pages (page 0 is the trash page;
     pps by default holds 2048 keys), and tables whose live entries are a
     random permutation of pages 1.. (not contiguous), unused entries on
-    page 0."""
+    page 0; q and the pages in ``dtype``."""
     pps = pps or 2048 // page
     total = b * pps + 1
     pool = [torch.randn((total, page, hkv * d), generator=gen,
-                        device="cuda").to(torch.bfloat16) for _ in range(2)]
+                        device="cuda").to(dtype) for _ in range(2)]
     perm = (torch.randperm(total - 1, generator=gen, device="cuda") + 1).to(
         torch.int32).reshape(b, pps)
     tables = torch.zeros((b, pps), dtype=torch.int32, device="cuda")
@@ -1024,7 +1072,7 @@ def paged_inputs(gen, b, h, hkv, d, lengths, s_q=0, page=128, pps=None):
         used = -(-n // page)
         tables[i, :used] = perm[i, :used]
     qshape = (b, s_q, h, d) if s_q else (b, h, d)
-    q = torch.randn(qshape, generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn(qshape, generator=gen, device="cuda").to(dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, pool[0], pool[1], lens, tables
 
@@ -1536,13 +1584,15 @@ def mm_config(lm, vit):
                        im_end_id=END_ID)
 
 
-def prompt(rng, n_text: int, n_images: int, tok_len: int):
+def prompt(rng, n_text: int, n_images: int, tok_len: int,
+           ids_of=(PATCH_ID, START_ID, END_ID)):
     """Merlin-style prompt: text, then per image <im_start> patches
     <im_end>, then text (the tracking template puts two image blocks in
-    one prompt)."""
+    one prompt); ``ids_of`` the (patch, start, end) ids."""
+    patch, start, end = ids_of
     ids = [1] + list(rng.integers(10, 31000, size=n_text // 2))
     for _ in range(n_images):
-        ids += [START_ID] + [PATCH_ID] * tok_len + [END_ID]
+        ids += [start] + [patch] * tok_len + [end]
         ids += list(rng.integers(10, 31000, size=8))
     ids += list(rng.integers(10, 31000, size=n_text - n_text // 2))
     return np.asarray(ids, np.int64)
@@ -1550,7 +1600,8 @@ def prompt(rng, n_text: int, n_images: int, tok_len: int):
 
 def kernel_wrappers():
     """Every kernel wrapper of the port by its TPU kernel's number; each
-    counts its launches in ``.launches``."""
+    counts its bf16 kernel's launches in ``.launches`` and its f32 kernel's
+    in ``.launches_f32``."""
     from merlin_tpu_torch.ops import flash_attention as fa
     from merlin_tpu_torch.ops import onepass_attention as oa
     from merlin_tpu_torch.ops import paged_attention as pa
@@ -1572,18 +1623,40 @@ def kernel_wrappers():
             "B13": oa.onepass_attention_bwd}
 
 
+def counters():
+    """Every launch count by name: a wrapper's bf16 kernel under its TPU
+    kernel's number ("B2"), its f32 kernel under the number and ``F32``
+    ("B2_f32"); (wrapper, attribute) each."""
+    out = {name: (fn, "launches") for name, fn in kernel_wrappers().items()}
+    out.update({name + F32: (fn, "launches_f32")
+                for name, fn in kernel_wrappers().items()})
+    return out
+
+
 def reset_counts():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in counters().items()}
 
 
 def launches(**nonzero):
     """A full launch-count dict: the given kernels, 0 for every other."""
-    return {name: nonzero.get(name, 0) for name in kernel_wrappers()}
+    return {name: nonzero.get(name, 0) for name in counters()}
+
+
+def suffixed(counts: dict, suffix: str) -> dict:
+    """``counts`` with ``suffix`` on every name: an f32 model's launches
+    land on the f32 kernels' counts."""
+    return {name + suffix: n for name, n in counts.items()}
+
+
+def mm_ids(cfg):
+    """(image patch, <im_start>, <im_end>) ids of an MMGPT config."""
+    return cfg.image_patch_id, cfg.im_start_id, cfg.im_end_id
 
 
 def check_reference(rng):
@@ -1658,15 +1731,18 @@ def build_full_model():
     return model.eval(), cfg
 
 
-def run_forward(model, cfg, rng):
+def run_forward(model, cfg, rng, suffix=""):
+    """One forward at b = 1, s = 512 with a frame; ``suffix`` F32 for an f32
+    model, whose launches land on the f32 kernels."""
     from merlin_tpu_torch.ops.image_ops import preprocess_images
 
     tok_len = cfg.image_token_len
     b, s = 1, 512
+    patch, start, end = mm_ids(cfg)
     ids = rng.integers(10, 31000, size=(b, s)).astype(np.int64)
-    ids[:, 1] = START_ID
-    ids[:, 2:2 + tok_len] = PATCH_ID
-    ids[:, 2 + tok_len] = END_ID
+    ids[:, 1] = start
+    ids[:, 2:2 + tok_len] = patch
+    ids[:, 2 + tok_len] = end
     frames = rng.integers(0, 256, size=(b, 480, 640, 3), dtype=np.uint8)
     ids_t = torch.from_numpy(ids).cuda()
 
@@ -1687,7 +1763,8 @@ def run_forward(model, cfg, rng):
           and bool(torch.isfinite(logits.float()).all()))
     log(f"forward: logits {tuple(logits.shape)} {logits.dtype}, finite "
         f"{ok}, {wall:.1f} ms (host clock, warm), launches {counts}")
-    if not ok or counts != launches(B1=23, B2=32):
+    if not ok or counts != launches(**suffixed(
+            dict(B1=23, B2=cfg.lm.num_layers), suffix)):
         raise AssertionError(f"forward failed: ok={ok} counts={counts}")
     return counts, wall
 
@@ -1701,7 +1778,7 @@ def last_logits(model, prompt_ids, images, tail):
     from merlin_tpu_torch.models.mmgpt import splice_image_embeds
 
     ids = torch.from_numpy(np.concatenate([prompt_ids, tail])).cuda()[None]
-    patch = ids == PATCH_ID
+    patch = ids == model.cfg.image_patch_id
     patch[:, len(prompt_ids):] = False
     with torch.no_grad():
         feats = model.encode_images(images).reshape(
@@ -1726,19 +1803,22 @@ def check_logits(tag, got, want):
                              f"no-cache forward: {err}")
 
 
-def run_generation(model, cfg, rng):
+def run_generation(model, cfg, rng, suffix=""):
+    """Greedy generation, batch and stream, each row's logits held against
+    a no-cache forward; ``suffix`` as in :func:`run_forward`."""
     from merlin_tpu_torch.generate.decode import GenerateConfig, Generator
     from merlin_tpu_torch.ops.image_ops import preprocess_images
 
     tok_len = cfg.image_token_len
+    ids_of = mm_ids(cfg)
     max_new, bucket = 32, 128
     # eos -1: no early stop, so every request does the same fixed work
     gen = Generator(model, GenerateConfig(
         max_new_tokens=max_new, eos_id=-1, pad_id=0, prompt_bucket=bucket),
         device="cuda")
-    prompts = [prompt(rng, 300 - tok_len - 10, 1, tok_len),
-               prompt(rng, 420 - tok_len - 10, 1, tok_len),
-               prompt(rng, 40, 2, tok_len)]
+    prompts = [prompt(rng, 300 - tok_len - 10, 1, tok_len, ids_of),
+               prompt(rng, 420 - tok_len - 10, 1, tok_len, ids_of),
+               prompt(rng, 40, 2, tok_len, ids_of)]
     n_images = [1, 1, 2]
     lens = [len(p) for p in prompts]
     batch = np.zeros((3, max(lens)), np.int64)
@@ -1761,7 +1841,8 @@ def run_generation(model, cfg, rng):
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
     batch_counts = read_counts()
-    if out.shape != (3, max_new) or not ((out >= 0) & (out < 32128)).all():
+    if out.shape != (3, max_new) or not (
+            (out >= 0) & (out < cfg.lm.vocab_size)).all():
         raise AssertionError(f"batch generation output bad: {out}")
     log(f"generation: 3 requests (prompt lengths {lens}, bucket {bucket}), "
         f"{max_new} new tokens each in {batch_s:.3f} s -> "
@@ -1785,7 +1866,8 @@ def run_generation(model, cfg, rng):
         f"{ttft:.1f} ms, decode {decode_tps:.2f} tok/s; launches "
         f"{stream_counts}; tokens equal to batch row 2: "
         f"{toks == out[2].tolist()}")
-    if batch_counts != launches(B1=23) or stream_counts != launches(B1=23):
+    want = launches(**suffixed(dict(B1=23), suffix))
+    if batch_counts != want or stream_counts != want:
         raise AssertionError(f"generation launches {batch_counts} "
                              f"{stream_counts}")
 
@@ -1836,7 +1918,7 @@ def token_gap(model, prompt_ids, tokens) -> float:
     return gap.max().item()
 
 
-def run_engine(tag, model, prompts, reached, **engine_kw):
+def run_engine(tag, model, prompts, reached, suffix="", **engine_kw):
     """Serve ``prompts`` (32 new tokens each, no early stop) through a
     ``ServingEngine`` on the card. Each kernel's launches must equal the
     layers times the model calls of its kind (counted by forward hooks),
@@ -1844,8 +1926,9 @@ def run_engine(tag, model, prompts, reached, **engine_kw):
     emitted token must hold against a no-cache forward of its request, and
     a planted prompt swap must fail that check. An int8 pool
     (``cache_dtype=torch.int8``) routes decode to B7 at s_q = 1 and windows
-    to B7/B8, and its tokens are held to ``Q8_GEN_RTOL``. Returns (launch
-    counts, readings)."""
+    to B7/B8, and its tokens are held to ``Q8_GEN_RTOL``. An f32 model
+    (``suffix`` F32) runs the f32 kernels, whose counts take its launches
+    (``reached`` names them). Returns (launch counts, readings)."""
     from merlin_tpu_torch.ops.paged_attention import WINDOW_SMALL_ROWS
     from merlin_tpu_torch.serve.engine import ServingEngine
 
@@ -1901,15 +1984,16 @@ def run_engine(tag, model, prompts, reached, **engine_kw):
     n = cfg.num_layers
     alibi = cfg.positional == "alibi"
     if q8:
-        want = launches(B2=n * calls["prefill"], B7=n * calls["decode"],
-                        B7w=n * calls["window_small"],
-                        B8=n * calls["window_large"])
+        want = dict(B2=n * calls["prefill"], B7=n * calls["decode"],
+                    B7w=n * calls["window_small"],
+                    B8=n * calls["window_large"])
     else:
-        want = launches(B2=n * calls["prefill"],
-                        B3=0 if alibi else n * calls["decode"],
-                        B4=n * calls["decode"] if alibi else 0,
-                        B5=n * calls["window_small"],
-                        B6=n * calls["window_large"])
+        want = dict(B2=n * calls["prefill"],
+                    B3=0 if alibi else n * calls["decode"],
+                    B4=n * calls["decode"] if alibi else 0,
+                    B5=n * calls["window_small"],
+                    B6=n * calls["window_large"])
+    want = launches(**suffixed(want, suffix))
     n_tok = sum(len(r.generated) for r in reqs)
     ttft = [round((first[i] - t0) * 1e3, 1) for i in range(len(prompts))]
     log(f"{tag}: {len(prompts)} requests, prompt lengths "
@@ -3393,11 +3477,11 @@ def v_cli(root, chunks, merged):
 def serve_front(rng, smi):
     """The W phase: the port's serving front end on a Vicuna-7B MMGPT built
     by the user's entry points (``parse_args([])``, ``build_model_tokenizer``,
-    ``init_or_load_params``), bf16 compute (W1), the eval harnesses on the
-    same bundle (V), its LM quantized to int8 (W2), the bundle rebuilt
-    with ``--scan-decode`` (W3), then LoRA over it (L). Returns ({"W1",
-    "W2", "W3": counts}, readings, V's launches, L's counts and
-    readings)."""
+    ``init_or_load_params``), bf16 compute (W1), the same bundle behind a
+    worker with f32 pages (F3), the eval harnesses on it (V), its LM
+    quantized to int8 (W2), the bundle rebuilt with ``--scan-decode`` (W3),
+    then LoRA over it (L). Returns ({"W1", "W2", "W3", "F3": counts},
+    readings, V's launches, L's counts and readings)."""
     from merlin_tpu_torch.models.builder import (
         build_model_tokenizer, init_or_load_params, quantize_bundle_lm_int8)
     from merlin_tpu_torch.train.arguments import parse_args
@@ -3431,6 +3515,9 @@ def serve_front(rng, smi):
 
     w1_counts, w1, sent = run_w1(bundle, rng, fillers, frames, smi)
     free_cuda()
+    f3_counts, f3 = run_f3(bundle, np.random.default_rng(19), fillers,
+                           frames, smi)
+    free_cuda()
     v_counts = run_v(bundle, smi)
     free_cuda()
     fc1 = "vision_tower.vit.layers_0.mlp.fc1.kernel"
@@ -3455,8 +3542,9 @@ def serve_front(rng, smi):
     lora_counts, lora = run_l(bundle, np.random.default_rng(14), smi)
     del bundle
     free_cuda()
-    return ({"W1": w1_counts, "W2": w2_counts, "W3": w3_counts},
-            {"W1": w1, "W2": w2, "W3": w3}, v_counts,
+    return ({"W1": w1_counts, "W2": w2_counts, "W3": w3_counts,
+             "F3": f3_counts},
+            {"W1": w1, "W2": w2, "W3": w3, "F3": f3}, v_counts,
             {"counts": lora_counts, **lora})
 
 
@@ -4293,18 +4381,19 @@ def check_train_reference(rng):
                 key_bias_rel=kbias)
 
 
-def build_train_model(n_layers):
+def build_train_model(n_layers, dtype=torch.bfloat16):
     """CLIP ViT-L/14-448 (23 of 24 layers run) + conv projector + Vicuna-7B
     width cut to ``n_layers``, remat on, f32 trainable parameters N(0,
-    1)*0.02 from seed 0, bf16 compute."""
+    1)*0.02 from seed 0, computing in ``dtype`` (bf16; f32 as
+    ``--bf16 False`` builds it)."""
     from merlin_tpu_torch.models.bridge import init_params
     from merlin_tpu_torch.models.families import vicuna_7b
     from merlin_tpu_torch.models.mmgpt import MMGPT
     from merlin_tpu_torch.models.vit import clip_vit_l14
 
     lm = dataclasses.replace(vicuna_7b(), vocab_size=32128,
-                             num_layers=n_layers, remat=True)
-    cfg = mm_config(lm, clip_vit_l14(448))
+                             num_layers=n_layers, remat=True, dtype=dtype)
+    cfg = mm_config(lm, clip_vit_l14(448, dtype=dtype))
     t0 = time.perf_counter()
     with torch.device("meta"):
         model = MMGPT(cfg)
@@ -4375,8 +4464,9 @@ def run_training(tag, model, model_args, targs, steps, rng, **batch_kw):
 MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 # kernel families of a training step, by a piece of the kernel's name
 FAMILIES = (("B10/B11/B13 attention backward",   # fused kernel, pre- and
-             ("flash_bwd_",)),                   # post-pass
+             ("flash_bwd_",)),                   # post-pass; the f32 ones
             ("B2 flash forward", ("flash_attention_fwd_kernel",)),
+            ("B2/B12 f32 forward", ("attention_f32_kernel",)),
             ("B12 one-pass forward", ("onepass_attention_kernel",)),
             ("matmuls (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
             ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -5406,13 +5496,16 @@ def measure_c13(gen):
     return gaps
 
 
-# the wgmma kernels and the paged kernels, by a piece of their (mangled)
-# names: every instantiation must build with no spills (18 dense wgmma
-# ones; the paged few-rows and window kernels each at d = 64 and 128, bf16
-# and int8 pages, ALiBi being a run-time branch of each)
+# the wgmma kernels, the paged kernels and the f32 kernels, by a piece of
+# their (mangled) names: every instantiation must build with no spills (18
+# dense wgmma ones; the paged few-rows and window kernels each at d = 64
+# and 128, bf16 and int8 pages, ALiBi being a run-time branch of each; the
+# f32 forward at d <= 64/128/256, its dq and dk/dv kernels likewise, the
+# f32 paged kernel at 16 and 64 rows a CTA and d <= 64/128)
 SPILL_CHECKED = ("flash_attention_fwd_kernel", "onepass_attention_kernel",
-                 "flash_bwd_", "paged_rows_kernel", "paged_window_kernel")
-N_SPILL_CHECKED = 26
+                 "flash_bwd_", "paged_rows_kernel", "paged_window_kernel",
+                 "attention_f32_kernel")
+N_SPILL_CHECKED = 39
 
 
 def ptxas_report(pieces=SPILL_CHECKED):
@@ -5450,6 +5543,658 @@ def ptxas_report(pieces=SPILL_CHECKED):
         if m:
             report[current]["registers"] = int(m.group(1))
     return report
+
+
+# ---------------------------------------------------------------------------
+# phase 2, float32: the f32 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def f32_err(got, want) -> float:
+    """max |got - want| as a share of max |want| over the whole tensor."""
+    want = want.float()
+    return ((got.float() - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def hold_f32(tag, got, want, tol=F32_RTOL) -> float:
+    err = f32_err(got, want)
+    log(f"{tag}: error {err:.3e} of max |plain| (tol {tol:.0e})")
+    if not (err <= tol and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{tag} disagrees: {err}")
+    return err
+
+
+def planted_f32(tag, got, want, what, tol=F32_RTOL):
+    """A planted fault must put the f32 check over its tolerance."""
+    err = f32_err(got, want)
+    log(f"{tag} planted fault ({what}): error {err:.3e}, must exceed "
+        f"{tol:.0e}")
+    if not err > tol:
+        raise AssertionError(f"{tag}: the check cannot see {what}")
+
+
+def f32_randn(shape, gen, normed=False):
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if normed:                        # the tower's LayerNorm-bounded rows
+        x = (x - x.mean(-1, keepdim=True)) / x.std(-1, keepdim=True)
+    return x
+
+
+def sdpa_f32_fwd(q, k, v, **kw):
+    """SDPA's forward at f32 on (b, s, h, d) inputs, unpinned (flash and
+    cuDNN take bf16/fp16 only, so the dispatcher picks the memory-efficient
+    or the math backend): (device ms, the backward node it builds)."""
+    lib_for, (qt, kt, vt) = sdpa_fwd(q, k, v, **kw)
+    node = type(F.scaled_dot_product_attention(
+        qt.detach().requires_grad_(), kt, vt, **kw).grad_fn).__name__
+    return time_ms(lib_for(None), iters=10, warmup=3), node
+
+
+def sdpa_f32_bwd(q, k, v, do, **kw):
+    """SDPA's backward at f32, unpinned: (device ms, its node's name)."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+    dot = do.transpose(1, 2)
+    ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                             retain_graph=True),
+                 iters=10, warmup=3)
+    return ms, type(out.grad_fn).__name__
+
+
+def f32_row(name, fn_name, source, replaces, counter, errs, ms, plain_ms,
+            flops, nbytes_, library_ms, shape, smi, **extra):
+    bms, by = bound_ms(flops, nbytes_, PEAK_F32_FLOPS)
+    log(f"{name} f32 {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}; FFMA at 67 TFLOP/s, bytes at 3.35 "
+        f"TB/s), library "
+        + (f"{library_ms:.4f} ms ({extra.get('library_backend')})"
+           if library_ms is not None else "none") + f"; card {smi}")
+    return dict(name=f"{name} f32 {fn_name}", route="cuda", source=source,
+                replaces=replaces, counter=counter,
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=library_ms,
+                shape=list(shape), card=smi, **extra)
+
+
+def check_f32_dense(gen, smi):
+    """B1, B2, B12 and the backward (B10 + B11, B13) at f32 against their
+    plain versions, each planted fault failing the same check; times at
+    the path's shapes against SDPA at f32. Returns the rows."""
+    from merlin_tpu_torch.ops import flash_attention as fa
+    from merlin_tpu_torch.ops import onepass_attention as oa
+
+    errs = collections.defaultdict(list)
+    # B1 at the towers' widths: CLIP-L (64), MetaCLIP-H (80), bigG (104)
+    for shape in [(1, 1025, 16, 64), (2, 1025, 16, 80), (1, 1025, 16, 104)]:
+        q, k, v = (f32_randn(shape, gen, normed=True) for _ in range(3))
+        want = oa.onepass_attention_plain(q, k, v)
+        errs["B1"].append(hold_f32(f"B1 f32 {shape}",
+                                   oa.onepass_attention(q, k, v), want))
+        planted_f32(f"B1 f32 {shape}", oa.onepass_attention(
+            q, k[:, :-1], v[:, :-1]), want, "the last key tile dropped")
+    q1, k1, v1 = (f32_randn((1, 1025, 16, 64), gen, normed=True)
+                  for _ in range(3))
+    out1 = oa.onepass_attention(q1, k1, v1)
+    lib1, node1 = sdpa_f32_fwd(q1, k1, v1)
+    rows = {"B1": f32_row(
+        "B1", "onepass_attention", F32_DENSE_SOURCE, B1_REPLACES, "B1" + F32,
+        errs["B1"], time_ms(lambda: oa.onepass_attention(q1, k1, v1)),
+        time_ms(lambda: oa.onepass_attention_plain(q1, k1, v1), iters=3),
+        4.0 * 16 * 1025 * 1025 * 64, nbytes(q1, k1, v1, out1), lib1,
+        (1, 1025, 16, 64), smi, library_backend=node1)}
+
+    # B12 then B13 at the tower's training call, fed B12's out and LSE
+    shape = (8, 1025, 16, 64)
+    q, k, v, do = (f32_randn(shape, gen, normed=True) for _ in range(4))
+    out, lse = oa.onepass_attention_lse(q, k, v)
+    want, want_lse = oa.onepass_attention_lse_plain(q, k, v)
+    errs["B12"].append(hold_f32(f"B12 f32 {shape}", out, want))
+    lerr = (lse - want_lse).abs().max().item()
+    log(f"B12 f32 {shape} lse: {lerr:.3e} (tol {LSE_TOL})")
+    if not lerr <= LSE_TOL:
+        raise AssertionError(f"B12 f32 lse disagrees: {lerr}")
+    grads = oa.onepass_attention_bwd(q, k, v, do, lse, out)
+    plain = oa.onepass_attention_bwd_plain(q, k, v, do, lse,
+                                           fa.attention_di(out, do))
+    for n, g, w in zip(("dq", "dk", "dv"), grads, plain):
+        errs["B13"].append(hold_f32(f"B13 f32 {shape} {n}", g, w))
+    planted_f32(f"B13 f32 {shape} dq", oa.onepass_attention_bwd(
+        q, k[:, :-1], v[:, :-1], do, lse, out)[0], plain[0],
+        "the last key tile dropped")
+    for n, g, w in zip(("dk", "dv"), oa.onepass_attention_bwd(
+            q[:, :-1], k, v, do[:, :-1], lse[:, :, :-1].contiguous(),
+            out[:, :-1])[1:], plain[1:]):
+        planted_f32(f"B13 f32 {shape} {n}", g, w,
+                    "the last query tile dropped")
+    again = oa.onepass_attention_bwd(q, k, v, do, lse, out)
+    if not all(torch.equal(a, b) for a, b in zip(again, grads)):
+        raise AssertionError("B13 f32: a second run differs (no atomics)")
+    lib12, node12 = sdpa_f32_fwd(q, k, v)
+    rows["B12"] = f32_row(
+        "B12", "onepass_attention_lse", F32_DENSE_SOURCE, B12_REPLACES,
+        "B12" + F32, errs["B12"],
+        time_ms(lambda: oa.onepass_attention_lse(q, k, v)),
+        time_ms(lambda: oa.onepass_attention_lse_plain(q, k, v), iters=3),
+        4.0 * 8 * 16 * 1025 * 1025 * 64, nbytes(q, k, v, out, lse), lib12,
+        shape, smi, library_backend=node12)
+    lib13, node13 = sdpa_f32_bwd(q, k, v, do)
+    rows["B13"] = f32_row(
+        "B13", "onepass_attention_bwd", F32_BWD_SOURCE, B13_REPLACES,
+        "B13" + F32, errs["B13"],
+        time_ms(lambda: oa.onepass_attention_bwd(q, k, v, do, lse, out)),
+        time_ms(lambda: oa.onepass_attention_bwd_plain(
+            q, k, v, do, lse, fa.attention_di(out, do)), iters=3),
+        10.0 * 8 * 16 * 1025 * 1025 * 64,
+        nbytes(q, k, v, out, lse, do, *grads), lib13, shape, smi,
+        library_backend=node13)
+    del q, k, v, do, out, lse, grads, plain, again, want
+
+    # B2 at the decoder's prompt, a masked small case, and the training
+    # shape with its padding, then the backward on B2's out and LSE
+    def flash_case(tag, q, k, v, **kw):
+        out, lse = fa.flash_attention(q, k, v, **kw)
+        want, want_lse = fa.flash_attention_plain(q, k, v, **kw)
+        errs["B2"].append(hold_f32(f"B2 f32 {tag}", out, want))
+        live = want_lse > -1e29
+        lerr = ((lse - want_lse).abs() * live).max().item()
+        if not (lerr <= LSE_TOL and torch.equal(lse > -1e29, live)):
+            raise AssertionError(f"B2 f32 {tag} lse disagrees: {lerr}")
+        return out, lse, want
+
+    shape = (1, 512, 32, 128)
+    q5, k5, v5 = (f32_randn(shape, gen) for _ in range(3))
+    out5, lse5, want5 = flash_case(f"{shape} causal", q5, k5, v5,
+                                   causal=True)
+    planted_f32(f"B2 f32 {shape}", fa.flash_attention(
+        q5, k5[:, :448], v5[:, :448], causal=True)[0], want5,
+        "the last key tile dropped")
+    b, s, h, hkv, d = 2, 200, 8, 2, 64
+    qs = f32_randn((b, s, h, d), gen)
+    kvs = f32_randn((b, s, 2, hkv, d), gen)
+    seg = torch.ones((b, s), dtype=torch.int32, device="cuda")
+    seg[:, 120:] = 2
+    qseg = seg.clone()
+    qseg[1, 7] = 9                     # no key carries segment 9: a row of 0
+    slopes = torch.tensor([2.0 ** -(i + 1) for i in range(h)],
+                          device="cuda")
+    mkw = dict(segment_ids_q=qseg, segment_ids_kv=seg, alibi_slopes=slopes)
+    for causal in (True, False):
+        o, l_, _ = flash_case(f"small gqa/alibi/segments causal={causal}",
+                              qs, kvs[:, :, 0], kvs[:, :, 1], causal=causal,
+                              **mkw)
+        if not (o[1, 7].abs().max().item() == 0.0
+                and l_[1, :, 7].eq(fa.NEG_INF).all().item()):
+            raise AssertionError("B2 f32 fully masked row is not 0")
+        do = f32_randn(qs.shape, gen)
+        g = fa.flash_attention_bwd(qs, kvs[:, :, 0], kvs[:, :, 1], o, l_,
+                                   do, causal=causal, **mkw)
+        w = fa.flash_attention_bwd_plain(qs, kvs[:, :, 0], kvs[:, :, 1], o,
+                                         l_, do, causal=causal, **mkw)
+        for n, gg, ww in zip(("dq", "dk", "dv"), g, w):
+            errs["B10+B11"].append(hold_f32(
+                f"B10+B11 f32 small causal={causal} {n}", gg, ww))
+    # widths past 128: d = 80 and the d = 256 form, causal, padded
+    for shape_w in [(1, 1024, 32, 80), (1, 1024, 8, 256)]:
+        hkv_w = 4 if shape_w[3] == 256 else shape_w[2]
+        qw = f32_randn(shape_w, gen)
+        kw_, vw = (f32_randn(shape_w[:2] + (hkv_w, shape_w[3]), gen)
+                   for _ in range(2))
+        segw = torch.ones(shape_w[:2], dtype=torch.int32, device="cuda")
+        segw[:, -N_PAD:] = 0
+        pkw = dict(causal=True, segment_ids_q=segw, segment_ids_kv=segw)
+        ow, lw, _ = flash_case(f"{shape_w} hkv {hkv_w} padded", qw, kw_, vw,
+                               **pkw)
+        dow = f32_randn(shape_w, gen)
+        for n, gg, ww in zip(("dq", "dk", "dv"), fa.flash_attention_bwd(
+                qw, kw_, vw, ow, lw, dow, **pkw),
+                fa.flash_attention_bwd_plain(qw, kw_, vw, ow, lw, dow,
+                                             **pkw)):
+            errs["B10+B11"].append(hold_f32(
+                f"B10+B11 f32 {shape_w} {n}", gg, ww))
+    tshape = (1, 2048, 32, 128)
+    qt, kt, vt, dot = (f32_randn(tshape, gen) for _ in range(4))
+    seg_t = torch.ones(tshape[:2], dtype=torch.int32, device="cuda")
+    seg_t[:, -N_PAD:] = 0
+    pad = dict(causal=True, segment_ids_q=seg_t, segment_ids_kv=seg_t)
+    out_t, lse_t, _ = flash_case(f"{tshape} causal, last {N_PAD} padding",
+                                 qt, kt, vt, **pad)
+    grads = fa.flash_attention_bwd(qt, kt, vt, out_t, lse_t, dot, **pad)
+    plain = fa.flash_attention_bwd_plain(qt, kt, vt, out_t, lse_t, dot, **pad)
+    for n, g, w in zip(("dq", "dk", "dv"), grads, plain):
+        errs["B10+B11"].append(hold_f32(f"B10+B11 f32 {tshape} {n}", g, w))
+    di = fa.attention_di(out_t, dot)
+    errs["B10"].append(hold_f32(f"B10 f32 {tshape} dq (di given)",
+                                fa.flash_attention_bwd_dq(
+                                    qt, kt, vt, dot, lse_t, di, **pad),
+                                plain[0]))
+    for n, g, w in zip(("dk", "dv"), fa.flash_attention_bwd_dkv(
+            qt, kt, vt, dot, lse_t, di, **pad), plain[1:]):
+        errs["B11"].append(hold_f32(f"B11 f32 {tshape} {n} (di given)", g, w))
+    cut = tshape[1] - 64
+    planted_f32(f"B10 f32 {tshape} dq", fa.flash_attention_bwd(
+        qt, kt[:, :cut], vt[:, :cut], out_t, lse_t, dot, causal=True,
+        segment_ids_q=seg_t, segment_ids_kv=seg_t[:, :cut].contiguous())[0],
+        plain[0], "the last key tile dropped")
+    for n, g, w in zip(("dk", "dv"), fa.flash_attention_bwd(
+            qt[:, :cut], kt, vt, out_t[:, :cut],
+            lse_t[:, :, :cut].contiguous(), dot[:, :cut], causal=True,
+            segment_ids_q=seg_t[:, :cut].contiguous(),
+            segment_ids_kv=seg_t)[1:], plain[1:]):
+        planted_f32(f"B11 f32 {tshape} {n}", g, w,
+                    "the last query tile dropped")
+    again = fa.flash_attention_bwd(qt, kt, vt, out_t, lse_t, dot, **pad)
+    if not all(torch.equal(a, b) for a, b in zip(again, grads)):
+        raise AssertionError("B10+B11 f32: a second run differs")
+    log("B10+B11 f32: a second run is bit-identical (dq summed in a fixed "
+        "order, no atomics)")
+
+    lib2, node2 = sdpa_f32_fwd(q5, k5, v5, is_causal=True)
+    pairs5 = 512 * 513 / 2
+    rows["B2"] = f32_row(
+        "B2", "flash_attention_fwd", F32_DENSE_SOURCE, B2_REPLACES,
+        "B2" + F32, errs["B2"],
+        time_ms(lambda: fa.flash_attention(q5, k5, v5, causal=True)),
+        time_ms(lambda: fa.flash_attention_plain(q5, k5, v5, causal=True),
+                iters=3),
+        4.0 * 32 * pairs5 * 128, nbytes(q5, k5, v5, out5, lse5), lib2,
+        shape, smi, library_backend=node2)
+    seen = 32 * visible_pairs(2048, 2048, True, seg_t, seg_t)
+    lib2t, _ = sdpa_f32_fwd(qt, kt, vt, is_causal=True)
+    bms_t, by_t = bound_ms(4.0 * seen * 128, nbytes(qt, kt, vt, out_t, lse_t),
+                           PEAK_F32_FLOPS)
+    rows["B2"]["training_shape"] = dict(
+        shape=list(tshape), padded_ms=time_ms(
+            lambda: fa.flash_attention(qt, kt, vt, **pad)),
+        bound_ms=bms_t, bound_by=by_t, library_ms_unpadded=lib2t)
+    lib_b, node_b = sdpa_f32_bwd(qt, kt, vt, dot, is_causal=True)
+    bwd_ms = time_ms(lambda: fa.flash_attention_bwd(qt, kt, vt, out_t, lse_t,
+                                                    dot, **pad), iters=5)
+    bwd_plain = time_ms(lambda: fa.flash_attention_bwd_plain(
+        qt, kt, vt, out_t, lse_t, dot, **pad), iters=2, warmup=1)
+    for name, fn_name in (("B10", "flash_attention_bwd_dq"),
+                          ("B11", "flash_attention_bwd_dkv")):
+        rows[name] = f32_row(
+            name, fn_name + " (one launch of the backward with B10/B11)",
+            F32_BWD_SOURCE, B10_REPLACES if name == "B10" else B11_REPLACES,
+            "B10+B11" + F32, errs["B10+B11"] + errs[name], bwd_ms, bwd_plain,
+            10.0 * seen * 128, nbytes(qt, kt, vt, out_t, lse_t, dot, *grads),
+            lib_b, tshape, smi, library_backend=node_b,
+            host_us_per_call=host_us(lambda: fa.flash_attention_bwd(
+                qt, kt, vt, out_t, lse_t, dot, **pad), calls=5))
+    return rows
+
+
+def paged_f32_inputs(gen, b, h, hkv, d, lengths, q_dtype, page_dtype,
+                     s_q=0, page=128):
+    """``paged_inputs`` drawn in f32 and cast: q to ``q_dtype``, the pools
+    to ``page_dtype`` (int8: quantized by ``quantize_pages``, with their
+    scale pages). Returns (q, pages, lengths, tables) with pages (k, v) or
+    (k, k scales, v, v scales)."""
+    from merlin_tpu_torch.ops.paged_attention import quantize_pages
+
+    q, kp, vp, lens, tables = paged_inputs(gen, b, h, hkv, d, lengths,
+                                           s_q=s_q, page=page,
+                                           dtype=torch.float32)
+    if page_dtype == torch.int8:
+        (kq, ks), (vq, vs) = (quantize_pages(x, d) for x in (kp, vp))
+        pages = (kq, ks, vq, vs)
+    else:
+        pages = (kp.to(page_dtype), vp.to(page_dtype))
+    return q.to(q_dtype), pages, lens, tables
+
+
+F32_PAIRS = ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.float32, torch.float32), (torch.float32, torch.int8))
+
+
+def pair_name(pair) -> str:
+    """"f32/bf16" for (torch.float32, torch.bfloat16)."""
+    return "/".join(str(t).replace("torch.", "").replace("float", "f")
+                    for t in pair)
+
+
+def check_f32_paged(gen, smi):
+    """B3-B9 on the f32 kernel at every (q, page) pair but (bf16, bf16 |
+    int8), against their plain versions with the TPU kernels' rounding
+    (``kernel_rounding``, on the kernel's 64-key tiles): bf16/f32 tolerance
+    by the operands, C49's for B7 at f32 q; ALiBi, groups 16 and 32, lengths
+    0, 1 and the full table, permuted tables, pages of 16; a redirected
+    page and, for B7, the f32 computation (B9's rule) must fail. Times at
+    the serving path's shapes. Returns the rows."""
+    from merlin_tpu_torch.models.layers import alibi_slopes
+    from merlin_tpu_torch.ops import paged_attention as pa
+
+    fns = {"B3": pa.paged_attention_dma, "B4": pa.paged_attention,
+           "B5": pa.paged_attention_dma_multi,
+           "B6": pa.paged_attention_multi_blocked,
+           "B7": pa.paged_attention_dma_q8,
+           "B7w": pa.paged_attention_dma_multi_q8,
+           "B8": pa.paged_attention_multi_blocked_q8,
+           "B9": pa.paged_attention_quantized}
+    errs = collections.defaultdict(list)
+
+    def plain(name, q, pages, lens, tabs, slopes):
+        kw = dict(alibi_slopes=slopes, kernel_rounding=True,
+                  block_keys=pa.F32_TILE_KEYS)
+        if len(pages) == 4:
+            fn = (pa.paged_attention_q8_plain if q.dim() == 3
+                  else pa.paged_attention_multi_q8_plain)
+            return fn(q, *pages, lens, tabs,
+                      bf16_operands=name in ("B7", "B7w"), **kw)
+        fn = (pa.paged_attention_plain if q.dim() == 3
+              else pa.paged_attention_multi_plain)
+        return fn(q, *pages, lens, tabs, **kw)
+
+    def run(name, q, pages, lens, tabs, slopes):
+        kw = {} if name == "B3" else {"alibi_slopes": slopes}
+        return fns[name](q, *pages, lens, tabs, **kw)
+
+    def tol_of(name, q, pages):
+        if name in ("B7", "B7w"):
+            return C49_TOL, "C49, relative L2"
+        if q.dtype == torch.bfloat16 or pages[0].dtype == torch.bfloat16:
+            return OUT_RTOL, "bf16 rows"
+        return F32_RTOL, "f32"
+
+    def compare(tag, name, inputs, slopes=None, tables=None, fault=None):
+        q, pages, lens, tabs = inputs
+        want = plain(name, q, pages, lens, tabs, slopes)
+        got = (fault or run)(name, q, pages, lens,
+                             tabs if tables is None else tables, slopes)
+        torch.cuda.synchronize()
+        tol, how = tol_of(name, q, pages)
+        if how == "bf16 rows":
+            err = out_err(got, want)[1]
+        elif how.startswith("C49"):
+            err = ((got.float() - want.float()).norm()
+                   / want.float().norm()).item()
+        else:
+            err = f32_err(got, want)
+        what = (f"a live page redirected" if tables is not None
+                else "computed in f32 (B9's rule)" if fault else None)
+        full = f"{name} f32 {tag} ({pair_name((q.dtype, pages[0].dtype))})"
+        if what:
+            log(f"{full} planted fault ({what}): error {err:.3e}, must "
+                f"exceed {tol:.0e} ({how})")
+            if not err > tol:
+                raise AssertionError(f"{full}: the check cannot see {what}")
+            return
+        log(f"{full}: error {err:.3e} (tol {tol:.0e}, {how}), max_abs_err "
+            f"{out_err(got, want)[0]:.3e}")
+        if not (err <= tol and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{full} disagrees: {err}")
+        errs[name].append(out_err(got, want)[0])
+
+    vicuna = [1, 256, 1937, 700]
+    baichuan = [1, 384, 1999, 901]
+    edges = [0, 1, 257, 2048]
+    s40 = alibi_slopes(40, device="cuda")
+    s32 = alibi_slopes(32, device="cuda")
+    for pair in F32_PAIRS:
+        qd, pd = pair
+        q8 = pd == torch.int8
+        dec, dec_w = ("B7", "B7w") if q8 else ("B3", "B5")
+        dec_alibi, win = ("B7", "B8") if q8 else ("B4", "B6")
+        inp = paged_f32_inputs(gen, 4, 32, 32, 128, vicuna, qd, pd)
+        compare("decode vicuna (4 slots, 32/32 heads)", dec, inp)
+        compare("decode vicuna", dec, inp,
+                tables=redirect_page(inp[3], vicuna))
+        if q8:
+            compare("decode vicuna", "B9", inp)
+            compare("decode vicuna, at f32 q", "B7", inp,
+                    fault=lambda n, *a: run("B9", *a))
+        compare(f"decode lengths {edges}", dec_alibi,
+                paged_f32_inputs(gen, 4, 32, 32, 128, edges, qd, pd), s32)
+        compare("decode baichuan-13b alibi (40 heads)", dec_alibi,
+                paged_f32_inputs(gen, 4, 40, 40, 128, baichuan, qd, pd), s40)
+        for hkv in (2, 1):
+            compare(f"decode group {32 // hkv} alibi (32/{hkv} heads)",
+                    dec_alibi, paged_f32_inputs(gen, 4, 32, hkv, 128, vicuna,
+                                                qd, pd), s32)
+        compare("decode page 16", dec_alibi,
+                paged_f32_inputs(gen, 4, 32, 32, 128, vicuna, qd, pd,
+                                 page=16), s32)
+        w5 = paged_f32_inputs(gen, 4, 32, 32, 128, [5, 256, 1937, 700], qd,
+                              pd, s_q=5)
+        compare("window s_q=5 vicuna", dec_w, w5)
+        compare("window s_q=5 lengths [3, 5, 257, 2048] alibi", dec_w,
+                paged_f32_inputs(gen, 4, 32, 32, 128, [3, 5, 257, 2048], qd,
+                                 pd, s_q=5), s32)
+        for n in (640, 1536):
+            w128 = paged_f32_inputs(gen, 1, 32, 32, 128, [n], qd, pd,
+                                    s_q=128)
+            compare(f"window (1,128,32,128) L={n}", win, w128)
+        compare("window L=1536", win, w128,
+                tables=redirect_page(w128[3], [1536], window=True))
+        compare("window (1,128,40,128) L=640 alibi", win,
+                paged_f32_inputs(gen, 1, 40, 40, 128, [640], qd, pd,
+                                 s_q=128), s40)
+        compare("window s_q=128 lengths [100, 129, 641, 2048] d=64", win,
+                paged_f32_inputs(gen, 4, 16, 16, 64, [100, 129, 641, 2048],
+                                 qd, pd, s_q=128))
+
+    def timing(name, inputs, slopes, flops, pair_tag):
+        q, pages, lens, tabs = inputs
+        ms = time_ms(lambda: run(name, q, pages, lens, tabs, slopes))
+        plain_ms = time_ms(lambda: plain(name, q, pages, lens, tabs, slopes),
+                           iters=3)
+        host = host_us(lambda: run(name, q, pages, lens, tabs, slopes))
+        hkv_d = pages[0].shape[2]
+        per_key = 2 * hkv_d * pages[0].element_size()
+        if len(pages) == 4:            # one f32 scale a (key, kv head)
+            per_key += 2 * 4 * hkv_d // q.shape[-1]
+        kv_bytes = int(lens.sum()) * per_key
+        bms, by = bound_ms(flops, kv_bytes + 2 * nbytes(q), PEAK_F32_FLOPS)
+        log(f"{name} f32 {tuple(q.shape)} lengths {lens.tolist()} "
+            f"({pair_tag}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}), library none; wrapper {host:.1f} us "
+            f"of host time a call; card {smi}")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                    host_us_per_call=host, shape=list(q.shape),
+                    lengths=lens.tolist(), pair=pair_tag)
+
+    rows = {}
+    path = {}
+    for pair in F32_PAIRS:
+        qd, pd = pair
+        tag = pair_name(pair)
+        dec = paged_f32_inputs(gen, 4, 32, 32, 128, vicuna, qd, pd)
+        bc = paged_f32_inputs(gen, 4, 40, 40, 128, baichuan, qd, pd)
+        w5 = paged_f32_inputs(gen, 4, 32, 32, 128, [5, 256, 1937, 700], qd,
+                              pd, s_q=5)
+        w128 = paged_f32_inputs(gen, 1, 32, 32, 128, [640], qd, pd, s_q=128)
+        dec_flops = 4.0 * 32 * 128 * int(dec[2].sum())
+        if pd == torch.int8:
+            kinds = (("B7", dec, None, dec_flops),
+                     ("B9", dec, None, dec_flops),
+                     ("B7w", w5, None, window_flops(w5[0], w5[2])),
+                     ("B8", w128, None, window_flops(w128[0], w128[2])))
+        else:
+            kinds = (("B3", dec, None, dec_flops),
+                     ("B4", bc, s40, 4.0 * 40 * 128 * int(bc[2].sum())),
+                     ("B5", w5, None, window_flops(w5[0], w5[2])),
+                     ("B6", w128, None, window_flops(w128[0], w128[2])))
+        for name, inputs, slopes, flops in kinds:
+            path.setdefault(name, {})[tag] = timing(name, inputs, slopes,
+                                                    flops, tag)
+    names = {"B3": "paged_attention_dma", "B4": "paged_attention",
+             "B5": "paged_attention_dma_multi",
+             "B6": "paged_attention_multi_blocked",
+             "B7": "paged_attention_dma_q8",
+             "B7w": "paged_attention_dma_multi_q8",
+             "B8": "paged_attention_multi_blocked_q8",
+             "B9": "paged_attention_quantized"}
+    main_pair = {n: ("f32/int8" if n in ("B7", "B7w", "B8", "B9")
+                     else "f32/bf16") for n in names}
+    for name, fn_name in names.items():
+        t = path[name][main_pair[name]]
+        rows[name] = dict(
+            name=f"{name} f32 {fn_name}", route="cuda",
+            source=F32_PAGED_SOURCE, replaces=PAGED_REPLACES[name],
+            counter=name + F32, max_abs_err=max(errs[name] or [0.0]),
+            library_ms=None, by_pair=path[name], card=smi, **t)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase F: float32 models through every kernel
+# ---------------------------------------------------------------------------
+
+def build_f32_bundle():
+    """F1's model as a user gets it: ``parse_args(["--bf16", "False"])``,
+    ``build_model_tokenizer`` (the hub offline: the TinyTokenizer) and
+    ``init_or_load_params`` (f32 weights from a seed, as the flax tree):
+    CLIP ViT-L/14-448 + conv + Vicuna-7B computing in f32."""
+    from merlin_tpu_torch.models.builder import (
+        build_model_tokenizer, init_or_load_params)
+    from merlin_tpu_torch.train.arguments import parse_args
+
+    t0 = time.perf_counter()
+    margs, dargs, targs = parse_args(["--bf16", "False"])
+    bundle = build_model_tokenizer(margs, dargs, targs)
+    init_or_load_params(
+        bundle, generator=torch.Generator(device="cuda").manual_seed(15),
+        device="cuda")
+    torch.cuda.synchronize()
+    bundle.model.eval()
+    cfg = bundle.config
+    log(f"F: --bf16 False bundle, lm {cfg.lm.dtype} x {cfg.lm.num_layers} "
+        f"layers, tower {cfg.vit.dtype}: "
+        f"{nbytes(*bundle.model.parameters()) / 1e9:.2f} GB of f32 weights "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    if not (targs.bf16 is False and cfg.lm.dtype == torch.float32
+            and cfg.vit.dtype == torch.float32):
+        raise AssertionError("F: --bf16 False did not give an f32 model")
+    return bundle
+
+
+def run_f(rng):
+    """F1 (forward and greedy generation) and F2 (the engine over bf16,
+    f32 and int8 pages) on the f32 bundle. Returns (F1's forward counts,
+    its generation readings, {run: (counts, readings)})."""
+    bundle = build_f32_bundle()
+    model, cfg = bundle.model, bundle.config
+    fwd_counts, wall = run_forward(model, cfg, rng, suffix=F32)
+    gen = run_generation(model, cfg, rng, suffix=F32)
+    gen["forward_ms"] = wall
+    served = {}
+    e1 = serving_prompts(rng, SERVING_LENGTHS, 32000)
+    e2 = serving_prompts(rng, SERVING_LENGTHS, 32000, period=48)
+    for tag, dtype in (("bf16 pages", torch.bfloat16),
+                       ("f32 pages", torch.float32)):
+        served[f"F2 E1 {tag}"] = run_engine(
+            f"F2 E1 f32 vicuna-7b over {tag} (whole-prompt admission, "
+            f"decode)", model, e1, ["B2" + F32, "B3" + F32], suffix=F32,
+            cache_dtype=dtype, chunk_steps=8, pipeline=1, **SERVING)
+        served[f"F2 E2 {tag}"] = run_engine(
+            f"F2 E2 f32 vicuna-7b over {tag} (chunked prefill C=128, spec "
+            f"k=4)", model, e2, ["B5" + F32, "B6" + F32], suffix=F32,
+            cache_dtype=dtype, prefill_chunk=128, prefill_windows_per_step=4,
+            spec_draft=4, chunk_steps=1, **SERVING)
+    served["F2 E4 int8 pages"] = run_engine(
+        "F2 E4 f32 vicuna-7b over int8 pages (hybrid C=128 min 256)", model,
+        serving_prompts(rng, SERVING_LENGTHS, 32000),
+        ["B2" + F32, "B7" + F32, "B8" + F32], suffix=F32,
+        cache_dtype=torch.int8, prefill_chunk=128, prefill_chunk_min=256,
+        chunk_steps=8, pipeline=1, **SERVING)
+    del bundle, model
+    return fwd_counts, gen, served
+
+
+F3_WORDS = 400               # F3's text request: a chunked prefill
+
+
+def run_f3(bundle, rng, fillers, frames, smi):
+    """F3: the default bf16 bundle (W1's) behind an engine worker started
+    with ``engine_cache_dtype="f32"`` (``--engine-cache-dtype f32``): an
+    f32 pool on the card, bf16 q over it through the f32 paged kernel. One
+    text request (chunked windows, then decode) and one image request
+    (``Generator.stream``, B1), each answer held as W1's."""
+    from merlin_tpu_torch.utils import constants as C
+
+    tok, model = bundle.tokenizer, bundle.model
+    ctrl, workers, servers = start_stack(bundle, [
+        ("merlin-f32-pages", dict(W_ENGINE, engine_cache_dtype="f32"))])
+    worker = workers["merlin-f32-pages"]
+    pool = worker.engine.cache["layers"][0]["k_pages"]
+    calls = collections.Counter()
+    encoded = [0, 0]
+    hooks = engine_counter(worker, calls) + tower_counter(model, encoded)
+    base = dict(temperature=0.0, max_new_tokens=W_MAX_NEW, stop="</s>",
+                model="merlin-f32-pages")
+    text = w_prompts(rng, fillers, [F3_WORDS])[0]
+    one = w_image_prompt(1)
+    torch.cuda.synchronize()
+    reset_counts()
+    results = [w_request(ctrl, dict(base, prompt=text)),
+               w_request(ctrl, dict(base, prompt=one,
+                                    images=[png_b64(frames[0])]))]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for h in hooks:
+        h.remove()
+    stop_stack(servers, workers)
+    n = bundle.config.lm.num_layers
+    want = launches(**{"B1": 23 * encoded[0], "B2": n * calls["prefill"],
+                       "B3" + F32: n * calls["decode"],
+                       "B5" + F32: n * calls["window_small"],
+                       "B6" + F32: n * calls["window_large"]})
+    log(f"F3 worker with f32 pages ({pool.dtype}, "
+        f"{nbytes(pool) * 2 * n / 1e9:.2f} GB of K/V pages): launches "
+        f"{counts}; model calls {dict(calls)}; tower calls {encoded[0]}")
+    if pool.dtype != torch.float32 or counts != want or not (
+            counts["B1"] and counts["B3" + F32] and counts["B6" + F32]):
+        raise AssertionError(f"F3: pool {pool.dtype}, launches {counts}, "
+                             f"expected {want}")
+    readings = {}
+    placeholder = C.image_placeholder(bundle.config.image_token_len)
+    for name, (chunks, stamps), prompt_text, images in (
+            (f"text {F3_WORDS} words", results[0], text, None),
+            ("1 image (Generator.stream)", results[1],
+             one.replace("<image>", placeholder),
+             decoded_images(frames[:1], bundle.config.vit.image_size))):
+        readings[name] = w_readings(f"F3 {name}", chunks, stamps, smi)
+        ids = tok(prompt_text)["input_ids"][0]
+        gap, seq = hold_answer(f"F3 {name}", model, tok, ids, images,
+                               chunks[-1]["text"], len(chunks), GEN_RTOL)
+        readings[name].update(prompt_tokens=len(ids), tokens=len(seq),
+                              max_gap=gap)
+        log(f"F3 {name}: {len(seq)} tokens held against a no-cache forward, "
+            f"largest gap {gap:.3e} of max |logit| (tol {GEN_RTOL})")
+        if not gap <= GEN_RTOL:
+            raise AssertionError(f"F3 {name}: gap {gap}")
+    return counts, readings
+
+
+def run_f4(rng):
+    """F4: T1's recipe with ``bf16=False`` through the Trainer: CLIP
+    ViT-L/14-448 + conv + Vicuna-7B width, LM cut to 8 layers, f32
+    compute, accum 2, 2 steps; B2, the backward (B10 + B11), B12 and B13
+    all on their f32 kernels."""
+    from merlin_tpu_torch.train.arguments import ModelArguments
+
+    model = build_train_model(8, dtype=torch.float32)
+    seen, counts, peak, prof = run_training(
+        "F4 recipe at f32 (bf16=False, 8 LM layers, nothing frozen)", model,
+        ModelArguments(), train_args(bf16=False, gradient_accumulation_steps=2,
+                                     max_steps=2), 2, rng)
+    losses = [m["loss"] for m in seen]
+    want = launches(**suffixed({"B2": 64, "B12": 46 * 2, "B13": 46 * 2,
+                                "B10+B11": 32}, F32))
+    first_ok = abs(losses[0] - math.log(32128)) <= 0.5
+    same = abs(losses[1] - losses[0]) <= 1e-6 * abs(losses[0])
+    finite = all(math.isfinite(m["grad_norm"]) for m in seen)
+    log(f"F4 checks: first loss {losses[0]:.6f} vs ln(32128) "
+        f"{math.log(32128):.6f} (within 0.5: {first_ok}); step 2 equals "
+        f"step 1 at lr 0: {same}; grad norms finite: {finite}; peak "
+        f"{peak / 1e9:.2f} GB")
+    if not (first_ok and same and finite and counts == want):
+        raise AssertionError(f"F4 failed: {losses} {counts}")
+    del model
+    return dict(losses=losses, counts=counts, peak_bytes=peak,
+                step_time_s=seen[-1]["step_time_s"],
+                tokens_per_sec=seen[-1]["tokens_per_sec"], profile=prof)
 
 
 # ---------------------------------------------------------------------------
@@ -5755,10 +6500,12 @@ def main() -> int:
     if spilled or len(ptxas) < N_SPILL_CHECKED:
         raise AssertionError(f"ptxas: spills in {spilled}, or a checked "
                              f"kernel missing from {sorted(ptxas)}")
-    paged_ptxas = {n: i for n, i in ptxas.items() if "paged_" in n}
-    fwd_ptxas = {n: i for n, i in ptxas.items() if "fwd" in n
+    f32_ptxas = {n: i for n, i in ptxas.items() if "f32" in n}
+    bf16_ptxas = {n: i for n, i in ptxas.items() if n not in f32_ptxas}
+    paged_ptxas = {n: i for n, i in bf16_ptxas.items() if "paged_" in n}
+    fwd_ptxas = {n: i for n, i in bf16_ptxas.items() if "fwd" in n
                  or "onepass" in n}
-    bwd_ptxas = {n: i for n, i in ptxas.items()
+    bwd_ptxas = {n: i for n, i in bf16_ptxas.items()
                  if n not in fwd_ptxas and n not in paged_ptxas}
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5767,6 +6514,11 @@ def main() -> int:
     b2 = check_b2(gen)
     paged = check_paged(gen)
     paged.update(check_paged_q8(gen))
+    # the f32 kernels, on a generator of their own: the bf16 checks and
+    # every phase after them draw what they drew before
+    gen32 = torch.Generator(device="cuda").manual_seed(15)
+    f32_rows = check_f32_dense(gen32, smi)
+    f32_rows.update(check_f32_paged(gen32, smi))
     check_reference(rng)
     model, cfg = build_full_model()
     fwd_counts, _ = run_forward(model, cfg, rng)
@@ -5795,6 +6547,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     served.update(serve_baichuan(rng))
     scanned["S3"] = serve_scanned_alibi(np.random.default_rng(17))
+    free_cuda()                       # phase F builds its own f32 model
+    t_f = time.perf_counter()
+    f1_counts, f1_gen, f_served = run_f(np.random.default_rng(15))
+    f_seconds = {"F1 + F2": time.perf_counter() - t_f}
     free_cuda()                       # the W phase builds its own model
     worker_counts, front, v_counts, lora = serve_front(
         np.random.default_rng(9), smi)
@@ -5817,6 +6573,10 @@ def main() -> int:
     t2 = run_t2(rng)
     free_cuda()
     t3 = run_t3(np.random.default_rng(18))
+    free_cuda()
+    t_f = time.perf_counter()
+    f4 = run_f4(np.random.default_rng(20))
+    f_seconds["F4"] = time.perf_counter() - t_f
     free_cuda()                       # D builds its bundle inside train()
     data_train, d_counts = run_d(smi)
     free_cuda()
@@ -5848,9 +6608,32 @@ def main() -> int:
         paged[name]["ptxas"] = {
             n: i for n, i in paged_ptxas.items()
             if ("window" in n) == (name in ("B6", "B8"))}
+    # the f32 kernels' launches on phase F's paths: F1's forward (B1, B2),
+    # F2's engine runs (B3, B5/B6 over bf16 pages; B7, B8 over int8), F4's
+    # training (B10 + B11, B12, B13); B4 (ALiBi), B7 windows and B9 are on
+    # no F path (held in phase 2)
+    f_runs = {"F1 forward": f1_counts, "F1 generation": f1_gen["counts"],
+              **{k: v[0] for k, v in f_served.items()},
+              "F3": worker_counts["F3"], "F4": f4["counts"]}
+    f_path = {"B1": "F1 forward", "B2": "F1 forward",
+              "B3": "F2 E1 bf16 pages", "B5": "F2 E2 bf16 pages",
+              "B6": "F2 E2 bf16 pages", "B7": "F2 E4 int8 pages",
+              "B8": "F2 E4 int8 pages", "B10": "F4", "B11": "F4",
+              "B12": "F4", "B13": "F4"}
+    for name, row in f32_rows.items():
+        run = f_path.get(name)
+        row["launches"] = f_runs[run][row["counter"]] if run else 0
+        row["launches_run"] = run
+        src = row["source"].rsplit("/", 1)[-1]
+        row["ptxas"] = {n: i for n, i in f32_ptxas.items()
+                        if ("paged" in n) == ("paged" in src)
+                        and ("bwd" in n) == ("bwd" in src)}
     rows = [b1, b2] + [paged[k] for k in ("B3", "B4", "B5", "B6", "B7",
                                           "B7w", "B8", "B9")] + [
-        trained[k] for k in ("B10", "B11", "B12", "B13")]
+        trained[k] for k in ("B10", "B11", "B12", "B13")] + [
+        f32_rows[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7",
+                              "B7w", "B8", "B9", "B10", "B11", "B12",
+                              "B13")]
     for row in rows:
         key = row.get("counter", row["name"].split()[0])
         row["launches_serving"] = {e: served[e][0][key] for e in served}
@@ -5868,6 +6651,7 @@ def main() -> int:
         row["launches_mesh_training"] = m1["counts"][key]
         row["launches_mesh_serving"] = {e: mesh_served[e][0][key]
                                         for e in mesh_served}
+        row["launches_f32_phase"] = {r: c[key] for r, c in f_runs.items()}
     log(json.dumps({"serving": {
         e: {k: v for k, v in served[e][1].items() if k != "tokens"}
         for e in served}}))
@@ -5893,6 +6677,13 @@ def main() -> int:
         "seconds": m_seconds,
         "note": "one rank (NCCL, world 1): no multi-rank number",
         "card": smi}}))
+    log(json.dumps({"f32": {
+        "F1": f1_gen, "F2": {e: {k: v for k, v in r[1].items()
+                                 if k != "tokens"}
+                             for e, r in f_served.items()},
+        "F3": front["F3"],
+        "F4": {k: v for k, v in f4.items() if k != "counts"},
+        "seconds": f_seconds, "card": smi}}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

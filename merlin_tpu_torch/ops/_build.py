@@ -67,6 +67,19 @@ SIGNATURES = {
     # ws, counters, b, s_q, h, hkv, d, page_size, pages_per_seq,
     # scale_lanes, split, scale, few_rows, stream
     "merlin_paged_window_q8": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
+    # the f32 kernels (FFMA): q, k, v, out, lse (or NULL), qseg, kseg,
+    # slopes, b, sq, skv, h, hkv, d, q/k/v strides (b, s, h), scale,
+    # causal, stream
+    "merlin_attention_f32": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _I, _P],
+    # q, k, v, out (or NULL), do, lse, di, dq, dk, dv, qseg, kseg, slopes,
+    # b, sq, skv, h, hkv, d, q/k/v/do/out strides (b, s, h), scale, causal,
+    # stream
+    "merlin_attention_bwd_f32": (
+        [_P] * 13 + [_I] * 6 + [_L] * 15 + [_F, _I, _P]),
+    # q, k_pages, k_scales, v_pages, v_scales, lengths, tables, slopes,
+    # out, b, s_q, h, hkv, d, page_size, pps, scale_lanes, q_bf16,
+    # page_kind (0 bf16, 1 f32, 2 int8), bf16_ops, scale, stream
+    "merlin_paged_attention_f32": [_P] * 9 + [_I] * 11 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -157,6 +170,15 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+def count_launch(wrapper, f32: bool) -> None:
+    """One launch of ``wrapper``'s kernel: the bf16 kernel counts in
+    ``wrapper.launches``, the f32 (FFMA) kernel in ``wrapper.launches_f32``."""
+    if f32:
+        wrapper.launches_f32 += 1
+    else:
+        wrapper.launches += 1
+
+
 def stream_handle(device) -> int:
     import torch
 
@@ -164,24 +186,32 @@ def stream_handle(device) -> int:
 
 
 def check_qkv(name: str, q, k, v, *, max_d: int) -> None:
-    """Raise unless q/k/v are what the attention kernels read: bf16 on one
-    CUDA device, (b, s, h, d) with the same b and d, d % 8 == 0 and
-    <= max_d, the head dim contiguous, every other stride and each base
-    pointer 16-byte aligned (the kernels load 8 bf16 at a time)."""
+    """Raise unless q/k/v are what the attention kernels read: one dtype,
+    bf16 (the wgmma kernels) or f32 (the FFMA kernels), as the JAX dense
+    path gives them, on one CUDA device, (b, s, h, d) with the same b and
+    d, d % 8 == 0 and <= max_d, the head dim contiguous, every other
+    stride and each base pointer 16-byte aligned (the kernels load 16
+    bytes at a time: 8 bf16 or 4 f32)."""
     import torch
 
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: q must be bfloat16 or float32, got "
+                         f"{q.dtype}")
+    for t, tn in ((k, "k"), (v, "v")):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name}: {tn} must be {q.dtype} as q is, got "
+                             f"{t.dtype}")
     for t, tn in ((q, "q"), (k, "k"), (v, "v")):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name}: {tn} must be on q's CUDA device, "
                              f"got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name}: {tn} must be bfloat16, got {t.dtype}")
         if t.dim() != 4:
             raise ValueError(f"{name}: {tn} must be (b, s, h, d), got "
                              f"{tuple(t.shape)}")
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]):
+        per16 = 16 // t.element_size()
+        if t.stride(3) != 1 or any(s % per16 for s in t.stride()[:3]):
             raise ValueError(f"{name}: {tn} strides {t.stride()} must keep "
-                             "d contiguous and the rest multiples of 8")
+                             f"d contiguous and the rest multiples of {per16}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {tn} is not 16-byte aligned")
     b, _, _, d = q.shape

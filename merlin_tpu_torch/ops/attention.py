@@ -140,14 +140,15 @@ def attention(
 ) -> torch.Tensor:
     """Self-attention dispatcher (q_offset = 0).
 
-    Ring attention first (:func:`_ring_first`). Then routing (``merlin_tpu/ops/attention.py:192-206``): CPU tensors, sq < 128
-    or d > 256 go to :func:`mha_reference`; a non-causal call with no ALiBi,
-    no segment ids, no GQA, skv <= 4096 and d <= 128 goes to the one-pass
+    Ring attention first (:func:`_ring_first`). Then routing
+    (``merlin_tpu/ops/attention.py:192-206``): CPU tensors, sq < 128 or d >
+    256 go to :func:`mha_reference`; a non-causal call with no ALiBi, no
+    segment ids, no GQA, skv <= 4096 and d <= 128 goes to the one-pass
     kernel (B1; B12/B13 under autograd); everything else to the flash
-    kernels (B2; B10/B11 in the backward). The route
-    depends on the device and the shapes only: the kernels take bfloat16,
-    and their wrappers raise on any other dtype. They need no padding: they
-    mask the ragged edge themselves.
+    kernels (B2; B10/B11 in the backward). The route depends on the device
+    and the shapes only, as JAX's does: each kernel takes bf16 (wgmma) and
+    f32 (FFMA) q/k/v, and its wrapper raises on any other dtype. They need
+    no padding: they mask the ragged edge themselves.
     """
     sq, skv, d = q.shape[1], k.shape[1], q.shape[-1]
     if q.device.type == "cpu" or sq < 128 or d > 256:

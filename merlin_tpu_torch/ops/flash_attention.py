@@ -22,6 +22,14 @@ takes the forward's out instead of di and returns all three from one
 launch. No sequence length needs padding.
 :func:`differentiable_flash_attention` is the autograd function the
 dispatcher calls: B2 forward, :func:`flash_attention_bwd` backward.
+
+Dtypes: q, k and v are one dtype, as JAX's dense path gives them. bf16
+runs the wgmma kernels above and counts in ``.launches``; f32 runs the
+FFMA kernels (``csrc/attention_f32.cu``, ``csrc/flash_attention_bwd_f32.cu``)
+and counts in ``.launches_f32``. Each computes what the TPU kernel computes
+at its operands' dtype (:data:`DTYPE_RULE`); any other dtype raises. The
+plain versions already apply the TPU kernels' rounding (p and ds rounded
+to the operands' dtype for their products, which at f32 rounds nothing).
 """
 
 from __future__ import annotations
@@ -37,6 +45,14 @@ NEG_INF = -1e30
 # the forward does, so a route that runs B2 can train
 FWD_MAX_D = 256
 BWD_MAX_D = 256
+# the rule every kernel wrapper of the port follows on a CUDA tensor
+DTYPE_RULE = (
+    "on a CUDA tensor the kernel computes what the TPU kernel computes at "
+    "these operand dtypes: products accumulate in f32; q.k is taken at the "
+    "promoted dtype (bf16 widened, never f32 narrowed); p is rounded to V's "
+    "dtype before P.V; out is written in q's dtype from the f32 "
+    "accumulator; a row that sees no key writes 0 (C2). On a CPU tensor the "
+    "plain version follows JAX's CPU route.")
 
 
 def flash_attention_plain(
@@ -117,7 +133,8 @@ def flash_attention(
     alibi_slopes: Optional[torch.Tensor] = None,
     causal: bool = True, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flash attention forward (B2); see :func:`flash_attention_plain`."""
+    """Flash attention forward (B2); see :func:`flash_attention_plain`.
+    bf16 or f32 q/k/v (one dtype) under :data:`DTYPE_RULE`."""
     kw = dict(segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
               alibi_slopes=alibi_slopes, causal=causal, scale=scale)
     if q.device.type == "cpu":
@@ -130,18 +147,22 @@ def flash_attention(
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    code = _build.lib().merlin_flash_attention_fwd_bf16(
+    f32 = q.dtype == torch.float32
+    entry = (_build.lib().merlin_attention_f32 if f32
+             else _build.lib().merlin_flash_attention_fwd_bf16)
+    code = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _ptr(segment_ids_q), _ptr(segment_ids_kv),
         _ptr(alibi_slopes), b, sq, skv, h, hkv, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         float(scale), int(causal), _build.stream_handle(q.device))
     _build.check(code, "flash_attention")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention, f32)
     return out, lse
 
 
 flash_attention.launches = 0
+flash_attention.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -251,15 +272,31 @@ def _check_out(name, q, k, v, out):
 
 def _launch_bwd(name, q, k, v, do, lse, di, out, segment_ids_q,
                 segment_ids_kv, alibi_slopes, causal, scale):
-    """One launch of the fused backward on checked inputs: the pre-pass
-    (zeroes the f32 dq buffer; given ``out`` instead of ``di``, computes di
-    = sum(out * do)), the key-major kernel, the post-pass (dq to bf16).
-    Returns dq (b, sq, h, d) and dk, dv (b, skv, hkv, d)."""
+    """One launch of the backward on checked inputs. bf16: the fused
+    kernel with its pre-pass (zeroes the f32 dq buffer; given ``out``
+    instead of ``di``, computes di = sum(out * do)) and post-pass (dq to
+    bf16). f32: the dq kernel (di from ``out`` when given) then the dk/dv
+    kernel. Returns dq (b, sq, h, d) and dk, dv (b, skv, hkv, d)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
     if di is None:
         di = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+        dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+        code = _build.lib().merlin_attention_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(out),
+            do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _ptr(segment_ids_q),
+            _ptr(segment_ids_kv), _ptr(alibi_slopes), b, sq, skv, h, hkv, d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3],
+            *(out.stride()[:3] if out is not None else (0, 0, 0)),
+            float(scale), int(causal), _build.stream_handle(q.device))
+        _build.check(code, name)
+        return dq, dk, dv
     dq_acc = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
@@ -285,7 +322,8 @@ def flash_attention_bwd_dq(
     causal: bool = True, scale: Optional[float] = None,
 ) -> torch.Tensor:
     """B10: dq; see :func:`flash_attention_bwd_dq_plain`. On the card, one
-    launch of the fused backward, of which dq is returned."""
+    launch of the backward (bf16 or f32 operands, :data:`DTYPE_RULE`), of
+    which dq is returned."""
     kw = dict(segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
               alibi_slopes=alibi_slopes, causal=causal, scale=scale)
     if q.device.type == "cpu":
@@ -296,11 +334,12 @@ def flash_attention_bwd_dq(
     dq, _, _ = _launch_bwd("flash_attention_bwd_dq", q, k, v, do, lse, di,
                            None, segment_ids_q, segment_ids_kv, alibi_slopes,
                            causal, scale)
-    flash_attention_bwd_dq.launches += 1
+    _build.count_launch(flash_attention_bwd_dq, q.dtype == torch.float32)
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_f32 = 0
 
 
 def flash_attention_bwd_dkv(
@@ -312,8 +351,8 @@ def flash_attention_bwd_dkv(
     causal: bool = True, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """B11: (dk, dv) per kv head; see :func:`flash_attention_bwd_dkv_plain`.
-    On the card, one launch of the fused backward, of which dk and dv are
-    returned."""
+    On the card, one launch of the backward (bf16 or f32 operands,
+    :data:`DTYPE_RULE`), of which dk and dv are returned."""
     kw = dict(segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
               alibi_slopes=alibi_slopes, causal=causal, scale=scale)
     if q.device.type == "cpu":
@@ -324,11 +363,12 @@ def flash_attention_bwd_dkv(
     _, dk, dv = _launch_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, di,
                             None, segment_ids_q, segment_ids_kv,
                             alibi_slopes, causal, scale)
-    flash_attention_bwd_dkv.launches += 1
+    _build.count_launch(flash_attention_bwd_dkv, q.dtype == torch.float32)
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_f32 = 0
 
 
 def flash_attention_bwd(
@@ -340,8 +380,9 @@ def flash_attention_bwd(
     causal: bool = True, scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's out and LSE (B10 + B11); see
-    :func:`flash_attention_bwd_plain`. On the card, one launch of the fused
-    backward, whose pre-pass computes di from out and do."""
+    :func:`flash_attention_bwd_plain`. On the card, one launch of the
+    backward (bf16 or f32 operands, :data:`DTYPE_RULE`), which computes di
+    from out and do."""
     kw = dict(segment_ids_q=segment_ids_q, segment_ids_kv=segment_ids_kv,
               alibi_slopes=alibi_slopes, causal=causal, scale=scale)
     if q.device.type == "cpu":
@@ -353,11 +394,12 @@ def flash_attention_bwd(
     grads = _launch_bwd("flash_attention_bwd", q, k, v, do, lse, None, out,
                         segment_ids_q, segment_ids_kv, alibi_slopes, causal,
                         scale)
-    flash_attention_bwd.launches += 1
+    _build.count_launch(flash_attention_bwd, q.dtype == torch.float32)
     return grads
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_f32 = 0
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, do, **kw):

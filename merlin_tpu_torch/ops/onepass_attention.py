@@ -20,6 +20,12 @@ does not take; its ``*_plain`` version is the same function in plain
 PyTorch, used for CPU tensors and as the kernel's yardstick on the card.
 :func:`differentiable_onepass_attention` is what the dispatcher calls: B1
 when no gradient is asked for, else B12 forward and B13 backward.
+
+Dtypes: q, k and v are one dtype. bf16 runs the wgmma kernels and counts
+in ``.launches``; f32 runs the FFMA kernels (``csrc/attention_f32.cu``,
+the flash forward's, non-causal and unmasked; ``csrc/
+flash_attention_bwd_f32.cu``) and counts in ``.launches_f32``, each under
+:data:`~merlin_tpu_torch.ops.flash_attention.DTYPE_RULE`.
 """
 
 from __future__ import annotations
@@ -65,15 +71,17 @@ def onepass_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def onepass_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: Optional[float] = None) -> torch.Tensor:
     """B1: bidirectional attention; q/k/v (b, s, h, d) with the same h, any
-    sequence lengths (the kernel masks the ragged edge itself)."""
+    sequence lengths (the kernel masks the ragged edge itself); bf16 or f32
+    under :data:`~merlin_tpu_torch.ops.flash_attention.DTYPE_RULE`."""
     if q.device.type == "cpu":
         return onepass_attention_plain(q, k, v, scale=scale)
     out, _ = _launch_forward("onepass_attention", q, k, v, scale, lse=False)
-    onepass_attention.launches += 1
+    _build.count_launch(onepass_attention, q.dtype == torch.float32)
     return out
 
 
 onepass_attention.launches = 0
+onepass_attention.launches_f32 = 0
 
 
 def onepass_attention_lse_plain(
@@ -90,20 +98,24 @@ def onepass_attention_lse(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scale: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """B12: (out, lse), the trained path's forward; see
-    :func:`onepass_attention_lse_plain`."""
+    :func:`onepass_attention_lse_plain`. bf16 or f32 under
+    :data:`~merlin_tpu_torch.ops.flash_attention.DTYPE_RULE`."""
     if q.device.type == "cpu":
         return onepass_attention_lse_plain(q, k, v, scale=scale)
     out, lse = _launch_forward("onepass_attention_lse", q, k, v, scale,
                                lse=True)
-    onepass_attention_lse.launches += 1
+    _build.count_launch(onepass_attention_lse, q.dtype == torch.float32)
     return out, lse
 
 
 onepass_attention_lse.launches = 0
+onepass_attention_lse.launches_f32 = 0
 
 
 def _launch_forward(name, q, k, v, scale, *, lse: bool):
-    """Launch the one-pass kernel (B1, or B12 with ``lse``)."""
+    """Launch the one-pass kernel (B1, or B12 with ``lse``): bf16 on
+    ``attention_fwd.cu``'s, f32 on ``attention_f32.cu``'s run non-causal
+    with no masks."""
     _build.check_qkv(name, q, k, v, max_d=MAX_D)
     if k.shape[2] != q.shape[2]:
         raise ValueError(f"{name}: GQA is not supported "
@@ -114,11 +126,19 @@ def _launch_forward(name, q, k, v, scale, *, lse: bool):
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse_t = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
              if lse else None)
-    code = _build.lib().merlin_onepass_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse_t.data_ptr() if lse else None,
-        b, sq, skv, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), _build.stream_handle(q.device))
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    if q.dtype == torch.float32:
+        code = _build.lib().merlin_attention_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_t.data_ptr() if lse else None, None, None, None,
+            b, sq, skv, h, h, d, *strides, float(scale), 0,
+            _build.stream_handle(q.device))
+    else:
+        code = _build.lib().merlin_onepass_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse_t.data_ptr() if lse else None,
+            b, sq, skv, h, d, *strides, float(scale),
+            _build.stream_handle(q.device))
     _build.check(code, name)
     return out, lse_t
 
@@ -151,7 +171,8 @@ def onepass_attention_bwd(
     """B13: (dq, dk, dv) from B12's out and LSE; see
     :func:`onepass_attention_bwd_plain`, fed di = sum(out * do). One call
     makes one launch of the fused flash backward, non-causal with no masks,
-    whose pre-pass computes di."""
+    whose pre-pass computes di; bf16 or f32 operands under
+    :data:`~merlin_tpu_torch.ops.flash_attention.DTYPE_RULE`."""
     if q.device.type == "cpu":
         return onepass_attention_bwd_plain(q, k, v, do, lse,
                                            attention_di(out, do), scale=scale)
@@ -161,11 +182,12 @@ def onepass_attention_bwd(
     _check_out("onepass_attention_bwd", q, k, v, out)
     grads = _launch_bwd("onepass_attention_bwd", q, k, v, do, lse, None, out,
                         None, None, None, False, scale)
-    onepass_attention_bwd.launches += 1
+    _build.count_launch(onepass_attention_bwd, q.dtype == torch.float32)
     return grads
 
 
 onepass_attention_bwd.launches = 0
+onepass_attention_bwd.launches_f32 = 0
 
 
 class OnepassAttentionFn(torch.autograd.Function):

@@ -48,6 +48,20 @@ and have no counterpart. Each wrapper counts its launches in
 A row that sees no key (a sequence length of 0, or below the window) gets
 the uniform average of V from the plain versions, as in JAX, and 0 from
 the kernels (trap C2); the decoder never produces one.
+
+Dtypes: q is bf16 or f32, pages bf16, f32 or int8. bf16 q over bf16 or
+int8 pages runs the two kernels above and counts in ``.launches``; every
+other pair runs the f32 kernel (``csrc/paged_attention_f32.cu``, FFMA) and
+counts in ``.launches_f32``. On a CUDA tensor each wrapper computes what
+its TPU kernel computes at these operand dtypes: f32 sums, q.k at the
+promoted dtype, p rounded to the page dtype before P.V (C48), out in q's
+dtype, C2's zero rows; B8 and B9 dequantize int8 pages to q's dtype, B7
+computes with bf16 operands whatever q's dtype (C49). On a CPU tensor the
+plain version follows JAX's CPU route (the references, int8 pages
+dequantized to bf16), which keeps p in f32. The plain versions'
+``kernel_rounding`` applies the TPU kernel's rule instead, on blocks of
+``block_keys`` keys (the TPU kernels' page; :data:`F32_TILE_KEYS`, the
+f32 kernel's tile, on the card).
 """
 
 from __future__ import annotations
@@ -68,6 +82,8 @@ WINDOW_SMALL_ROWS = 16
 SPLIT_KEYS = 256
 # the window kernel's most key splits of a row tile (its kWindowMaxSplits)
 WINDOW_MAX_SPLITS = 16
+# keys of the f32 kernel's tiles, the block on which it rounds p
+F32_TILE_KEYS = 64
 _COUNTERS = {}    # device -> both kernels' int32 arrival counters
 _SMS = {}         # device -> its SM count
 
@@ -301,11 +317,79 @@ def _gather_seq(pages, page_tables, hkv, d):
     return seq.reshape(b, pps * pages.shape[1], hkv, d)
 
 
+def _rounded(dtype):
+    """The dtype p is rounded to before P V when V is in ``dtype`` (None
+    for f32: no rounding)."""
+    return None if dtype == torch.float32 else dtype
+
+
+def _kernel_rule(q, k_seq, v_seq, q_pos, alibi_slopes, scale, p_dtype,
+                 block, k_scale=None, v_scale=None):
+    """What a TPU paged kernel computes, in plain PyTorch: q (b, s_q, h, d)
+    and k_seq/v_seq (b, keys, hkv, d) as the f32 values it multiplies, q_pos
+    (b, s_q) each row's position (it sees keys <= it). Scores in f32
+    (times ``k_scale`` (b, keys, hkv) per key first, B7), then scale and
+    ALiBi; an online softmax over blocks of ``block`` keys, p = exp(s -
+    the running max) rounded to ``p_dtype`` (or, with ``v_scale``, p *
+    v_scale rounded to bf16, B7) for P V while l sums the f32 p. A row that
+    sees no key reads 0, as the kernels write it (C2). Returns (b, s_q, h,
+    d) f32."""
+    b, s_q, h, d = q.shape
+    n_keys, hkv = k_seq.shape[1], k_seq.shape[2]
+    group = h // hkv
+    s = torch.einsum("bthgd,bkhd->bhgtk", q.reshape(b, s_q, hkv, group, d),
+                     k_seq)
+    if k_scale is not None:
+        s = s * k_scale.permute(0, 2, 1)[:, :, None, None, :]
+    s = s * scale
+    k_pos = torch.arange(n_keys, device=q.device)
+    if alibi_slopes is not None:
+        slopes = alibi_slopes.float().reshape(hkv, group)
+        dist = (k_pos[None, None, :] - q_pos[:, :, None]).float()
+        s = s + slopes[None, :, :, None, None] * dist[:, None, None]
+    mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None, None]
+    m = torch.full(s.shape[:-1], NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (d,), device=q.device)
+    for k0 in range(0, n_keys, block):
+        seen = mask[..., k0:k0 + block]
+        sb = torch.where(seen, s[..., k0:k0 + block], NEG_INF)
+        m_new = torch.maximum(m, sb.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(seen, torch.exp(sb - m_new[..., None]), 0.0)
+        l = alpha * l + p.sum(-1)
+        if v_scale is not None:
+            p = (p * v_scale[:, k0:k0 + block].permute(0, 2, 1)[
+                :, :, None, None, :]).to(torch.bfloat16).float()
+        elif p_dtype is not None:
+            p = p.to(p_dtype).float()
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgtk,bkhd->bhgtd", p, v_seq[:, k0:k0 + block])
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s_q, h, d)
+
+
+def _window_pos(lengths, s_q, device):
+    """(b, s_q) positions of a window's rows: lengths include the window."""
+    return (lengths.long()[:, None] - s_q) + torch.arange(
+        s_q, device=device)[None]
+
+
 def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, *,
-                          alibi_slopes=None, scale=None):
+                          alibi_slopes=None, scale=None,
+                          kernel_rounding=False, block_keys=None):
     """One query token per sequence over its pages. q (b, h, d); keys at
     positions < lengths[b] are visible; ALiBi adds slope * (k - (len-1)).
-    f32 softmax with NEG_INF masking. Returns (b, h, d) in q's dtype."""
+    f32 softmax with NEG_INF masking (JAX's reference: p stays f32).
+    Returns (b, h, d) in q's dtype. ``kernel_rounding`` computes what the
+    TPU kernel computes instead (C48): see
+    :func:`paged_attention_multi_plain`."""
+    if kernel_rounding:
+        return paged_attention_multi_plain(
+            q[:, None], k_pages, v_pages, lengths, page_tables,
+            alibi_slopes=alibi_slopes, scale=scale, kernel_rounding=True,
+            block_keys=block_keys)[:, 0]
     b, h, d = q.shape
     hkv = k_pages.shape[2] // d
     group = h // hkv
@@ -329,23 +413,34 @@ def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, *,
 
 
 def paged_attention_multi_plain(q, k_pages, v_pages, lengths, page_tables,
-                                *, alibi_slopes=None, scale=None):
+                                *, alibi_slopes=None, scale=None,
+                                kernel_rounding=False, block_keys=None):
     """An s_q-token window per sequence over its pages. q (b, s_q, h, d);
     ``lengths`` INCLUDE the window (its K/V already written); query t sits
     at lengths-s_q+t and sees keys at positions <= its own. ALiBi adds
-    slope * (k - q_pos). Returns (b, s_q, h, d) in q's dtype."""
+    slope * (k - q_pos). Returns (b, s_q, h, d) in q's dtype.
+
+    Without ``kernel_rounding``, JAX's reference (its CPU route): p stays
+    f32. With it, the TPU kernel's rule (B3-B6, trap C48): the online
+    softmax over blocks of ``block_keys`` keys (default: the page, the TPU
+    BlockSpec kernels' block), p rounded to the page dtype before P V, a
+    row with no key 0 (C2)."""
     b, s_q, h, d = q.shape
     hkv = k_pages.shape[2] // d
     group = h // hkv
     scale = scale if scale is not None else d ** -0.5
     k_seq = _gather_seq(k_pages, page_tables, hkv, d).float()
     v_seq = _gather_seq(v_pages, page_tables, hkv, d).float()
+    if kernel_rounding:
+        return _kernel_rule(
+            q.float(), k_seq, v_seq, _window_pos(lengths, s_q, q.device),
+            alibi_slopes, scale, _rounded(v_pages.dtype),
+            block_keys or k_pages.shape[1]).to(q.dtype)
     max_len = k_seq.shape[1]
     qg = q.reshape(b, s_q, hkv, group, d).float()
     s = torch.einsum("bthgd,bkhd->bhgtk", qg, k_seq) * scale
     k_pos = torch.arange(max_len, device=q.device)
-    q_pos = (lengths.long()[:, None] - s_q) + torch.arange(
-        s_q, device=q.device)[None]                              # (b, s_q)
+    q_pos = _window_pos(lengths, s_q, q.device)                  # (b, s_q)
     if alibi_slopes is not None:
         slopes = alibi_slopes.float().reshape(hkv, group)
         dist = (k_pos[None, None, :] - q_pos[:, :, None]).float()
@@ -359,10 +454,18 @@ def paged_attention_multi_plain(q, k_pages, v_pages, lengths, page_tables,
 
 def paged_attention_q8_plain(q, k_values, k_scales, v_values, v_scales,
                              lengths, page_tables, *, alibi_slopes=None,
-                             scale=None):
+                             scale=None, kernel_rounding=False,
+                             bf16_operands=False, block_keys=None):
     """:func:`paged_attention_plain` over int8 pages, as the JAX decoder's
     CPU route computes it (``decoder.py:300-306``): both pools dequantized
-    to bf16 first."""
+    to bf16 first. ``kernel_rounding`` computes what the TPU kernel
+    computes instead: see :func:`paged_attention_multi_q8_plain`."""
+    if kernel_rounding:
+        return paged_attention_multi_q8_plain(
+            q[:, None], k_values, k_scales, v_values, v_scales, lengths,
+            page_tables, alibi_slopes=alibi_slopes, scale=scale,
+            kernel_rounding=True, bf16_operands=bf16_operands,
+            block_keys=block_keys)[:, 0]
     d = q.shape[-1]
     return paged_attention_plain(
         q, dequantize_pages(k_values, k_scales, d),
@@ -370,16 +473,55 @@ def paged_attention_q8_plain(q, k_values, k_scales, v_values, v_scales,
         alibi_slopes=alibi_slopes, scale=scale)
 
 
+def _head_scales(scales, page_tables, hkv):
+    """(P, page, S) scale pages through (b, pps) tables -> (b, keys, hkv):
+    kv head i's scale at lane i * max(S // hkv, 1)."""
+    lanes = scales.shape[-1]
+    stride = max(lanes // hkv, 1)
+    seq = _gather_seq(scales, page_tables, 1, lanes)[:, :, 0]
+    return seq[..., 0:hkv * stride:stride]
+
+
 def paged_attention_multi_q8_plain(q, k_values, k_scales, v_values,
                                    v_scales, lengths, page_tables, *,
-                                   alibi_slopes=None, scale=None):
+                                   alibi_slopes=None, scale=None,
+                                   kernel_rounding=False,
+                                   bf16_operands=False, block_keys=None):
     """:func:`paged_attention_multi_plain` over int8 pages, as the JAX
-    decoder's CPU route (``decoder.py:400-408``): dequantize to bf16 first."""
-    d = q.shape[-1]
-    return paged_attention_multi_plain(
-        q, dequantize_pages(k_values, k_scales, d),
-        dequantize_pages(v_values, v_scales, d), lengths, page_tables,
-        alibi_slopes=alibi_slopes, scale=scale)
+    decoder's CPU route (``decoder.py:400-408``): dequantize to bf16 first.
+
+    With ``kernel_rounding``, the TPU kernel's rule on blocks of
+    ``block_keys`` keys (default: the page): B8 and B9 dequantize to q's
+    dtype and round p to it (``paged_attention.py:820-823``); with
+    ``bf16_operands``, B7's (trap C49): q rounded to bf16, s = (q . k_int8)
+    * k_scale * scale, p * v_scale rounded to bf16 for the product with
+    the int8 V (``:1033-1034,1067,1131``), whatever q's dtype."""
+    b, s_q, h, d = q.shape
+    if not kernel_rounding:
+        return paged_attention_multi_plain(
+            q, dequantize_pages(k_values, k_scales, d),
+            dequantize_pages(v_values, v_scales, d), lengths, page_tables,
+            alibi_slopes=alibi_slopes, scale=scale)
+    hkv = k_values.shape[2] // d
+    scale = scale if scale is not None else d ** -0.5
+    q_pos = _window_pos(lengths, s_q, q.device)
+    block = block_keys or k_values.shape[1]
+    if bf16_operands:
+        out = _kernel_rule(
+            q.to(torch.bfloat16).float(),
+            _gather_seq(k_values, page_tables, hkv, d).float(),
+            _gather_seq(v_values, page_tables, hkv, d).float(), q_pos,
+            alibi_slopes, scale, None, block,
+            k_scale=_head_scales(k_scales, page_tables, hkv),
+            v_scale=_head_scales(v_scales, page_tables, hkv))
+    else:
+        k_seq = _gather_seq(dequantize_pages(k_values, k_scales, d, q.dtype),
+                            page_tables, hkv, d).float()
+        v_seq = _gather_seq(dequantize_pages(v_values, v_scales, d, q.dtype),
+                            page_tables, hkv, d).float()
+        out = _kernel_rule(q.float(), k_seq, v_seq, q_pos, alibi_slopes,
+                           scale, _rounded(q.dtype), block)
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -389,24 +531,31 @@ def paged_attention_multi_q8_plain(q, k_values, k_scales, v_values,
 def _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
                  alibi_slopes, k_scales=None, v_scales=None) -> int:
     """Raise unless the inputs are what the paged kernels read; returns
-    hkv. q (b, [s_q,] h, d) bf16 and the (P, page, hkv*d) pages, bf16 or,
-    with scales, int8, contiguous and 16-byte aligned on one CUDA device,
-    with d % 8 == 0 and d <= 128; int8 pages' scales (P, page, S)
-    contiguous f32 with hkv <= S; lengths (b,) and page_tables (b, pps)
-    contiguous int32; slopes (h,) contiguous f32."""
+    hkv. q (b, [s_q,] h, d) bf16 or f32 and the (P, page, hkv*d) pages,
+    bf16 or f32 or, with scales, int8, contiguous and 16-byte aligned on
+    one CUDA device, with d % 8 == 0 and d <= 128; int8 pages' scales (P,
+    page, S) contiguous f32 with hkv <= S; lengths (b,) and page_tables
+    (b, pps) contiguous int32; slopes (h,) contiguous f32."""
     q8 = k_scales is not None
-    page_dtype = torch.int8 if q8 else torch.bfloat16
-    tensors = [(q, "q", torch.bfloat16), (k_pages, "k_pages", page_dtype),
-               (v_pages, "v_pages", page_dtype)]
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: q must be bfloat16 or float32, got "
+                         f"{q.dtype}")
+    page_dtypes = ((torch.int8,) if q8
+                   else (torch.bfloat16, torch.float32))
+    if k_pages.dtype not in page_dtypes or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"{name}: pages must be one of {page_dtypes}, got "
+                         f"{k_pages.dtype} / {v_pages.dtype}")
+    tensors = [(q, "q"), (k_pages, "k_pages"), (v_pages, "v_pages")]
     if q8:
-        tensors += [(k_scales, "k_scales", torch.float32),
-                    (v_scales, "v_scales", torch.float32)]
-    for t, tn, dtype in tensors:
+        tensors += [(k_scales, "k_scales"), (v_scales, "v_scales")]
+        for t, tn in tensors[3:]:
+            if t.dtype != torch.float32:
+                raise ValueError(f"{name}: {tn} must be float32, got "
+                                 f"{t.dtype}")
+    for t, tn in tensors:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name}: {tn} must be on q's CUDA device, "
                              f"got {t.device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: {tn} must be {dtype}, got {t.dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {tn} must be contiguous and 16-byte "
                              "aligned")
@@ -441,6 +590,35 @@ def _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
                          f"{tuple(v_scales.shape)} must be (P, page, S) with "
                          f"S >= hkv = {hkv} for pages {tuple(k_pages.shape)}")
     return hkv
+
+
+def _f32_kernel(q, pages) -> bool:
+    """Whether the (q, pages) pair runs the f32 kernel: every pair but bf16
+    q over bf16 or int8 pages."""
+    return not (q.dtype == torch.bfloat16
+                and pages.dtype in (torch.bfloat16, torch.int8))
+
+
+def _launch_f32(name, q, k_pages, v_pages, lengths, page_tables,
+                alibi_slopes, scale, k_scales, v_scales, bf16_ops):
+    """The f32 kernel on checked inputs: q (b, s_q, h, d), decode at s_q =
+    1; ``bf16_ops`` for B7's rule over int8 pages. Returns out like q."""
+    b, s_q, h, d = q.shape
+    out = torch.empty_like(q)
+    kind = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}[
+        k_pages.dtype]
+    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    code = _build.lib().merlin_paged_attention_f32(
+        q.data_ptr(), k_pages.data_ptr(), ptr(k_scales), v_pages.data_ptr(),
+        ptr(v_scales), lengths.data_ptr(), page_tables.data_ptr(),
+        ptr(alibi_slopes), out.data_ptr(), b, s_q, h,
+        k_pages.shape[2] // d, d, k_pages.shape[1], page_tables.shape[1],
+        k_scales.shape[2] if k_scales is not None else 0,
+        int(q.dtype == torch.bfloat16), kind, int(bf16_ops),
+        float(scale if scale is not None else d ** -0.5),
+        _build.stream_handle(q.device))
+    _build.check(code, name)
+    return out
 
 
 def _counters(device, need: int) -> int:
@@ -522,13 +700,19 @@ def _window_workspace(q, b, rows, hkv, d, page_size, pps):
 
 
 def _launch_decode(name, q, k_pages, v_pages, lengths, page_tables,
-                   alibi_slopes, scale, k_scales=None, v_scales=None):
-    """One query token per sequence: bf16 pages, or int8 pages with their
-    scale pages; the few-rows kernel, any query group."""
+                   alibi_slopes, scale, k_scales=None, v_scales=None,
+                   bf16_ops=False):
+    """One query token per sequence: the few-rows kernel (any query group)
+    for bf16 q over bf16 pages or int8 pages with their scale pages, the
+    f32 kernel for every other pair."""
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (b, h, d), got {tuple(q.shape)}")
     hkv = _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
                        alibi_slopes, k_scales, v_scales)
+    if _f32_kernel(q, k_pages):
+        return _launch_f32(name, q[:, None], k_pages, v_pages, lengths,
+                           page_tables, alibi_slopes, scale, k_scales,
+                           v_scales, bf16_ops)[:, 0]
     b, h, d = q.shape
     page_size, pps = k_pages.shape[1], page_tables.shape[1]
     split_pages, ws, ws_ptr, counters = _split_workspace(
@@ -554,15 +738,18 @@ def _launch_decode(name, q, k_pages, v_pages, lengths, page_tables,
 
 def _launch_window(name, q, k_pages, v_pages, lengths, page_tables,
                    alibi_slopes, scale, few_rows, k_scales=None,
-                   v_scales=None):
-    """An s_q-token window per sequence: bf16 pages, or int8 pages with
-    their scale pages; the few-rows kernel with ``few_rows``, else the
-    window kernel."""
+                   v_scales=None, bf16_ops=False):
+    """An s_q-token window per sequence. bf16 q over bf16 pages, or int8
+    pages with their scale pages: the few-rows kernel with ``few_rows``,
+    else the window kernel. Every other pair: the f32 kernel."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (b, s_q, h, d), got "
                          f"{tuple(q.shape)}")
     hkv = _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
                        alibi_slopes, k_scales, v_scales)
+    if _f32_kernel(q, k_pages):
+        return _launch_f32(name, q, k_pages, v_pages, lengths, page_tables,
+                           alibi_slopes, scale, k_scales, v_scales, bf16_ops)
     b, s_q, h, d = q.shape
     page_size, pps = k_pages.shape[1], page_tables.shape[1]
     split, ws, ws_ptr, counters = (
@@ -591,27 +778,35 @@ def _launch_window(name, q, k_pages, v_pages, lengths, page_tables,
 def paged_attention_dma(q, k_pages, v_pages, lengths, page_tables, *,
                         scale: Optional[float] = None):
     """B3: decode-step attention over a paged cache, no ALiBi. q (b, h, d),
-    lengths (b,) >= 1 tokens per sequence. Returns (b, h, d)."""
+    lengths (b,) >= 1 tokens per sequence. Returns (b, h, d).
+    Dtypes: bf16 or f32 q over bf16 or f32 pages; on the card, the TPU
+    kernel's rule (f32 sums, q.k at the promoted dtype, p rounded to the
+    page dtype before P.V, out in q's dtype from the f32 accumulator, C2's
+    zero rows; C48); on the CPU, JAX's reference."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, lengths,
                                      page_tables, scale=scale)
     out = _launch_decode("paged_attention_dma", q, k_pages, v_pages, lengths,
                          page_tables, None, scale)
-    paged_attention_dma.launches += 1
+    _build.count_launch(paged_attention_dma, _f32_kernel(q, k_pages))
     return out
 
 
 def paged_attention(q, k_pages, v_pages, lengths, page_tables, *,
                     alibi_slopes=None, scale: Optional[float] = None):
     """B4: decode-step attention over a paged cache with per-query-head
-    ALiBi relative to the token at lengths-1. Returns (b, h, d)."""
+    ALiBi relative to the token at lengths-1. Returns (b, h, d).
+    Dtypes: bf16 or f32 q over bf16 or f32 pages; on the card, the TPU
+    kernel's rule (f32 sums, q.k at the promoted dtype, p rounded to the
+    page dtype before P.V, out in q's dtype from the f32 accumulator, C2's
+    zero rows; C48); on the CPU, JAX's reference."""
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, lengths,
                                      page_tables, alibi_slopes=alibi_slopes,
                                      scale=scale)
     out = _launch_decode("paged_attention", q, k_pages, v_pages, lengths,
                          page_tables, alibi_slopes, scale)
-    paged_attention.launches += 1
+    _build.count_launch(paged_attention, _f32_kernel(q, k_pages))
     return out
 
 
@@ -621,14 +816,18 @@ def paged_attention_dma_multi(q, k_pages, v_pages, lengths, page_tables, *,
     """B5: an s_q-token window per sequence over arbitrary page tables
     (see :func:`paged_attention_multi_plain`), any s_q, on the few-rows
     kernel: tiles of 16 query rows of a kv head, each sequence's keys split
-    over CTAs. Returns (b, s_q, h, d)."""
+    over CTAs. Returns (b, s_q, h, d).
+    Dtypes: bf16 or f32 q over bf16 or f32 pages; on the card, the TPU
+    kernel's rule (f32 sums, q.k at the promoted dtype, p rounded to the
+    page dtype before P.V, out in q's dtype from the f32 accumulator, C2's
+    zero rows; C48); on the CPU, JAX's reference."""
     if q.device.type == "cpu":
         return paged_attention_multi_plain(
             q, k_pages, v_pages, lengths, page_tables,
             alibi_slopes=alibi_slopes, scale=scale)
     out = _launch_window("paged_attention_dma_multi", q, k_pages, v_pages,
                          lengths, page_tables, alibi_slopes, scale, True)
-    paged_attention_dma_multi.launches += 1
+    _build.count_launch(paged_attention_dma_multi, _f32_kernel(q, k_pages))
     return out
 
 
@@ -637,7 +836,11 @@ def paged_attention_multi_blocked(q, k_pages, v_pages, lengths, page_tables,
                                   scale: Optional[float] = None):
     """B6: B5's contract on the window kernel, for large windows (chunked
     prefill): tiles of 128 query rows of a kv head (64 at d <= 64), each
-    sequence's keys split over CTAs. Returns (b, s_q, h, d)."""
+    sequence's keys split over CTAs. Returns (b, s_q, h, d).
+    Dtypes: bf16 or f32 q over bf16 or f32 pages; on the card, the TPU
+    kernel's rule (f32 sums, q.k at the promoted dtype, p rounded to the
+    page dtype before P.V, out in q's dtype from the f32 accumulator, C2's
+    zero rows; C48); on the CPU, JAX's reference."""
     if q.device.type == "cpu":
         return paged_attention_multi_plain(
             q, k_pages, v_pages, lengths, page_tables,
@@ -645,14 +848,18 @@ def paged_attention_multi_blocked(q, k_pages, v_pages, lengths, page_tables,
     out = _launch_window("paged_attention_multi_blocked", q, k_pages,
                          v_pages, lengths, page_tables, alibi_slopes, scale,
                          False)
-    paged_attention_multi_blocked.launches += 1
+    _build.count_launch(paged_attention_multi_blocked, _f32_kernel(q, k_pages))
     return out
 
 
 paged_attention_dma.launches = 0
+paged_attention_dma.launches_f32 = 0
 paged_attention.launches = 0
+paged_attention.launches_f32 = 0
 paged_attention_dma_multi.launches = 0
+paged_attention_dma_multi.launches_f32 = 0
 paged_attention_multi_blocked.launches = 0
+paged_attention_multi_blocked.launches_f32 = 0
 
 
 def paged_window_attention(q, k_pages, v_pages, lengths, page_tables, *,
@@ -675,15 +882,19 @@ def paged_attention_dma_q8(q, k_values, k_scales, v_values, v_scales,
     """B7 at s_q = 1: decode-step attention over int8 pages (any grouping,
     optional ALiBi), the decoder's token step. q (b, h, d); k/v_values
     (P, page, hkv*d) int8; k/v_scales (P, page, S) f32, head i at lane
-    i * (S // hkv). Returns (b, h, d)."""
+    i * (S // hkv). Returns (b, h, d).
+    Dtypes: bf16 or f32 q; on the card the TPU kernel's rule, bf16
+    operands whatever q's dtype (q and p * v_scale rounded to bf16, f32
+    sums, out in q's dtype, C2's zero rows; C49); on the CPU, JAX's route
+    (pages dequantized to bf16)."""
     if q.device.type == "cpu":
         return paged_attention_q8_plain(
             q, k_values, k_scales, v_values, v_scales, lengths, page_tables,
             alibi_slopes=alibi_slopes, scale=scale)
     out = _launch_decode("paged_attention_dma_q8", q, k_values, v_values,
                          lengths, page_tables, alibi_slopes, scale,
-                         k_scales, v_scales)
-    paged_attention_dma_q8.launches += 1
+                         k_scales, v_scales, bf16_ops=True)
+    _build.count_launch(paged_attention_dma_q8, _f32_kernel(q, k_values))
     return out
 
 
@@ -692,7 +903,10 @@ def paged_attention_quantized(q, k_values, k_scales, v_values, v_scales,
                               scale: Optional[float] = None):
     """B9: single-token decode over int8 pages, the contract of
     :func:`paged_attention_dma_q8` (the same CUDA kernel). Returns
-    (b, h, d)."""
+    (b, h, d).
+    Dtypes: bf16 or f32 q; on the card the TPU kernel's rule (K/V
+    dequantized to q's dtype, p rounded to it, f32 sums, out in q's dtype,
+    C2's zero rows); on the CPU, JAX's route (pages dequantized to bf16)."""
     if q.device.type == "cpu":
         return paged_attention_q8_plain(
             q, k_values, k_scales, v_values, v_scales, lengths, page_tables,
@@ -700,7 +914,7 @@ def paged_attention_quantized(q, k_values, k_scales, v_values, v_scales,
     out = _launch_decode("paged_attention_quantized", q, k_values, v_values,
                          lengths, page_tables, alibi_slopes, scale,
                          k_scales, v_scales)
-    paged_attention_quantized.launches += 1
+    _build.count_launch(paged_attention_quantized, _f32_kernel(q, k_values))
     return out
 
 
@@ -709,15 +923,19 @@ def paged_attention_dma_multi_q8(q, k_values, k_scales, v_values, v_scales,
                                  scale: Optional[float] = None):
     """B7: an s_q-token window per sequence over int8 pages (the contract
     of :func:`paged_attention_multi_q8_plain`), on B5's few-rows kernel.
-    Returns (b, s_q, h, d)."""
+    Returns (b, s_q, h, d).
+    Dtypes: bf16 or f32 q; on the card the TPU kernel's rule, bf16
+    operands whatever q's dtype (q and p * v_scale rounded to bf16, f32
+    sums, out in q's dtype, C2's zero rows; C49); on the CPU, JAX's route
+    (pages dequantized to bf16)."""
     if q.device.type == "cpu":
         return paged_attention_multi_q8_plain(
             q, k_values, k_scales, v_values, v_scales, lengths, page_tables,
             alibi_slopes=alibi_slopes, scale=scale)
     out = _launch_window("paged_attention_dma_multi_q8", q, k_values,
                          v_values, lengths, page_tables, alibi_slopes, scale,
-                         True, k_scales, v_scales)
-    paged_attention_dma_multi_q8.launches += 1
+                         True, k_scales, v_scales, bf16_ops=True)
+    _build.count_launch(paged_attention_dma_multi_q8, _f32_kernel(q, k_values))
     return out
 
 
@@ -726,7 +944,10 @@ def paged_attention_multi_blocked_q8(q, k_values, k_scales, v_values,
                                      alibi_slopes=None,
                                      scale: Optional[float] = None):
     """B8: B7's window contract on B6's window kernel, for chunked-prefill
-    windows over int8 pages. Returns (b, s_q, h, d)."""
+    windows over int8 pages. Returns (b, s_q, h, d).
+    Dtypes: bf16 or f32 q; on the card the TPU kernel's rule (K/V
+    dequantized to q's dtype, p rounded to it, f32 sums, out in q's dtype,
+    C2's zero rows); on the CPU, JAX's route (pages dequantized to bf16)."""
     if q.device.type == "cpu":
         return paged_attention_multi_q8_plain(
             q, k_values, k_scales, v_values, v_scales, lengths, page_tables,
@@ -734,14 +955,18 @@ def paged_attention_multi_blocked_q8(q, k_values, k_scales, v_values,
     out = _launch_window("paged_attention_multi_blocked_q8", q, k_values,
                          v_values, lengths, page_tables, alibi_slopes, scale,
                          False, k_scales, v_scales)
-    paged_attention_multi_blocked_q8.launches += 1
+    _build.count_launch(paged_attention_multi_blocked_q8, _f32_kernel(q, k_values))
     return out
 
 
 paged_attention_dma_q8.launches = 0
+paged_attention_dma_q8.launches_f32 = 0
 paged_attention_quantized.launches = 0
+paged_attention_quantized.launches_f32 = 0
 paged_attention_dma_multi_q8.launches = 0
+paged_attention_dma_multi_q8.launches_f32 = 0
 paged_attention_multi_blocked_q8.launches = 0
+paged_attention_multi_blocked_q8.launches_f32 = 0
 
 
 def paged_window_attention_q8(q, k_values, k_scales, v_values, v_scales,

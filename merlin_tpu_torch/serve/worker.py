@@ -22,8 +22,8 @@ What differs from the JAX worker: the bundle's model holds its weights;
 a speculative request builds its generator for its own token budget (there
 is no compile to amortize, so no budget buckets and no generator cache);
 ``device`` places every generator and the engine (the card by default);
-on a CUDA device ``engine_cache_dtype="f32"`` is refused, since the paged
-kernels take bf16 or int8 pages only. ``--scan-decode`` builds the LM
+``--engine-cache-dtype`` picks bf16, f32 or int8 pages on any device, as
+JAX's does, and ``--bf16 False`` an f32 model. ``--scan-decode`` builds the LM
 with ``scan_layers`` (stacked weights; a composite checkpoint stacks at
 load), which the engine serves from one stacked pool and the generators
 from a stacked dense cache.
@@ -97,12 +97,6 @@ class ModelWorker:
             kw = {}
             if engine_cache_dtype:
                 kw["cache_dtype"] = CACHE_DTYPES[engine_cache_dtype]
-                if self.device.type == "cuda" and \
-                        kw["cache_dtype"] == torch.float32:
-                    raise ValueError(
-                        "engine_cache_dtype='f32' on a CUDA device: the "
-                        "paged kernels take bf16 or int8 pages only "
-                        "(ROADMAP §B 1)")
             self.engine = ServingEngine(
                 bundle.model, num_slots=engine_slots,
                 max_len=engine_max_len, chunk_steps=engine_chunk_steps,

@@ -12,8 +12,9 @@ HTTP on loopback) against the JAX package's, on the CPU.
   * ``cli.chat`` with a scripted ``input_fn`` prints JAX's transcript.
   * ``python -m merlin_tpu_torch.serve.worker --tiny --device cpu``
     answers a request.
-  * ``engine_cache_dtype="f32"`` is refused on a CUDA device (read from
-    the code: the CPU test has no card).
+  * ``engine_cache_dtype="f32"`` reaches the engine with no device guard
+    (read from the code: the CPU test has no card), and a tiny worker on
+    the CPU answers from its f32 pool.
 """
 
 import ast
@@ -397,20 +398,34 @@ def test_worker_main_answers_on_the_cpu():
         proc.stderr.close()
 
 
-def test_f32_pages_are_refused_on_the_card():
-    """On a CUDA device the worker refuses ``engine_cache_dtype='f32'``
-    before building the engine: the paged kernels take bf16 or int8."""
+def test_f32_pages_serve_on_any_device(bundles):
+    """``engine_cache_dtype="f32"`` builds an f32 pool on any device, as
+    JAX's worker does (``merlin_tpu/serve/worker.py:77-80``): the worker
+    hands ``CACHE_DTYPES["f32"]`` to ``ServingEngine`` with no device guard
+    on the way (read from the code: the CPU test has no card), and a tiny
+    worker on the CPU answers a text request from its f32 pool with JAX's
+    text."""
     fn = ast.parse(textwrap.dedent(inspect.getsource(
         t_worker.ModelWorker.__init__)))
-    guards = [n for n in ast.walk(fn) if isinstance(n, ast.If)
-              and ast.unparse(n.test) == "self.device.type == 'cuda' and "
-              "kw['cache_dtype'] == torch.float32"]
-    assert len(guards) == 1
-    raise_ = guards[0].body[0]
-    assert isinstance(raise_, ast.Raise) and "bf16 or int8" in \
-        ast.unparse(raise_)
+    pick = [n for n in ast.walk(fn) if isinstance(n, ast.Assign)
+            and ast.unparse(n) ==
+            "kw['cache_dtype'] = CACHE_DTYPES[engine_cache_dtype]"]
     engine = [n for n in ast.walk(fn) if isinstance(n, ast.Assign)
               and ast.unparse(n.targets[0]) == "self.engine"
               and "ServingEngine" in ast.unparse(n.value)]
-    assert engine and guards[0].lineno < engine[0].lineno
+    assert len(pick) == 1 and len(engine) == 1
+    assert "**kw" in ast.unparse(engine[0].value)
+    between = [n for n in ast.walk(fn) if isinstance(n, (ast.If, ast.Raise))
+               and pick[0].lineno < n.lineno < engine[0].lineno]
+    assert not between, [ast.unparse(n) for n in between]
     assert t_worker.CACHE_DTYPES["f32"] == torch.float32
+    stack = _Stack(bundles, use_engine=True, engine_slots=2,
+                   engine_max_len=256)
+    try:
+        pool = stack.workers[-1].engine.cache["layers"][0]["k_pages"]
+        assert pool.dtype == torch.float32
+        got = _texts(stack.ask("port", prompt=QUESTIONS[2]))
+        want = _texts(stack.ask("jax", prompt=QUESTIONS[2]))
+        assert got[-1] == want[-1] and got[-1]
+    finally:
+        stack.close()
