@@ -45,9 +45,12 @@ the LM quantized to int8) and of Baichuan-13B:
                   rounding (C48), with ALiBi, groups 16/32, lengths 0/1/
                   full and pages of 16; B7 at f32 q held to its bf16
                   operands (C49: B9's f32 rule planted must fail), a
-                  dropped tile and a redirected page planted; times
-                  against FFMA's 67 TFLOP/s or the bytes, and SDPA at f32
-                  (its memory-efficient backend) as the yardstick;
+                  dropped tile and a redirected page planted, and for the
+                  dense kernels (3xTF32) q, k, v rounded to tf32 (one TF32
+                  pass) planted too; times against 3xTF32's 165 TFLOP/s
+                  (FFMA's 67 beside it) or the bytes, and SDPA at f32 (its
+                  memory-efficient backend) as the yardstick, the 2048
+                  training shape also unpadded;
   3. reference  - a narrow model on the card (through the kernels) against
                   the same weights on the CPU (plain path), both in bf16;
   4. forward    - uint8 640x480 frames -> preprocess -> tower -> projector
@@ -303,6 +306,9 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores (FFMA)
+PEAK_TF32X3_FLOPS = 495e12 / 3   # f32 products as 3 TF32 passes on the
+                                 # tensor cores (495 TFLOP/s dense TF32):
+                                 # the dense f32 kernels' own bound
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 OUT_RTOL = 2.0 ** -5         # per query row: max |kernel - plain| over d, of
                              # the row's max |plain|: 4 bf16 ulps there (one
@@ -2457,6 +2463,42 @@ def beam_score_gap(model, tok, ids, images, seq, score) -> float:
     return abs(lp.item() / n - float(score))
 
 
+def beam_hold(tag, em, model, question, frame, text, seconds):
+    """The beam check: the sequence ``em.ask`` returned (``text``), searched
+    again, has the best score the search kept, as a no-cache forward of
+    ``model`` recomputes it (within ``BEAM_SCORE_TOL``); a cache gathered
+    with the beam index rotated by one must fail that. Returns (gap,
+    planted gap)."""
+    from merlin_tpu_torch.generate import beam as beam_mod
+
+    tok = em.tokenizer
+    ids = tok(em.build_prompt(question, num_images=1))["input_ids"][0]
+    image = em.preprocess_images([frame])
+    seqs, scores = em._engine.search(np.asarray([ids]), images=image)
+    if em.decode_output(seqs[0]) != text:
+        raise AssertionError(f"{tag} beam: search() and ask() disagree")
+    image_t = torch.from_numpy(image).to("cuda")
+    honest = beam_score_gap(model, tok, ids, image_t, seqs[0], scores[0])
+    gather = beam_mod._gather_beams
+    beam_mod._gather_beams = lambda cache, idx, b, k: gather(
+        cache, idx.roll(1, dims=1), b, k)
+    try:
+        bad_seqs, bad_scores = em._engine.search(np.asarray([ids]),
+                                                 images=image)
+    finally:
+        beam_mod._gather_beams = gather
+    planted = beam_score_gap(model, tok, ids, image_t, bad_seqs[0],
+                             bad_scores[0])
+    log(f"{tag} beam ({em.cfg.num_beams} beams, {em.cfg.max_new_tokens} "
+        f"tokens, 1 image) in {seconds:.3f} s: {text!r}; score "
+        f"{float(scores[0]):.4f}, recomputed gap {honest:.3e} (tol "
+        f"{BEAM_SCORE_TOL}); planted fault (beam index rotated in the cache "
+        f"gather): gap {planted:.3e}, must exceed it")
+    if not honest <= BEAM_SCORE_TOL < planted:
+        raise AssertionError(f"{tag} beam score check: {honest} {planted}")
+    return honest, planted
+
+
 def w_worker_log():
     """Collect what the port's workers log, to find engine failures."""
     import logging
@@ -2613,7 +2655,6 @@ def run_w1(bundle, rng, fillers, frames, smi):
     import threading
 
     from merlin_tpu_torch.eval.runner import EvalConfig, EvalModel
-    from merlin_tpu_torch.generate import beam as beam_mod
     from merlin_tpu_torch.utils import constants as C
 
     tok, model = bundle.tokenizer, bundle.model
@@ -2706,33 +2747,8 @@ def run_w1(bundle, rng, fillers, frames, smi):
         f"request {[f'{g:.2e}' for g in gaps]} of max |logit| (tol "
         f"{GEN_RTOL})")
 
-    # beam: the returned sequence's score, recomputed from a no-cache
-    # forward, equals the best score the search kept; a cache gathered with
-    # the beam index rotated by one must fail that
-    prompt = em.build_prompt(W_QUESTION, num_images=1)
-    ids = tok(prompt)["input_ids"][0]
-    image = em.preprocess_images([beam_frame])
-    seqs, scores = em._engine.search(np.asarray([ids]), images=image)
-    if em.decode_output(seqs[0]) != beam_text:
-        raise AssertionError("W1 beam: search() and ask() disagree")
-    image_t = torch.from_numpy(image).to("cuda")
-    honest = beam_score_gap(model, tok, ids, image_t, seqs[0], scores[0])
-    gather = beam_mod._gather_beams
-    beam_mod._gather_beams = lambda cache, idx, b, k: gather(
-        cache, idx.roll(1, dims=1), b, k)
-    try:
-        bad_seqs, bad_scores = em._engine.search(np.asarray([ids]),
-                                                 images=image)
-    finally:
-        beam_mod._gather_beams = gather
-    planted = beam_score_gap(model, tok, ids, image_t, bad_seqs[0],
-                             bad_scores[0])
-    log(f"W1 beam (5 beams, {W_BEAM_NEW} tokens, 1 image) in {beam_s:.3f} s: "
-        f"{beam_text!r}; score {float(scores[0]):.4f}, recomputed gap "
-        f"{honest:.3e} (tol {BEAM_SCORE_TOL}); planted fault (beam index "
-        f"rotated in the cache gather): gap {planted:.3e}, must exceed it")
-    if not honest <= BEAM_SCORE_TOL < planted:
-        raise AssertionError(f"W1 beam score check: {honest} {planted}")
+    honest, planted = beam_hold("W1", em, model, W_QUESTION, beam_frame,
+                                beam_text, beam_s)
     readings["beam"] = dict(seconds=round(beam_s, 3), score_gap=honest,
                             planted_gap=planted)
     sent = dict(texts=texts, answers=[c[-1]["text"] for c, _ in results],
@@ -4625,6 +4641,20 @@ T3_NOISE_FACTOR = 4.0        # a gradient's error against the f32 step may
                              # reach 4x the plain versions' own (C40)
 T3_FAULT_KEYS = 256          # the planted fault: B13's dv of the last 256
                              # keys (two of its 128-key tiles) zeroed
+T3_F32_QK_RTOL = 3e-2        # C40 at f32: the tower's q_proj/k_proj
+                             # gradients through the f32 kernels (B12/B13,
+                             # 3xTF32) against autograd of mha_reference
+                             # in f32, max |difference| over max |f32 step|
+                             # (a key bias, exactly 0 (C14): max |kernels'|
+                             # over its kernel's). Both f32; the kernels'
+                             # ~3e-6 a product is amplified where dq and dk
+                             # are differences of near-equal terms (near-
+                             # uniform attention at random weights), and
+                             # the key bias is what di from the forward's
+                             # out leaves against the backward's P V. Seen
+                             # on an H100 80GB HBM3 at 700 W: q 7.2e-3, k
+                             # 2.4e-3, key bias 1.45e-2 (the reference's
+                             # own 9.1e-5); B13's dropped keys 0.13-0.17
 
 
 def build_t3_model():
@@ -4706,8 +4736,9 @@ def t3_grads(model, batch, route: str):
 
 def t3_f32_twin(model):
     """The same MMGPT computing in f32, sharing ``model``'s parameters:
-    the f32 reference step (its attention must be ``mha_reference``: the
-    kernels take bf16 only)."""
+    through ``mha_reference`` (route "autograd") the f32 reference step;
+    through the kernels (route "kernels") the f32 kernels' step (B12/B13
+    and B2/B10+B11 at f32, C40)."""
     from merlin_tpu_torch.models.mmgpt import MMGPT
 
     cfg = model.cfg
@@ -4753,6 +4784,28 @@ def t3_hold(got, plain, exact, names):
     return worst, worst_name
 
 
+def t3_f32_qk(got, exact, names):
+    """The worst of the tower's q/k projection gradients at f32, by kind
+    (q_proj.kernel, q_proj.bias, k_proj.kernel, k_proj.bias): each one's
+    max |got - exact| over max |exact|; a key bias, whose exact gradient
+    is 0 (C14), max |got| over its kernel's max |exact|, beside the f32
+    reference's own (its noise). Returns {kind: (error, name)} and the
+    reference's largest key-bias noise."""
+    worst, ref_noise = {}, 0.0
+    for name in names:
+        kind = ".".join(name.split(".")[-2:])
+        if kind == "k_proj.bias":
+            kernel = exact[name[:-len("bias")] + "kernel"].abs().max()
+            err = (got[name].abs().max() / kernel).item()
+            ref_noise = max(ref_noise,
+                            (exact[name].abs().max() / kernel).item())
+        else:
+            err = rel_err(got[name], exact[name])
+        if err > worst.get(kind, (0.0, ""))[0]:
+            worst[kind] = (err, name)
+    return worst, ref_noise
+
+
 def run_t3(rng):
     """T3: the Trainer over a MetaCLIP-H/14-448 bundle with the tower
     trainable (B12/B13 at d = 80, 1025 tokens, under autograd), 2 steps at
@@ -4773,7 +4826,34 @@ def run_t3(rng):
     _, fault = t3_grads(model, batch, "fault")
     twin = t3_f32_twin(model)
     loss_x, exact = t3_grads(twin, batch, "autograd")
+    # C40: the same f32 step through the f32 kernels, and with B13's
+    # dropped key tiles planted
+    qk = sorted(n for n in exact if n.startswith("vision_tower.")
+                and (".q_proj." in n or ".k_proj." in n))
+    reset_counts()
+    _, got32 = t3_grads(twin, batch, "kernels")
+    torch.cuda.synchronize()
+    one32 = read_counts()
+    got32 = {n: got32[n] for n in qk}
+    _, fault32 = t3_grads(twin, batch, "fault")
+    fault32 = {n: fault32[n] for n in qk}
     del twin
+    qk_worst, ref_noise = t3_f32_qk(got32, exact, qk)
+    qk_fault_worst, _ = t3_f32_qk(fault32, exact, qk)
+    qk_err, qk_name = max(qk_worst.values())
+    qk_fault, qk_fault_name = max(qk_fault_worst.values())
+    log(f"T3 f32 (C40): the tower's {len(qk)} q/k projection gradients "
+        f"through the f32 kernels against autograd of mha_reference, worst "
+        f"by kind {qk_worst} (the reference's own key-bias noise "
+        f"{ref_noise:.3e}); tol {T3_F32_QK_RTOL}; planted fault (B13's dv "
+        f"of the last {T3_FAULT_KEYS} keys zeroed): {qk_fault_worst}, must "
+        f"exceed it; launches {one32}")
+    if not (qk_err <= T3_F32_QK_RTOL < qk_fault and one32 == launches(
+            **suffixed(dict(B2=4, B12=T3_TOWER_LAYERS, B13=T3_TOWER_LAYERS,
+                            **{"B10+B11": 2}), F32))):
+        raise AssertionError(f"T3 f32 q/k gradient check failed: {qk_err} "
+                             f"{qk_fault} {one32}")
+    del got32, fault32
     tower = sorted(n for n in exact if n.startswith("vision_tower."))
     rest = sorted(n for n in exact if n not in tower)
     norm = math.sqrt(sum(float(got[n].square().sum()) for n in tower))
@@ -4830,7 +4910,9 @@ def run_t3(rng):
                 worst_grad_ratio=worst, worst_grad=worst_name,
                 loss_rel=loss_rel,
                 one_micro_counts=one, lm_projector_worst_ratio=rest_worst,
-                planted_ratio=planted, tower_grad_norm_f32=norm_x)
+                planted_ratio=planted, tower_grad_norm_f32=norm_x,
+                f32_qk_worst=qk_err, f32_qk_worst_name=qk_name,
+                f32_qk_planted=qk_fault, one_micro_counts_f32=one32)
 
 
 # --- phase L: LoRA factors trained over a frozen bf16 base ----------------
@@ -5500,8 +5582,9 @@ def measure_c13(gen):
 # their (mangled) names: every instantiation must build with no spills (18
 # dense wgmma ones; the paged few-rows and window kernels each at d = 64
 # and 128, bf16 and int8 pages, ALiBi being a run-time branch of each; the
-# f32 forward at d <= 64/128/256, its dq and dk/dv kernels likewise, the
-# f32 paged kernel at 16 and 64 rows a CTA and d <= 64/128)
+# f32 forward (3xTF32) at d <= 64/128/256, its dq and dk/dv kernels
+# likewise, the f32 paged kernel (FFMA) at 16 and 64 rows a CTA and d <=
+# 64/128)
 SPILL_CHECKED = ("flash_attention_fwd_kernel", "onepass_attention_kernel",
                  "flash_bwd_", "paged_rows_kernel", "paged_window_kernel",
                  "attention_f32_kernel")
@@ -5604,17 +5687,26 @@ def sdpa_f32_bwd(q, k, v, do, **kw):
 
 def f32_row(name, fn_name, source, replaces, counter, errs, ms, plain_ms,
             flops, nbytes_, library_ms, shape, smi, **extra):
-    bms, by = bound_ms(flops, nbytes_, PEAK_F32_FLOPS)
+    """A dense f32 kernel's row: its bound at 3xTF32's rate (the kernel's
+    own) and, beside it, at FFMA's."""
+    bms, by = bound_ms(flops, nbytes_, PEAK_TF32X3_FLOPS)
+    ffma, _ = bound_ms(flops, nbytes_, PEAK_F32_FLOPS)
     log(f"{name} f32 {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bms:.4f} ms ({by}; FFMA at 67 TFLOP/s, bytes at 3.35 "
-        f"TB/s), library "
+        f"bound {bms:.4f} ms ({by}; 3xTF32 at 165 TFLOP/s, bytes at 3.35 "
+        f"TB/s; FFMA at 67 TFLOP/s: {ffma:.4f} ms), library "
         + (f"{library_ms:.4f} ms ({extra.get('library_backend')})"
            if library_ms is not None else "none") + f"; card {smi}")
     return dict(name=f"{name} f32 {fn_name}", route="cuda", source=source,
                 replaces=replaces, counter=counter,
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=library_ms,
-                shape=list(shape), card=smi, **extra)
+                bound_ms=bms, bound_by=by, bound_ms_ffma=ffma,
+                library_ms=library_ms, shape=list(shape), card=smi, **extra)
+
+
+def tf32_chop(x):
+    """x (f32) with its low 13 mantissa bits cleared: the tf32 value one
+    pass of the tensor cores reads of an f32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
 
 
 def check_f32_dense(gen, smi):
@@ -5633,6 +5725,9 @@ def check_f32_dense(gen, smi):
                                    oa.onepass_attention(q, k, v), want))
         planted_f32(f"B1 f32 {shape}", oa.onepass_attention(
             q, k[:, :-1], v[:, :-1]), want, "the last key tile dropped")
+        planted_f32(f"B1 f32 {shape}", oa.onepass_attention_plain(
+            *map(tf32_chop, (q, k, v))), want,
+            "q, k, v rounded to tf32: one TF32 pass")
     q1, k1, v1 = (f32_randn((1, 1025, 16, 64), gen, normed=True)
                   for _ in range(3))
     out1 = oa.onepass_attention(q1, k1, v1)
@@ -5709,6 +5804,9 @@ def check_f32_dense(gen, smi):
     planted_f32(f"B2 f32 {shape}", fa.flash_attention(
         q5, k5[:, :448], v5[:, :448], causal=True)[0], want5,
         "the last key tile dropped")
+    planted_f32(f"B2 f32 {shape}", fa.flash_attention_plain(
+        *map(tf32_chop, (q5, k5, v5)), causal=True)[0], want5,
+        "q, k, v rounded to tf32: one TF32 pass")
     b, s, h, hkv, d = 2, 200, 8, 2, 64
     qs = f32_randn((b, s, h, d), gen)
     kvs = f32_randn((b, s, 2, hkv, d), gen)
@@ -5783,6 +5881,11 @@ def check_f32_dense(gen, smi):
             segment_ids_kv=seg_t)[1:], plain[1:]):
         planted_f32(f"B11 f32 {tshape} {n}", g, w,
                     "the last query tile dropped")
+    for n, g, w in zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(
+            *map(tf32_chop, (qt, kt, vt, out_t)), lse_t, tf32_chop(dot),
+            **pad), plain):
+        planted_f32(f"B10+B11 f32 {tshape} {n}", g, w,
+                    "q, k, v, out, do rounded to tf32: one TF32 pass")
     again = fa.flash_attention_bwd(qt, kt, vt, out_t, lse_t, dot, **pad)
     if not all(torch.equal(a, b) for a, b in zip(again, grads)):
         raise AssertionError("B10+B11 f32: a second run differs")
@@ -5799,17 +5902,29 @@ def check_f32_dense(gen, smi):
                 iters=3),
         4.0 * 32 * pairs5 * 128, nbytes(q5, k5, v5, out5, lse5), lib2,
         shape, smi, library_backend=node2)
+    # the training shape padded (as F4 runs it) and unpadded (SDPA's work)
     seen = 32 * visible_pairs(2048, 2048, True, seg_t, seg_t)
+    seen_u = 32 * visible_pairs(2048, 2048, True)
     lib2t, _ = sdpa_f32_fwd(qt, kt, vt, is_causal=True)
-    bms_t, by_t = bound_ms(4.0 * seen * 128, nbytes(qt, kt, vt, out_t, lse_t),
-                           PEAK_F32_FLOPS)
+    out_u, lse_u = fa.flash_attention(qt, kt, vt, causal=True)
+    fwd_bytes = nbytes(qt, kt, vt, out_t, lse_t)
+    bms_t, by_t = bound_ms(4.0 * seen * 128, fwd_bytes, PEAK_TF32X3_FLOPS)
+    bms_u, _ = bound_ms(4.0 * seen_u * 128, fwd_bytes, PEAK_TF32X3_FLOPS)
     rows["B2"]["training_shape"] = dict(
         shape=list(tshape), padded_ms=time_ms(
             lambda: fa.flash_attention(qt, kt, vt, **pad)),
-        bound_ms=bms_t, bound_by=by_t, library_ms_unpadded=lib2t)
+        bound_ms=bms_t, bound_by=by_t,
+        bound_ms_ffma=bound_ms(4.0 * seen * 128, fwd_bytes,
+                               PEAK_F32_FLOPS)[0],
+        unpadded_ms=time_ms(lambda: fa.flash_attention(qt, kt, vt,
+                                                       causal=True)),
+        bound_ms_unpadded=bms_u, library_ms_unpadded=lib2t)
     lib_b, node_b = sdpa_f32_bwd(qt, kt, vt, dot, is_causal=True)
     bwd_ms = time_ms(lambda: fa.flash_attention_bwd(qt, kt, vt, out_t, lse_t,
                                                     dot, **pad), iters=5)
+    bwd_unpadded = time_ms(lambda: fa.flash_attention_bwd(
+        qt, kt, vt, out_u, lse_u, dot, causal=True), iters=5)
+    bwd_bytes = nbytes(qt, kt, vt, out_t, lse_t, dot, *grads)
     bwd_plain = time_ms(lambda: fa.flash_attention_bwd_plain(
         qt, kt, vt, out_t, lse_t, dot, **pad), iters=2, warmup=1)
     for name, fn_name in (("B10", "flash_attention_bwd_dq"),
@@ -5818,10 +5933,17 @@ def check_f32_dense(gen, smi):
             name, fn_name + " (one launch of the backward with B10/B11)",
             F32_BWD_SOURCE, B10_REPLACES if name == "B10" else B11_REPLACES,
             "B10+B11" + F32, errs["B10+B11"] + errs[name], bwd_ms, bwd_plain,
-            10.0 * seen * 128, nbytes(qt, kt, vt, out_t, lse_t, dot, *grads),
-            lib_b, tshape, smi, library_backend=node_b,
+            10.0 * seen * 128, bwd_bytes, lib_b, tshape, smi,
+            library_backend=node_b, unpadded_ms=bwd_unpadded,
+            bound_ms_unpadded=bound_ms(10.0 * seen_u * 128, bwd_bytes,
+                                       PEAK_TF32X3_FLOPS)[0],
             host_us_per_call=host_us(lambda: fa.flash_attention_bwd(
                 qt, kt, vt, out_t, lse_t, dot, **pad), calls=5))
+        log(f"{name} f32 {tshape} causal unpadded (SDPA's work): kernel "
+            f"{bwd_unpadded:.4f} ms, library {lib_b:.4f} ms")
+    log(f"B2 f32 {tshape} causal unpadded (SDPA's work): kernel "
+        f"{rows['B2']['training_shape']['unpadded_ms']:.4f} ms, library "
+        f"{lib2t:.4f} ms")
     return rows
 
 
@@ -6069,10 +6191,56 @@ def build_f32_bundle():
     return bundle
 
 
+def run_f_beam(bundle, rng):
+    """C50: ``EvalModel`` with V's beams on the f32 bundle, one of V's
+    MMBench prompts (its first question, options and hint) with a 640x480
+    noise image, held by ``beam_hold`` at ``BEAM_SCORE_TOL``: at f32 the
+    no-cache forward that recomputes each score runs B2 at f32, so no bf16
+    rounding hides a beam fault. Returns (the search's launches,
+    readings with the check's launches)."""
+    from PIL import Image
+
+    from merlin_tpu_torch.eval import mmbench
+    from merlin_tpu_torch.eval.runner import EvalConfig, EvalModel
+
+    question, options, hint = V_MMB[0]
+    question = mmbench.build_question(dict(
+        question=question, hint=hint, **dict(zip("ABCD", options))))
+    frame = Image.fromarray(rng.integers(0, 256, size=(480, 640, 3),
+                                         dtype=np.uint8))
+    em = EvalModel(bundle, EvalConfig(num_beams=V_BEAMS,
+                                      max_new_tokens=V_NEW), device="cuda")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    text = em.ask(question, images=[frame])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != launches(**{"B1" + F32: 23}):
+        raise AssertionError(f"F beam: the search launched {counts}, not one "
+                             "tower call (B1 f32 23; the prefill and the "
+                             "steps attend over the dense cache)")
+    reset_counts()
+    honest, planted = beam_hold("F beam (f32)", em, bundle.model, question,
+                                frame, text, seconds)
+    torch.cuda.synchronize()
+    check = read_counts()
+    # the two searches again (B1) and a no-cache forward for each score
+    # (B1, and B2 at f32 in every layer)
+    n_layers = bundle.config.lm.num_layers
+    if check != launches(**{"B1" + F32: 4 * 23, "B2" + F32: 2 * n_layers}):
+        raise AssertionError(f"F beam: the check launched {check}")
+    return counts, dict(seconds=round(seconds, 3), score_gap=honest,
+                        planted_gap=planted, text=text,
+                        check_launches={k: v for k, v in check.items() if v})
+
+
 def run_f(rng):
-    """F1 (forward and greedy generation) and F2 (the engine over bf16,
-    f32 and int8 pages) on the f32 bundle. Returns (F1's forward counts,
-    its generation readings, {run: (counts, readings)})."""
+    """F1 (forward and greedy generation), F2 (the engine over bf16,
+    f32 and int8 pages) and the beam check (C50) on the f32 bundle.
+    Returns (F1's forward counts, its generation readings, {run: (counts,
+    readings)}, the beam run's (counts, readings))."""
     bundle = build_f32_bundle()
     model, cfg = bundle.model, bundle.config
     fwd_counts, wall = run_forward(model, cfg, rng, suffix=F32)
@@ -6098,8 +6266,9 @@ def run_f(rng):
         ["B2" + F32, "B7" + F32, "B8" + F32], suffix=F32,
         cache_dtype=torch.int8, prefill_chunk=128, prefill_chunk_min=256,
         chunk_steps=8, pipeline=1, **SERVING)
+    beam = run_f_beam(bundle, rng)
     del bundle, model
-    return fwd_counts, gen, served
+    return fwd_counts, gen, served, beam
 
 
 F3_WORDS = 400               # F3's text request: a chunked prefill
@@ -6549,7 +6718,7 @@ def main() -> int:
     scanned["S3"] = serve_scanned_alibi(np.random.default_rng(17))
     free_cuda()                       # phase F builds its own f32 model
     t_f = time.perf_counter()
-    f1_counts, f1_gen, f_served = run_f(np.random.default_rng(15))
+    f1_counts, f1_gen, f_served, f_beam = run_f(np.random.default_rng(15))
     f_seconds = {"F1 + F2": time.perf_counter() - t_f}
     free_cuda()                       # the W phase builds its own model
     worker_counts, front, v_counts, lora = serve_front(
@@ -6614,7 +6783,10 @@ def main() -> int:
     # no F path (held in phase 2)
     f_runs = {"F1 forward": f1_counts, "F1 generation": f1_gen["counts"],
               **{k: v[0] for k, v in f_served.items()},
-              "F3": worker_counts["F3"], "F4": f4["counts"]}
+              "F beam": f_beam[0],
+              "F beam check": launches(**f_beam[1]["check_launches"]),
+              "F3": worker_counts["F3"],
+              "T3 f32": t3["one_micro_counts_f32"], "F4": f4["counts"]}
     f_path = {"B1": "F1 forward", "B2": "F1 forward",
               "B3": "F2 E1 bf16 pages", "B5": "F2 E2 bf16 pages",
               "B6": "F2 E2 bf16 pages", "B7": "F2 E4 int8 pages",
@@ -6681,7 +6853,7 @@ def main() -> int:
         "F1": f1_gen, "F2": {e: {k: v for k, v in r[1].items()
                                  if k != "tokens"}
                              for e, r in f_served.items()},
-        "F3": front["F3"],
+        "F beam": f_beam[1], "F3": front["F3"],
         "F4": {k: v for k, v in f4.items() if k != "counts"},
         "seconds": f_seconds, "card": smi}}))
     log(json.dumps({"kernels": rows}))

@@ -1,13 +1,16 @@
-// Shared pieces of the port's float32 attention kernels (attention_f32.cu,
-// paged_attention_f32.cu, flash_attention_bwd_f32.cu): products on the CUDA
-// cores (FFMA), f32 tiles in shared memory.
+// The tile engine of the port's f32 paged attention kernel
+// (paged_attention_f32.cu): products on the CUDA cores (FFMA), f32 tiles
+// in shared memory. The dense f32 kernels (attention_f32.cu,
+// flash_attention_bwd_f32.cu) left it for 3xTF32 on the tensor cores
+// (tf32x3.cuh).
 //
-// Why FFMA: the JAX package's tests hold the port to Pallas interpret mode,
-// which does every f32 product in f32, so an f32 kernel must be as accurate
-// as f32. One TF32 pass keeps ~3 decimal digits; wgmma reads tf32 operands
-// K-major only, so P V over V stored (keys, d) would need a transpose too.
-// The card's FFMA peak (67 TFLOP/s) bounds these kernels; they are simple
-// first, and a perf_opt PR makes them fast.
+// Why FFMA here: the JAX package's tests hold the port to Pallas interpret
+// mode, which does every f32 product in f32, so an f32 kernel must be as
+// accurate as f32, and one TF32 pass keeps ~3 decimal digits. The paged
+// kernel rounds p to the page dtype on its own 64-key tiles (C48); at
+// decode one CTA walks a sequence's keys alone, and that, not the FFMA
+// peak (67 TFLOP/s), holds it back. A key split over CTAs (the bf16
+// few-rows kernel's) and a 3xTF32 form are later work.
 //
 // The tile engine: 256 threads as a 16 x 16 grid, ty = tid / 16 owning the
 // tile rows ty + 16 i (i < RI) and tx = tid % 16 owning the score columns
@@ -113,23 +116,6 @@ __device__ __forceinline__ void tile_pv(const float* P, int ldp,
         }
       }
     }
-  }
-}
-
-// Rows [r0, r0 + rows) of a strided f32 (s, d) matrix (d contiguous, row
-// stride `row_stride` floats, 16-byte aligned) into T[r * ld + c]; rows at or
-// past `valid` are zero (never read).
-__device__ __forceinline__ void load_rows(float* T, int ld, const float* base,
-                                          int64_t row_stride, int r0,
-                                          int rows, int valid, int d,
-                                          int tid) {
-  const int per_row = d / 4;
-  for (int idx = tid; idx < rows * per_row; idx += kThreads) {
-    const int r = idx / per_row, c = (idx - r * per_row) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < valid)
-      v = *reinterpret_cast<const float4*>(base + (r0 + r) * row_stride + c);
-    *reinterpret_cast<float4*>(T + r * ld + c) = v;
   }
 }
 

@@ -67,8 +67,8 @@ SIGNATURES = {
     # ws, counters, b, s_q, h, hkv, d, page_size, pages_per_seq,
     # scale_lanes, split, scale, few_rows, stream
     "merlin_paged_window_q8": [_P] * 11 + [_I] * 9 + [_F, _I, _P],
-    # the f32 kernels (FFMA): q, k, v, out, lse (or NULL), qseg, kseg,
-    # slopes, b, sq, skv, h, hkv, d, q/k/v strides (b, s, h), scale,
+    # the dense f32 kernels (3xTF32): q, k, v, out, lse (or NULL), qseg,
+    # kseg, slopes, b, sq, skv, h, hkv, d, q/k/v strides (b, s, h), scale,
     # causal, stream
     "merlin_attention_f32": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _I, _P],
     # q, k, v, out (or NULL), do, lse, di, dq, dk, dv, qseg, kseg, slopes,
@@ -172,7 +172,7 @@ def check(code: int, what: str) -> None:
 
 def count_launch(wrapper, f32: bool) -> None:
     """One launch of ``wrapper``'s kernel: the bf16 kernel counts in
-    ``wrapper.launches``, the f32 (FFMA) kernel in ``wrapper.launches_f32``."""
+    ``wrapper.launches``, the f32 kernel in ``wrapper.launches_f32``."""
     if f32:
         wrapper.launches_f32 += 1
     else:
@@ -187,7 +187,7 @@ def stream_handle(device) -> int:
 
 def check_qkv(name: str, q, k, v, *, max_d: int) -> None:
     """Raise unless q/k/v are what the attention kernels read: one dtype,
-    bf16 (the wgmma kernels) or f32 (the FFMA kernels), as the JAX dense
+    bf16 (the wgmma kernels) or f32 (the 3xTF32 kernels), as the JAX dense
     path gives them, on one CUDA device, (b, s, h, d) with the same b and
     d, d % 8 == 0 and <= max_d, the head dim contiguous, every other
     stride and each base pointer 16-byte aligned (the kernels load 16

@@ -147,7 +147,7 @@ def attention(
     kernel (B1; B12/B13 under autograd); everything else to the flash
     kernels (B2; B10/B11 in the backward). The route depends on the device
     and the shapes only, as JAX's does: each kernel takes bf16 (wgmma) and
-    f32 (FFMA) q/k/v, and its wrapper raises on any other dtype. They need
+    f32 (3xTF32) q/k/v, and its wrapper raises on any other dtype. They need
     no padding: they mask the ragged edge themselves.
     """
     sq, skv, d = q.shape[1], k.shape[1], q.shape[-1]

@@ -25,11 +25,13 @@ dispatcher calls: B2 forward, :func:`flash_attention_bwd` backward.
 
 Dtypes: q, k and v are one dtype, as JAX's dense path gives them. bf16
 runs the wgmma kernels above and counts in ``.launches``; f32 runs the
-FFMA kernels (``csrc/attention_f32.cu``, ``csrc/flash_attention_bwd_f32.cu``)
-and counts in ``.launches_f32``. Each computes what the TPU kernel computes
-at its operands' dtype (:data:`DTYPE_RULE`); any other dtype raises. The
-plain versions already apply the TPU kernels' rounding (p and ds rounded
-to the operands' dtype for their products, which at f32 rounds nothing).
+3xTF32 kernels (``csrc/attention_f32.cu``,
+``csrc/flash_attention_bwd_f32.cu``: every product as three TF32 passes on
+the tensor cores, at f32 accuracy) and counts in ``.launches_f32``. Each
+computes what the TPU kernel computes at its operands' dtype
+(:data:`DTYPE_RULE`); any other dtype raises. The plain versions already
+apply the TPU kernels' rounding (p and ds rounded to the operands' dtype
+for their products, which at f32 rounds nothing).
 """
 
 from __future__ import annotations

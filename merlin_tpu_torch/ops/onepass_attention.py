@@ -22,7 +22,7 @@ PyTorch, used for CPU tensors and as the kernel's yardstick on the card.
 when no gradient is asked for, else B12 forward and B13 backward.
 
 Dtypes: q, k and v are one dtype. bf16 runs the wgmma kernels and counts
-in ``.launches``; f32 runs the FFMA kernels (``csrc/attention_f32.cu``,
+in ``.launches``; f32 runs the 3xTF32 kernels (``csrc/attention_f32.cu``,
 the flash forward's, non-causal and unmasked; ``csrc/
 flash_attention_bwd_f32.cu``) and counts in ``.launches_f32``, each under
 :data:`~merlin_tpu_torch.ops.flash_attention.DTYPE_RULE`.
