@@ -42,13 +42,18 @@ the LM quantized to int8) and of Baichuan-13B:
                   to 1e-5 of max |plain|, and B3-B9 over the pairs (bf16
                   q, f32 pages), (f32, bf16), (f32, f32), (f32, int8)
                   against their plain versions with the TPU kernels'
-                  rounding (C48), with ALiBi, groups 16/32, lengths 0/1/
+                  rounding (C48) walked in the f32 kernels' key splits
+                  (and logged against the single walk; second runs
+                  bit-identical), with ALiBi, groups 16/32, lengths 0/1/
                   full and pages of 16; B7 at f32 q held to its bf16
                   operands (C49: B9's f32 rule planted must fail), a
-                  dropped tile and a redirected page planted, and for the
+                  dropped tile and a page redirected in a first and a last
+                  key split planted, and for the
                   dense kernels (3xTF32) q, k, v rounded to tf32 (one TF32
                   pass) planted too; times against 3xTF32's 165 TFLOP/s
-                  (FFMA's 67 beside it) or the bytes, and SDPA at f32 (its
+                  (the paged kernels: the TF32 passes their operands
+                  take; FFMA's 67 beside it) or the bytes, and SDPA at
+                  f32 (its
                   memory-efficient backend) as the yardstick, the 2048
                   training shape also unpadded;
   3. reference  - a narrow model on the card (through the kernels) against
@@ -306,9 +311,10 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores (FFMA)
-PEAK_TF32X3_FLOPS = 495e12 / 3   # f32 products as 3 TF32 passes on the
-                                 # tensor cores (495 TFLOP/s dense TF32):
-                                 # the dense f32 kernels' own bound
+PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32: one pass of a product
+PEAK_TF32X3_FLOPS = PEAK_TF32_FLOPS / 3   # f32 products as 3 TF32 passes
+                                          # on the tensor cores: the dense
+                                          # f32 kernels' own bound
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 OUT_RTOL = 2.0 ** -5         # per query row: max |kernel - plain| over d, of
                              # the row's max |plain|: 4 bf16 ulps there (one
@@ -1092,10 +1098,10 @@ def redirect_page(tables, lengths, page=128, last_split=False,
     the splits' merge. For the window kernel, whose splits are sized from
     the lengths (``window``): the sequence's first page, in its first
     split, or (last_split) the page of its last key, in its last split."""
-    from merlin_tpu_torch.ops.paged_attention import SPLIT_KEYS
+    from merlin_tpu_torch.ops.paged_attention import rows_split_keys
 
     bad = tables.clone()
-    split = max(1, SPLIT_KEYS // page) * page
+    split = rows_split_keys(page)
     if window:
         i = next(i for i, n in enumerate(lengths) if n > page)
         bad[i, (lengths[i] - 1) // page if last_split else 0] = 0
@@ -5583,12 +5589,13 @@ def measure_c13(gen):
 # dense wgmma ones; the paged few-rows and window kernels each at d = 64
 # and 128, bf16 and int8 pages, ALiBi being a run-time branch of each; the
 # f32 forward (3xTF32) at d <= 64/128/256, its dq and dk/dv kernels
-# likewise, the f32 paged kernel (FFMA) at 16 and 64 rows a CTA and d <=
-# 64/128)
+# likewise; the f32 paged few-rows kernel at its 5 (q, page) modes and the
+# f32 paged window kernel at its 4, d <= 128 each)
 SPILL_CHECKED = ("flash_attention_fwd_kernel", "onepass_attention_kernel",
                  "flash_bwd_", "paged_rows_kernel", "paged_window_kernel",
-                 "attention_f32_kernel")
-N_SPILL_CHECKED = 39
+                 "attention_f32_kernel", "paged_rows_f32_kernel",
+                 "paged_window_f32_kernel")
+N_SPILL_CHECKED = 44
 
 
 def ptxas_report(pieces=SPILL_CHECKED):
@@ -5970,6 +5977,20 @@ F32_PAIRS = ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
              (torch.float32, torch.float32), (torch.float32, torch.int8))
 
 
+def f32_paged_passes(name, q_dtype, page_dtype):
+    """The TF32 passes (q.k, P V) of the f32 paged kernels' products
+    (``Rule`` in paged_attention_f32.cu): one a product, and one more for
+    each operand with more bits than a tf32 term holds, which is split in
+    two: an f32 q, f32 K and V (int8 pages dequantized to f32 for B8 and
+    B9), and p unless it is rounded to bf16 (over bf16 pages, C48). B7's
+    operands are bf16 and int8 (C49): one pass each."""
+    if name in ("B7", "B7w"):
+        return 1, 1
+    split_q = q_dtype == torch.float32
+    split_kv = page_dtype != torch.bfloat16
+    return 1 + split_q + split_kv, 1 + 2 * split_kv
+
+
 def pair_name(pair) -> str:
     """"f32/bf16" for (torch.float32, torch.bfloat16)."""
     return "/".join(str(t).replace("torch.", "").replace("float", "f")
@@ -5977,13 +5998,22 @@ def pair_name(pair) -> str:
 
 
 def check_f32_paged(gen, smi):
-    """B3-B9 on the f32 kernel at every (q, page) pair but (bf16, bf16 |
-    int8), against their plain versions with the TPU kernels' rounding
-    (``kernel_rounding``, on the kernel's 64-key tiles): bf16/f32 tolerance
-    by the operands, C49's for B7 at f32 q; ALiBi, groups 16 and 32, lengths
-    0, 1 and the full table, permuted tables, pages of 16; a redirected
-    page and, for B7, the f32 computation (B9's rule) must fail. Times at
-    the serving path's shapes. Returns the rows."""
+    """B3-B9 on the f32 kernels (the few-rows kernel: B3, B4, B5, B7 decode
+    and windows, B9; the window kernel: B6, B8) at every (q, page) pair but
+    (bf16, bf16 | int8), against their plain versions with the TPU kernels'
+    rounding (``kernel_rounding``, on the kernels' 64-key tiles) walked in
+    the key splits the wrapper used (``split_keys``): bf16/f32 tolerance by
+    the operands, C49's for B7 at f32 q. Each is also logged and held
+    against the TPU kernel's single walk (rows at ``OUT_RTOL`` where p is
+    rounded or out is bf16, else ``F32_RTOL``), and run a second time, which
+    must be bit-identical (the splits merge in split order). ALiBi, groups
+    4, 16 and 32 (group 4 at s_q = 72: window row tiles that span query
+    heads), d = 64, 72 and 128, lengths 0, 1 and the full table, permuted
+    tables, pages of 16 for both kernels; a page redirected in the first
+    and in the last key split and, for B7, the f32 computation (B9's rule)
+    must fail. Times at the serving path's shapes, bounds by the TF32
+    passes each pair's products take (``f32_paged_passes``). Returns the
+    rows."""
     from merlin_tpu_torch.models.layers import alibi_slopes
     from merlin_tpu_torch.ops import paged_attention as pa
 
@@ -5994,11 +6024,27 @@ def check_f32_paged(gen, smi):
            "B7w": pa.paged_attention_dma_multi_q8,
            "B8": pa.paged_attention_multi_blocked_q8,
            "B9": pa.paged_attention_quantized}
+    window_kernel = ("B6", "B8")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs = collections.defaultdict(list)
+    single_errs = collections.defaultdict(list)
 
-    def plain(name, q, pages, lens, tabs, slopes):
+    def split_keys(name, q, pages, lens, tabs):
+        """The key splits the wrapper gives its kernel: the few-rows
+        kernel's pages a split, the window kernel's plan for this card cut
+        per sequence."""
+        page, pps = pages[0].shape[1], tabs.shape[1]
+        if name not in window_kernel:
+            return pa.rows_split_keys(page)
+        b, s_q, h, d = q.shape
+        hkv = pages[0].shape[2] // d
+        splits = pa.window_plan(b, h // hkv * s_q, hkv, d, page, pps, sms,
+                                f32=True)[0]
+        return pa.f32_window_split_keys(lens.tolist(), splits, page, pps)
+
+    def plain(name, q, pages, lens, tabs, slopes, split=None):
         kw = dict(alibi_slopes=slopes, kernel_rounding=True,
-                  block_keys=pa.F32_TILE_KEYS)
+                  block_keys=pa.F32_TILE_KEYS, split_keys=split)
         if len(pages) == 4:
             fn = (pa.paged_attention_q8_plain if q.dim() == 3
                   else pa.paged_attention_multi_q8_plain)
@@ -6019,21 +6065,24 @@ def check_f32_paged(gen, smi):
             return OUT_RTOL, "bf16 rows"
         return F32_RTOL, "f32"
 
+    def measure(got, want, how):
+        if how == "bf16 rows":
+            return out_err(got, want)[1]
+        if how.startswith("C49"):
+            return ((got.float() - want.float()).norm()
+                    / want.float().norm()).item()
+        return f32_err(got, want)
+
     def compare(tag, name, inputs, slopes=None, tables=None, fault=None):
         q, pages, lens, tabs = inputs
-        want = plain(name, q, pages, lens, tabs, slopes)
+        split = split_keys(name, q, pages, lens, tabs)
+        want = plain(name, q, pages, lens, tabs, slopes, split)
         got = (fault or run)(name, q, pages, lens,
                              tabs if tables is None else tables, slopes)
         torch.cuda.synchronize()
         tol, how = tol_of(name, q, pages)
-        if how == "bf16 rows":
-            err = out_err(got, want)[1]
-        elif how.startswith("C49"):
-            err = ((got.float() - want.float()).norm()
-                   / want.float().norm()).item()
-        else:
-            err = f32_err(got, want)
-        what = (f"a live page redirected" if tables is not None
+        err = measure(got, want, how)
+        what = ("a live page redirected" if tables is not None
                 else "computed in f32 (B9's rule)" if fault else None)
         full = f"{name} f32 {tag} ({pair_name((q.dtype, pages[0].dtype))})"
         if what:
@@ -6042,11 +6091,24 @@ def check_f32_paged(gen, smi):
             if not err > tol:
                 raise AssertionError(f"{full}: the check cannot see {what}")
             return
+        # the TPU kernel's single walk: p rounded against one running max
+        one = plain(name, q, pages, lens, tabs, slopes)
+        s_tol, s_how = ((OUT_RTOL, "bf16 rows")
+                        if how != "f32" else (F32_RTOL, "f32"))
+        s_err = measure(got, one, s_how)
+        again = run(name, q, pages, lens, tabs, slopes)
+        torch.cuda.synchronize()
+        same = torch.equal(again, got)
         log(f"{full}: error {err:.3e} (tol {tol:.0e}, {how}), max_abs_err "
-            f"{out_err(got, want)[0]:.3e}")
-        if not (err <= tol and torch.isfinite(got.float()).all()):
-            raise AssertionError(f"{full} disagrees: {err}")
+            f"{out_err(got, want)[0]:.3e} against the split walk ("
+            f"{split if isinstance(split, int) else sorted(set(split))} "
+            f"keys a split); {s_err:.3e} from the single walk (tol "
+            f"{s_tol:.1e}, {s_how}); second run bit-identical: {same}")
+        if not (err <= tol and s_err <= s_tol and same
+                and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{full} disagrees: {err} {s_err} {same}")
         errs[name].append(out_err(got, want)[0])
+        single_errs[name].append(s_err)
 
     vicuna = [1, 256, 1937, 700]
     baichuan = [1, 384, 1999, 901]
@@ -6062,6 +6124,8 @@ def check_f32_paged(gen, smi):
         compare("decode vicuna (4 slots, 32/32 heads)", dec, inp)
         compare("decode vicuna", dec, inp,
                 tables=redirect_page(inp[3], vicuna))
+        compare("decode vicuna, last split", dec, inp,
+                tables=redirect_page(inp[3], vicuna, last_split=True))
         if q8:
             compare("decode vicuna", "B9", inp)
             compare("decode vicuna, at f32 q", "B7", inp,
@@ -6074,12 +6138,16 @@ def check_f32_paged(gen, smi):
             compare(f"decode group {32 // hkv} alibi (32/{hkv} heads)",
                     dec_alibi, paged_f32_inputs(gen, 4, 32, hkv, 128, vicuna,
                                                 qd, pd), s32)
-        compare("decode page 16", dec_alibi,
-                paged_f32_inputs(gen, 4, 32, 32, 128, vicuna, qd, pd,
-                                 page=16), s32)
+        p16 = paged_f32_inputs(gen, 4, 32, 32, 128, vicuna, qd, pd, page=16)
+        compare("decode page 16", dec_alibi, p16, s32)
+        compare("decode page 16, last split", dec, p16,
+                tables=redirect_page(p16[3], vicuna, 16, last_split=True))
         w5 = paged_f32_inputs(gen, 4, 32, 32, 128, [5, 256, 1937, 700], qd,
                               pd, s_q=5)
         compare("window s_q=5 vicuna", dec_w, w5)
+        compare("window s_q=5 vicuna, last split", dec_w, w5,
+                tables=redirect_page(w5[3], [5, 256, 1937, 700],
+                                     last_split=True))
         compare("window s_q=5 lengths [3, 5, 257, 2048] alibi", dec_w,
                 paged_f32_inputs(gen, 4, 32, 32, 128, [3, 5, 257, 2048], qd,
                                  pd, s_q=5), s32)
@@ -6087,37 +6155,66 @@ def check_f32_paged(gen, smi):
             w128 = paged_f32_inputs(gen, 1, 32, 32, 128, [n], qd, pd,
                                     s_q=128)
             compare(f"window (1,128,32,128) L={n}", win, w128)
-        compare("window L=1536", win, w128,
-                tables=redirect_page(w128[3], [1536], window=True))
+        for last in (False, True):
+            compare(f"window L=1536, {'last' if last else 'first'} split",
+                    win, w128, tables=redirect_page(w128[3], [1536],
+                                                    last_split=last,
+                                                    window=True))
         compare("window (1,128,40,128) L=640 alibi", win,
                 paged_f32_inputs(gen, 1, 40, 40, 128, [640], qd, pd,
                                  s_q=128), s40)
         compare("window s_q=128 lengths [100, 129, 641, 2048] d=64", win,
                 paged_f32_inputs(gen, 4, 16, 16, 64, [100, 129, 641, 2048],
                                  qd, pd, s_q=128))
+        # row tiles that span query heads (group 4 at s_q = 72: t_max's
+        # wrap), d = 72 (int8 rows, d % 16 = 8, copied 8 bytes at a time),
+        # pages of 16; each with a page redirected in its last key split
+        gqa_lens = [300, 1100]
+        gqa = paged_f32_inputs(gen, 2, 32, 8, 72, gqa_lens, qd, pd, s_q=72)
+        w16 = paged_f32_inputs(gen, 1, 32, 32, 128, [1536], qd, pd,
+                               s_q=128, page=16)
+        for tag, inputs, lens, page in (
+                ("window (2,72,32/8 heads,72) lengths [300, 1100]", gqa,
+                 gqa_lens, 128),
+                ("window (1,128,32,128) L=1536 page 16", w16, [1536], 16)):
+            compare(tag, win, inputs)
+            compare(f"{tag}, last split", win, inputs,
+                    tables=redirect_page(inputs[3], lens, page,
+                                         last_split=True, window=True))
 
     def timing(name, inputs, slopes, flops, pair_tag):
         q, pages, lens, tabs = inputs
         ms = time_ms(lambda: run(name, q, pages, lens, tabs, slopes))
-        plain_ms = time_ms(lambda: plain(name, q, pages, lens, tabs, slopes),
-                           iters=3)
+        split = split_keys(name, q, pages, lens, tabs)
+        plain_ms = time_ms(
+            lambda: plain(name, q, pages, lens, tabs, slopes, split),
+            iters=3)
         host = host_us(lambda: run(name, q, pages, lens, tabs, slopes))
         hkv_d = pages[0].shape[2]
         per_key = 2 * hkv_d * pages[0].element_size()
         if len(pages) == 4:            # one f32 scale a (key, kv head)
             per_key += 2 * 4 * hkv_d // q.shape[-1]
         kv_bytes = int(lens.sum()) * per_key
-        bms, by = bound_ms(flops, kv_bytes + 2 * nbytes(q), PEAK_F32_FLOPS)
+        # half the FLOP are q.k, half P V, each at its passes' rate
+        qk, pv = f32_paged_passes(name, q.dtype, pages[0].dtype)
+        peak = 2 * PEAK_TF32_FLOPS / (qk + pv)
+        bms, by = bound_ms(flops, kv_bytes + 2 * nbytes(q), peak)
+        ffma, _ = bound_ms(flops, kv_bytes + 2 * nbytes(q), PEAK_F32_FLOPS)
         log(f"{name} f32 {tuple(q.shape)} lengths {lens.tolist()} "
             f"({pair_tag}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}), library none; wrapper {host:.1f} us "
+            f"bound {bms:.4f} ms ({by}; {qk} + {pv} TF32 passes (q.k + P V) "
+            f"at 495 TFLOP/s a pass, bytes at 3.35 TB/s; FFMA at 67 "
+            f"TFLOP/s: {ffma:.4f} ms), library none; wrapper {host:.1f} us "
             f"of host time a call; card {smi}")
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    host_us_per_call=host, shape=list(q.shape),
-                    lengths=lens.tolist(), pair=pair_tag)
+                    bound_ms_ffma=ffma, tf32_passes=[qk, pv],
+                    host_us_per_call=host,
+                    shape=list(q.shape), lengths=lens.tolist(),
+                    pair=pair_tag)
 
     rows = {}
     path = {}
+    path_shapes = collections.defaultdict(list)
     for pair in F32_PAIRS:
         qd, pd = pair
         tag = pair_name(pair)
@@ -6140,6 +6237,14 @@ def check_f32_paged(gen, smi):
         for name, inputs, slopes, flops in kinds:
             path.setdefault(name, {})[tag] = timing(name, inputs, slopes,
                                                     flops, tag)
+        # the engine's other prefill windows, at the F2 pairs
+        if tag in ("f32/bf16", "f32/int8"):
+            win = "B8" if pd == torch.int8 else "B6"
+            for n in (128, 1536):
+                w = paged_f32_inputs(gen, 1, 32, 32, 128, [n], qd, pd,
+                                     s_q=128)
+                path_shapes[win].append(timing(
+                    win, w, None, window_flops(w[0], w[2]), tag))
     names = {"B3": "paged_attention_dma", "B4": "paged_attention",
              "B5": "paged_attention_dma_multi",
              "B6": "paged_attention_multi_blocked",
@@ -6154,8 +6259,13 @@ def check_f32_paged(gen, smi):
         rows[name] = dict(
             name=f"{name} f32 {fn_name}", route="cuda",
             source=F32_PAGED_SOURCE, replaces=PAGED_REPLACES[name],
+            kernel=("paged_window_f32_kernel" if name in window_kernel
+                    else "paged_rows_f32_kernel"),
             counter=name + F32, max_abs_err=max(errs[name] or [0.0]),
+            single_walk_err=max(single_errs[name] or [0.0]),
             library_ms=None, by_pair=path[name], card=smi, **t)
+        if name in path_shapes:
+            rows[name]["path_shapes"] = path_shapes[name]
     return rows
 
 
@@ -6277,7 +6387,7 @@ F3_WORDS = 400               # F3's text request: a chunked prefill
 def run_f3(bundle, rng, fillers, frames, smi):
     """F3: the default bf16 bundle (W1's) behind an engine worker started
     with ``engine_cache_dtype="f32"`` (``--engine-cache-dtype f32``): an
-    f32 pool on the card, bf16 q over it through the f32 paged kernel. One
+    f32 pool on the card, bf16 q over it through the f32 paged kernels. One
     text request (chunked windows, then decode) and one image request
     (``Generator.stream``, B1), each answer held as W1's."""
     from merlin_tpu_torch.utils import constants as C

@@ -77,9 +77,11 @@ SIGNATURES = {
     "merlin_attention_bwd_f32": (
         [_P] * 13 + [_I] * 6 + [_L] * 15 + [_F, _I, _P]),
     # q, k_pages, k_scales, v_pages, v_scales, lengths, tables, slopes,
-    # out, b, s_q, h, hkv, d, page_size, pps, scale_lanes, q_bf16,
-    # page_kind (0 bf16, 1 f32, 2 int8), bf16_ops, scale, stream
-    "merlin_paged_attention_f32": [_P] * 9 + [_I] * 11 + [_F, _P],
+    # out, ws, counters, b, s_q, h, hkv, d, page_size, pps, scale_lanes,
+    # q_bf16, page_kind (0 bf16, 1 f32, 2 int8), bf16_ops, split (few-rows
+    # kernel: pages a key split; window kernel: most key splits of a
+    # sequence), few_rows, scale, stream
+    "merlin_paged_attention_f32": [_P] * 11 + [_I] * 13 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -51,17 +51,23 @@ the kernels (trap C2); the decoder never produces one.
 
 Dtypes: q is bf16 or f32, pages bf16, f32 or int8. bf16 q over bf16 or
 int8 pages runs the two kernels above and counts in ``.launches``; every
-other pair runs the f32 kernel (``csrc/paged_attention_f32.cu``, FFMA) and
-counts in ``.launches_f32``. On a CUDA tensor each wrapper computes what
-its TPU kernel computes at these operand dtypes: f32 sums, q.k at the
-promoted dtype, p rounded to the page dtype before P.V (C48), out in q's
-dtype, C2's zero rows; B8 and B9 dequantize int8 pages to q's dtype, B7
-computes with bf16 operands whatever q's dtype (C49). On a CPU tensor the
-plain version follows JAX's CPU route (the references, int8 pages
-dequantized to bf16), which keeps p in f32. The plain versions'
-``kernel_rounding`` applies the TPU kernel's rule instead, on blocks of
-``block_keys`` keys (the TPU kernels' page; :data:`F32_TILE_KEYS`, the
-f32 kernel's tile, on the card).
+other pair runs their f32 counterparts (``csrc/paged_attention_f32.cu``,
+products on the tensor cores in 3xTF32 or fewer passes, routed as the
+bf16 ones; the few-rows kernel splits keys by :func:`rows_plan` as the
+bf16 one does, the window kernel by :func:`window_plan` with ``f32``) and counts
+in ``.launches_f32``.
+On a CUDA tensor each wrapper computes what its TPU kernel computes at
+these operand dtypes: f32 sums, q.k at the promoted dtype, p rounded to
+the page dtype before P.V (C48), out in q's dtype, C2's zero rows; B8 and
+B9 dequantize int8 pages to q's dtype, B7 computes with bf16 operands
+whatever q's dtype (C49). On a CPU tensor the plain version follows JAX's
+CPU route (the references, int8 pages dequantized to bf16), which keeps p
+in f32. The plain versions' ``kernel_rounding`` applies the TPU kernel's
+rule instead, on blocks of ``block_keys`` keys (the TPU kernels' page;
+:data:`F32_TILE_KEYS`, the f32 kernels' tile, on the card), and
+``split_keys`` walks the keys in the f32 kernels' key splits, each
+rounding p against its own running max (the TPU kernel walks them in
+one).
 """
 
 from __future__ import annotations
@@ -82,8 +88,13 @@ WINDOW_SMALL_ROWS = 16
 SPLIT_KEYS = 256
 # the window kernel's most key splits of a row tile (its kWindowMaxSplits)
 WINDOW_MAX_SPLITS = 16
-# keys of the f32 kernel's tiles, the block on which it rounds p
+# keys of the f32 kernels' tiles, the block on which they round p
 F32_TILE_KEYS = 64
+# the window kernels' tiles: (query rows and keys a tile, CTAs an SM,
+# threads, O accumulators a thread); the bf16 kernel's at d > 64 and at
+# d <= 64, the f32 kernel's at every d
+BF16_WINDOW_TILES = ((128, 1, 256, 64), (64, 1, 128, 32))
+F32_WINDOW_TILES = (64, 2, 128, 64)
 _COUNTERS = {}    # device -> both kernels' int32 arrival counters
 _SMS = {}         # device -> its SM count
 
@@ -324,7 +335,7 @@ def _rounded(dtype):
 
 
 def _kernel_rule(q, k_seq, v_seq, q_pos, alibi_slopes, scale, p_dtype,
-                 block, k_scale=None, v_scale=None):
+                 block, k_scale=None, v_scale=None, split_keys=None):
     """What a TPU paged kernel computes, in plain PyTorch: q (b, s_q, h, d)
     and k_seq/v_seq (b, keys, hkv, d) as the f32 values it multiplies, q_pos
     (b, s_q) each row's position (it sees keys <= it). Scores in f32
@@ -333,7 +344,21 @@ def _kernel_rule(q, k_seq, v_seq, q_pos, alibi_slopes, scale, p_dtype,
     the running max) rounded to ``p_dtype`` (or, with ``v_scale``, p *
     v_scale rounded to bf16, B7) for P V while l sums the f32 p. A row that
     sees no key reads 0, as the kernels write it (C2). Returns (b, s_q, h,
-    d) f32."""
+    d) f32.
+
+    ``split_keys`` walks the keys as the f32 kernels split them over CTAs:
+    splits of that many keys from key 0 (an int, or one per sequence), each
+    starting from m = NEG_INF and walking its blocks from its own first key,
+    then merged by the LSE rescale in split order. None (or a split that
+    holds every key) is the TPU kernel's single walk."""
+    if split_keys is not None and not isinstance(split_keys,
+                                                 (int, np.integer)):
+        def row(t, i):
+            return None if t is None else t[i:i + 1]
+        return torch.cat([_kernel_rule(
+            q[i:i + 1], k_seq[i:i + 1], v_seq[i:i + 1], q_pos[i:i + 1],
+            alibi_slopes, scale, p_dtype, block, row(k_scale, i),
+            row(v_scale, i), int(n)) for i, n in enumerate(split_keys)])
     b, s_q, h, d = q.shape
     n_keys, hkv = k_seq.shape[1], k_seq.shape[2]
     group = h // hkv
@@ -348,24 +373,38 @@ def _kernel_rule(q, k_seq, v_seq, q_pos, alibi_slopes, scale, p_dtype,
         dist = (k_pos[None, None, :] - q_pos[:, :, None]).float()
         s = s + slopes[None, :, :, None, None] * dist[:, None, None]
     mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None, None]
-    m = torch.full(s.shape[:-1], NEG_INF, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros(s.shape[:-1] + (d,), device=q.device)
-    for k0 in range(0, n_keys, block):
-        seen = mask[..., k0:k0 + block]
-        sb = torch.where(seen, s[..., k0:k0 + block], NEG_INF)
-        m_new = torch.maximum(m, sb.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.where(seen, torch.exp(sb - m_new[..., None]), 0.0)
-        l = alpha * l + p.sum(-1)
-        if v_scale is not None:
-            p = (p * v_scale[:, k0:k0 + block].permute(0, 2, 1)[
-                :, :, None, None, :]).to(torch.bfloat16).float()
-        elif p_dtype is not None:
-            p = p.to(p_dtype).float()
-        acc = acc * alpha[..., None] + torch.einsum(
-            "bhgtk,bkhd->bhgtd", p, v_seq[:, k0:k0 + block])
-        m = m_new
+    split_keys = int(split_keys or n_keys)
+    parts = []
+    for s0 in range(0, n_keys, split_keys):
+        s1 = min(s0 + split_keys, n_keys)
+        m = torch.full(s.shape[:-1], NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(s.shape[:-1] + (d,), device=q.device)
+        for k0 in range(s0, s1, block):
+            k1 = min(k0 + block, s1)
+            seen = mask[..., k0:k1]
+            sb = torch.where(seen, s[..., k0:k1], NEG_INF)
+            m_new = torch.maximum(m, sb.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(seen, torch.exp(sb - m_new[..., None]), 0.0)
+            l = alpha * l + p.sum(-1)
+            if v_scale is not None:
+                p = (p * v_scale[:, k0:k1].permute(0, 2, 1)[
+                    :, :, None, None, :]).to(torch.bfloat16).float()
+            elif p_dtype is not None:
+                p = p.to(p_dtype).float()
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgtk,bkhd->bhgtd", p, v_seq[:, k0:k1])
+            m = m_new
+        parts.append((m, l, acc))
+    # one split merges to itself exactly (a weight of exp(0) = 1)
+    top = torch.stack([m for m, _, _ in parts]).amax(0)
+    l = torch.zeros_like(top)
+    acc = torch.zeros_like(parts[0][2])
+    for m, l_s, acc_s in parts:
+        w = torch.exp(m - top)
+        l = l + l_s * w
+        acc = acc + acc_s * w[..., None]
     out = acc / torch.where(l == 0, 1.0, l)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, s_q, h, d)
 
@@ -378,7 +417,8 @@ def _window_pos(lengths, s_q, device):
 
 def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, *,
                           alibi_slopes=None, scale=None,
-                          kernel_rounding=False, block_keys=None):
+                          kernel_rounding=False, block_keys=None,
+                          split_keys=None):
     """One query token per sequence over its pages. q (b, h, d); keys at
     positions < lengths[b] are visible; ALiBi adds slope * (k - (len-1)).
     f32 softmax with NEG_INF masking (JAX's reference: p stays f32).
@@ -389,7 +429,7 @@ def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, *,
         return paged_attention_multi_plain(
             q[:, None], k_pages, v_pages, lengths, page_tables,
             alibi_slopes=alibi_slopes, scale=scale, kernel_rounding=True,
-            block_keys=block_keys)[:, 0]
+            block_keys=block_keys, split_keys=split_keys)[:, 0]
     b, h, d = q.shape
     hkv = k_pages.shape[2] // d
     group = h // hkv
@@ -414,7 +454,8 @@ def paged_attention_plain(q, k_pages, v_pages, lengths, page_tables, *,
 
 def paged_attention_multi_plain(q, k_pages, v_pages, lengths, page_tables,
                                 *, alibi_slopes=None, scale=None,
-                                kernel_rounding=False, block_keys=None):
+                                kernel_rounding=False, block_keys=None,
+                                split_keys=None):
     """An s_q-token window per sequence over its pages. q (b, s_q, h, d);
     ``lengths`` INCLUDE the window (its K/V already written); query t sits
     at lengths-s_q+t and sees keys at positions <= its own. ALiBi adds
@@ -424,7 +465,8 @@ def paged_attention_multi_plain(q, k_pages, v_pages, lengths, page_tables,
     f32. With it, the TPU kernel's rule (B3-B6, trap C48): the online
     softmax over blocks of ``block_keys`` keys (default: the page, the TPU
     BlockSpec kernels' block), p rounded to the page dtype before P V, a
-    row with no key 0 (C2)."""
+    row with no key 0 (C2); ``split_keys`` walks the keys in the f32
+    kernels' key splits (see :func:`_kernel_rule`)."""
     b, s_q, h, d = q.shape
     hkv = k_pages.shape[2] // d
     group = h // hkv
@@ -435,7 +477,8 @@ def paged_attention_multi_plain(q, k_pages, v_pages, lengths, page_tables,
         return _kernel_rule(
             q.float(), k_seq, v_seq, _window_pos(lengths, s_q, q.device),
             alibi_slopes, scale, _rounded(v_pages.dtype),
-            block_keys or k_pages.shape[1]).to(q.dtype)
+            block_keys or k_pages.shape[1],
+            split_keys=split_keys).to(q.dtype)
     max_len = k_seq.shape[1]
     qg = q.reshape(b, s_q, hkv, group, d).float()
     s = torch.einsum("bthgd,bkhd->bhgtk", qg, k_seq) * scale
@@ -455,7 +498,8 @@ def paged_attention_multi_plain(q, k_pages, v_pages, lengths, page_tables,
 def paged_attention_q8_plain(q, k_values, k_scales, v_values, v_scales,
                              lengths, page_tables, *, alibi_slopes=None,
                              scale=None, kernel_rounding=False,
-                             bf16_operands=False, block_keys=None):
+                             bf16_operands=False, block_keys=None,
+                             split_keys=None):
     """:func:`paged_attention_plain` over int8 pages, as the JAX decoder's
     CPU route computes it (``decoder.py:300-306``): both pools dequantized
     to bf16 first. ``kernel_rounding`` computes what the TPU kernel
@@ -465,7 +509,7 @@ def paged_attention_q8_plain(q, k_values, k_scales, v_values, v_scales,
             q[:, None], k_values, k_scales, v_values, v_scales, lengths,
             page_tables, alibi_slopes=alibi_slopes, scale=scale,
             kernel_rounding=True, bf16_operands=bf16_operands,
-            block_keys=block_keys)[:, 0]
+            block_keys=block_keys, split_keys=split_keys)[:, 0]
     d = q.shape[-1]
     return paged_attention_plain(
         q, dequantize_pages(k_values, k_scales, d),
@@ -486,7 +530,8 @@ def paged_attention_multi_q8_plain(q, k_values, k_scales, v_values,
                                    v_scales, lengths, page_tables, *,
                                    alibi_slopes=None, scale=None,
                                    kernel_rounding=False,
-                                   bf16_operands=False, block_keys=None):
+                                   bf16_operands=False, block_keys=None,
+                                   split_keys=None):
     """:func:`paged_attention_multi_plain` over int8 pages, as the JAX
     decoder's CPU route (``decoder.py:400-408``): dequantize to bf16 first.
 
@@ -495,7 +540,8 @@ def paged_attention_multi_q8_plain(q, k_values, k_scales, v_values,
     dtype and round p to it (``paged_attention.py:820-823``); with
     ``bf16_operands``, B7's (trap C49): q rounded to bf16, s = (q . k_int8)
     * k_scale * scale, p * v_scale rounded to bf16 for the product with
-    the int8 V (``:1033-1034,1067,1131``), whatever q's dtype."""
+    the int8 V (``:1033-1034,1067,1131``), whatever q's dtype.
+    ``split_keys``: the f32 kernels' key splits (see :func:`_kernel_rule`)."""
     b, s_q, h, d = q.shape
     if not kernel_rounding:
         return paged_attention_multi_plain(
@@ -513,14 +559,16 @@ def paged_attention_multi_q8_plain(q, k_values, k_scales, v_values,
             _gather_seq(v_values, page_tables, hkv, d).float(), q_pos,
             alibi_slopes, scale, None, block,
             k_scale=_head_scales(k_scales, page_tables, hkv),
-            v_scale=_head_scales(v_scales, page_tables, hkv))
+            v_scale=_head_scales(v_scales, page_tables, hkv),
+            split_keys=split_keys)
     else:
         k_seq = _gather_seq(dequantize_pages(k_values, k_scales, d, q.dtype),
                             page_tables, hkv, d).float()
         v_seq = _gather_seq(dequantize_pages(v_values, v_scales, d, q.dtype),
                             page_tables, hkv, d).float()
         out = _kernel_rule(q.float(), k_seq, v_seq, q_pos, alibi_slopes,
-                           scale, _rounded(q.dtype), block)
+                           scale, _rounded(q.dtype), block,
+                           split_keys=split_keys)
     return out.to(q.dtype)
 
 
@@ -600,10 +648,20 @@ def _f32_kernel(q, pages) -> bool:
 
 
 def _launch_f32(name, q, k_pages, v_pages, lengths, page_tables,
-                alibi_slopes, scale, k_scales, v_scales, bf16_ops):
-    """The f32 kernel on checked inputs: q (b, s_q, h, d), decode at s_q =
-    1; ``bf16_ops`` for B7's rule over int8 pages. Returns out like q."""
+                alibi_slopes, scale, few_rows, k_scales, v_scales, bf16_ops):
+    """The f32 kernels on checked inputs: q (b, s_q, h, d), decode at s_q =
+    1; the few-rows kernel with ``few_rows`` (its key splits as the bf16
+    route's, :func:`rows_plan`), else the window kernel (its splits by
+    :func:`window_plan` with ``f32``); ``bf16_ops`` for B7's rule over int8 pages.
+    Returns out like q."""
     b, s_q, h, d = q.shape
+    hkv = k_pages.shape[2] // d
+    page_size, pps = k_pages.shape[1], page_tables.shape[1]
+    rows = h // hkv * s_q
+    split, ws, ws_ptr, counters = (
+        _split_workspace(q, b, rows, hkv, d, page_size, pps) if few_rows
+        else _window_workspace(q, b, rows, hkv, d, page_size, pps,
+                               f32=True))
     out = torch.empty_like(q)
     kind = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}[
         k_pages.dtype]
@@ -611,11 +669,10 @@ def _launch_f32(name, q, k_pages, v_pages, lengths, page_tables,
     code = _build.lib().merlin_paged_attention_f32(
         q.data_ptr(), k_pages.data_ptr(), ptr(k_scales), v_pages.data_ptr(),
         ptr(v_scales), lengths.data_ptr(), page_tables.data_ptr(),
-        ptr(alibi_slopes), out.data_ptr(), b, s_q, h,
-        k_pages.shape[2] // d, d, k_pages.shape[1], page_tables.shape[1],
-        k_scales.shape[2] if k_scales is not None else 0,
-        int(q.dtype == torch.bfloat16), kind, int(bf16_ops),
-        float(scale if scale is not None else d ** -0.5),
+        ptr(alibi_slopes), out.data_ptr(), ws_ptr, counters, b, s_q, h, hkv,
+        d, page_size, pps, k_scales.shape[2] if k_scales is not None else 0,
+        int(q.dtype == torch.bfloat16), kind, int(bf16_ops), split,
+        int(few_rows), float(scale if scale is not None else d ** -0.5),
         _build.stream_handle(q.device))
     _build.check(code, name)
     return out
@@ -633,85 +690,124 @@ def _counters(device, need: int) -> int:
     return counters.data_ptr()
 
 
-def _split_workspace(q, b, rows, hkv, d, page_size, pps):
-    """What the few-rows kernel needs to split each sequence's keys over
-    CTAs: (pages per split, the workspace tensor, its pointer, the
-    counters' pointer). With more than one split of ``SPLIT_KEYS`` keys,
-    an f32 workspace for each split's (O, m, l) of each of the ``rows``
-    query rows of a kv head (``torch.empty``: a split writes its rows
-    before the last one reads them), and counters for each (sequence, kv
-    head, 16-row tile)."""
+def rows_plan(b, rows, hkv, d, page_size, pps):
+    """The few-rows kernels' key splits (bf16 and f32 alike): (pages a
+    split, workspace floats, counters). A split is ``SPLIT_KEYS`` keys
+    rounded down to whole pages (at least one). With more than one split
+    of a table row, an f32 workspace for each split's (O, m, l) of each of
+    the ``rows`` query rows of a kv head, and counters for each (sequence,
+    kv head, 16-row tile); one split takes neither."""
     split_pages = max(1, SPLIT_KEYS // page_size)
     n_splits = -(-pps // split_pages)
     if n_splits == 1:
-        return split_pages, None, None, None
-    ws = torch.empty(b * hkv * n_splits * rows * (d + 2),
-                     dtype=torch.float32, device=q.device)
-    return (split_pages, ws, ws.data_ptr(),
-            _counters(q.device, b * hkv * -(-rows // 16)))
-
-
-def window_workspace_floats(b, rows, hkv, d, splits):
-    """The window kernel's f32 workspace for ``splits`` key splits a row
-    tile: each split of each (sequence, kv head, row tile) keeps its
-    CTA's O accumulators and its rows' (m, l), 4 floats a thread, in
-    fragment order (its tiles: 128 rows, 256 threads and 64 accumulators
-    a thread at d > 64; 64 rows, 128 threads and 32 at d <= 64)."""
-    tile, threads, acc = (128, 256, 64) if d > 64 else (64, 128, 32)
-    return b * hkv * -(-rows // tile) * splits * threads * (acc + 4)
-
-
-def window_plan(b, rows, hkv, d, page_size, pps, sms):
-    """The window kernel's key splits on a card of ``sms`` SMs: (most
-    splits of a row tile, workspace floats, counters). The grid holds
-    about one CTA for each SM (each CTA sizes its split from the lengths
-    so that the live ones fill the card about once; this caps the grid
-    and the workspace), at most ``WINDOW_MAX_SPLITS`` and one a key tile
-    of the table row for each (sequence, kv head, row tile) (the kernel's
-    tiles: 128 rows and 128 keys at d > 64, 64 and 64 at d <= 64); one
-    split takes no workspace. The counters are sized for 16-row tiles,
-    the few-rows kernel's, which covers the window kernel's too: both
-    share them."""
-    tile = 128 if d > 64 else 64
-    units = b * hkv * -(-rows // tile)
-    splits = max(1, min(WINDOW_MAX_SPLITS, -(-pps * page_size // tile),
-                        -(-sms // units)))
-    if splits == 1:
-        return 1, 0, 0
-    return (splits, window_workspace_floats(b, rows, hkv, d, splits),
+        return split_pages, 0, 0
+    return (split_pages, b * hkv * n_splits * rows * (d + 2),
             b * hkv * -(-rows // 16))
 
 
-def _window_workspace(q, b, rows, hkv, d, page_size, pps):
-    """What the window kernel needs to split each sequence's keys over
-    CTAs: (most splits of a row tile, the workspace tensor, its pointer,
-    the counters' pointer), by :func:`window_plan` for q's card."""
-    sms = _SMS.get(q.device)
+def rows_split_keys(page_size):
+    """The keys of a few-rows kernel's key split at ``page_size``."""
+    return max(1, SPLIT_KEYS // page_size) * page_size
+
+
+def _split_workspace(q, b, rows, hkv, d, page_size, pps):
+    """What the few-rows kernels need to split each sequence's keys over
+    CTAs, by :func:`rows_plan`: (pages per split, the workspace tensor, its
+    pointer, the counters' pointer). The workspace is ``torch.empty``: a
+    split writes its rows before the last one reads them."""
+    split_pages, ws_floats, need = rows_plan(b, rows, hkv, d, page_size,
+                                             pps)
+    if ws_floats == 0:
+        return split_pages, None, None, None
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
+    return split_pages, ws, ws.data_ptr(), _counters(q.device, need)
+
+
+def _window_tiles(d, f32):
+    """The window kernel's tiles at head dim ``d``: the f32 one's with
+    ``f32``, else the bf16 one's."""
+    return F32_WINDOW_TILES if f32 else BF16_WINDOW_TILES[d <= 64]
+
+
+def window_workspace_floats(b, rows, hkv, d, splits, f32=False):
+    """A window kernel's f32 workspace for ``splits`` key splits a row
+    tile: each split of each (sequence, kv head, row tile) keeps its
+    CTA's O accumulators and its rows' (m, l), 4 floats a thread, in
+    fragment order (the kernel's tiles, :data:`BF16_WINDOW_TILES` or
+    :data:`F32_WINDOW_TILES` with ``f32``)."""
+    tile, _, threads, acc = _window_tiles(d, f32)
+    return b * hkv * -(-rows // tile) * splits * threads * (acc + 4)
+
+
+def window_plan(b, rows, hkv, d, page_size, pps, sms, f32=False):
+    """A window kernel's key splits on a card of ``sms`` SMs: (most splits
+    of a row tile, workspace floats, counters); the bf16 kernel's, or the
+    f32 one's with ``f32``. The grid holds about one CTA for each of the
+    kernel's CTA slots on the card (the bf16 kernel runs one CTA an SM,
+    the f32 one two; each CTA sizes its split from the lengths so that the
+    live ones fill the card about once, and this caps the grid and the
+    workspace), at most ``WINDOW_MAX_SPLITS`` and one a key tile of the
+    table row for each (sequence, kv head, row tile); one split takes no
+    workspace. The counters are sized for 16-row tiles, the few-rows
+    kernels', which covers the window kernels' too: all share them."""
+    tile, per_sm, _, _ = _window_tiles(d, f32)
+    units = b * hkv * -(-rows // tile)
+    splits = max(1, min(WINDOW_MAX_SPLITS, -(-pps * page_size // tile),
+                        -(-per_sm * sms // units)))
+    if splits == 1:
+        return 1, 0, 0
+    return (splits, window_workspace_floats(b, rows, hkv, d, splits, f32),
+            b * hkv * -(-rows // 16))
+
+
+def _sm_count(device) -> int:
+    """The SM count of ``device``, read once."""
+    sms = _SMS.get(device)
     if sms is None:
-        sms = torch.cuda.get_device_properties(
-            q.device).multi_processor_count
-        _SMS[q.device] = sms
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _SMS[device] = sms
+    return sms
+
+
+def _window_workspace(q, b, rows, hkv, d, page_size, pps, f32=False):
+    """What a window kernel needs to split each sequence's keys over CTAs:
+    (its most splits, the workspace tensor, its pointer, the counters'
+    pointer), by :func:`window_plan` for q's card."""
     splits, ws_floats, need = window_plan(b, rows, hkv, d, page_size, pps,
-                                          sms)
+                                          _sm_count(q.device), f32)
     if splits == 1:
         return 1, None, None, None
     ws = torch.empty(ws_floats, dtype=torch.float32, device=q.device)
     return splits, ws, ws.data_ptr(), _counters(q.device, need)
 
 
+def f32_window_split_keys(lengths, splits, page_size, pps):
+    """The keys of each sequence's key splits in the f32 window kernel at
+    ``splits`` (:func:`window_plan` with ``f32``): its keys (its length,
+    cut to the table) in tiles of ``F32_WINDOW_TILES[0]`` keys, cut into
+    at most ``splits`` runs of whole tiles. The plain versions take this
+    list as ``split_keys``."""
+    tile = F32_WINDOW_TILES[0]
+    out = []
+    for n in lengths:
+        tiles = -(-min(max(int(n), 0), pps * page_size) // tile)
+        out.append(tile * max(1, -(-tiles // splits)))
+    return out
+
+
 def _launch_decode(name, q, k_pages, v_pages, lengths, page_tables,
                    alibi_slopes, scale, k_scales=None, v_scales=None,
                    bf16_ops=False):
-    """One query token per sequence: the few-rows kernel (any query group)
-    for bf16 q over bf16 pages or int8 pages with their scale pages, the
-    f32 kernel for every other pair."""
+    """One query token per sequence: the few-rows kernel (any query group),
+    the bf16 one for bf16 q over bf16 pages or int8 pages with their scale
+    pages, the f32 one for every other pair."""
     if q.dim() != 3:
         raise ValueError(f"{name}: q must be (b, h, d), got {tuple(q.shape)}")
     hkv = _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
                        alibi_slopes, k_scales, v_scales)
     if _f32_kernel(q, k_pages):
         return _launch_f32(name, q[:, None], k_pages, v_pages, lengths,
-                           page_tables, alibi_slopes, scale, k_scales,
+                           page_tables, alibi_slopes, scale, True, k_scales,
                            v_scales, bf16_ops)[:, 0]
     b, h, d = q.shape
     page_size, pps = k_pages.shape[1], page_tables.shape[1]
@@ -739,9 +835,10 @@ def _launch_decode(name, q, k_pages, v_pages, lengths, page_tables,
 def _launch_window(name, q, k_pages, v_pages, lengths, page_tables,
                    alibi_slopes, scale, few_rows, k_scales=None,
                    v_scales=None, bf16_ops=False):
-    """An s_q-token window per sequence. bf16 q over bf16 pages, or int8
-    pages with their scale pages: the few-rows kernel with ``few_rows``,
-    else the window kernel. Every other pair: the f32 kernel."""
+    """An s_q-token window per sequence: the few-rows kernel with
+    ``few_rows``, else the window kernel; the bf16 ones for bf16 q over
+    bf16 pages, or int8 pages with their scale pages, the f32 ones for
+    every other pair."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q must be (b, s_q, h, d), got "
                          f"{tuple(q.shape)}")
@@ -749,7 +846,8 @@ def _launch_window(name, q, k_pages, v_pages, lengths, page_tables,
                        alibi_slopes, k_scales, v_scales)
     if _f32_kernel(q, k_pages):
         return _launch_f32(name, q, k_pages, v_pages, lengths, page_tables,
-                           alibi_slopes, scale, k_scales, v_scales, bf16_ops)
+                           alibi_slopes, scale, few_rows, k_scales, v_scales,
+                           bf16_ops)
     b, s_q, h, d = q.shape
     page_size, pps = k_pages.shape[1], page_tables.shape[1]
     split, ws, ws_ptr, counters = (

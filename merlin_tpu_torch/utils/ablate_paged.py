@@ -26,11 +26,12 @@ and times the window kernel's variants only.
 With ``--wrappers-only`` it times only the public wrappers of those rows
 (device ms a call, and the host's µs a call) through whichever
 ``merlin_tpu_torch`` is first on the path, so that two checkouts can be
-compared in one run:
+compared in one run; ``--f32`` draws q in f32 there (the f32 paged
+kernels, at an f32 model's pairs: f32 q over bf16 or int8 pages):
 
     python3 -m merlin_tpu_torch.utils.ablate_paged [--window]
-    PYTHONPATH=<checkout> python3 merlin_tpu_torch/utils/ablate_paged.py \\
-        --wrappers-only
+    PYTHONPATH=<checkout> python3 -P merlin_tpu_torch/utils/ablate_paged.py \\
+        --wrappers-only [--f32]
 """
 
 from __future__ import annotations
@@ -152,10 +153,11 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def inputs(gen, row):
-    """q, K/V pools (b * PPS + 1 random pages; page 0 the trash page),
-    their scales (int8) or None, lengths, tables of permuted pages, and
-    the slopes or None, as ``chip_smoke.paged_inputs`` makes them."""
+def inputs(gen, row, q_dtype=torch.bfloat16):
+    """q (in ``q_dtype``), K/V pools (b * PPS + 1 random pages; page 0 the
+    trash page), their scales (int8) or None, lengths, tables of permuted
+    pages, and the slopes or None, as ``chip_smoke.paged_inputs`` makes
+    them."""
     b, s_q, h, hkv, lengths, q8, alibi = {**ROWS, **WINDOW_ROWS}[row]
     total = b * PPS + 1
     pools = [torch.randn((total, PAGE, hkv * D), generator=gen,
@@ -166,7 +168,7 @@ def inputs(gen, row):
     for i, n in enumerate(lengths):
         tables[i, :-(-n // PAGE)] = perm[i, :-(-n // PAGE)]
     q = torch.randn((b, s_q, h, D) if s_q else (b, h, D), generator=gen,
-                    device="cuda").to(torch.bfloat16)
+                    device="cuda").to(q_dtype)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     scales = None
     if q8:
@@ -317,12 +319,13 @@ def host_us(fn, calls=50):
     return (t1 - t0) / calls * 1e6
 
 
-def wrappers_only(rounds: int = 3) -> dict:
-    """Each row's public wrapper: median device ms and host µs a call."""
+def wrappers_only(rounds: int = 3, q_dtype=torch.bfloat16) -> dict:
+    """Each row's public wrapper with q in ``q_dtype``: median device ms
+    and host µs a call."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     readings = {}
     for row in [*ROWS, *WINDOW_ROWS]:
-        fn = wrapper(row, *inputs(gen, row))
+        fn = wrapper(row, *inputs(gen, row, q_dtype))
         ms = sorted(time_ms(fn) for _ in range(rounds))[rounds // 2]
         us = sorted(host_us(fn) for _ in range(rounds))[rounds // 2]
         readings[row] = {"ms": ms, "host_us": us}
@@ -400,7 +403,10 @@ def main() -> dict:
     print(f"package: {Path(pa.__file__).resolve().parent.parent}",
           flush=True)
     if "--wrappers-only" in sys.argv[1:]:
-        result = {"card": name, "wrappers": wrappers_only()}
+        q_dtype = (torch.float32 if "--f32" in sys.argv[1:]
+                   else torch.bfloat16)
+        result = {"card": name, "q_dtype": str(q_dtype),
+                  "wrappers": wrappers_only(q_dtype=q_dtype)}
     else:
         result = {"card": name,
                   **variants(window_only="--window" in sys.argv[1:])}
