@@ -81,6 +81,21 @@ the LM quantized to int8) and of Baichuan-13B:
                   model, and a request's tokens read after another
                   request's prompt must fail that check. Prints tokens/s,
                   per-request TTFT and the KV pool's bytes.
+  H. head dims past 128 - the paged kernels' DP = 256 forms (all four:
+                  the bf16 few-rows and window kernels over bf16 and int8
+                  pages, the f32 ones at the four (q, page) pairs) at d =
+                  136 and 256 against their plain versions at the
+                  unchanged tolerances (decode at 4 slots, windows s_q = 5
+                  and 128 at L = 128/640/1536, ALiBi at 16 heads, groups
+                  1/4/8, pages of 16 and 128), every case run twice
+                  (bit-identical); planted: a page redirected in the last
+                  key split, a dropped key tile, C11's lane fault at hkv =
+                  2, the column halves swapped; times at d = 256 against
+                  the d = 128 rows' bytes. After S3, the served model:
+                  the llama block at Vicuna-7B width regrouped as 16 heads
+                  of 256 (4 of 32 layers) through ``ServingEngine`` with
+                  E1's, E2's and E4's (int8 pool) traffic and an f32 copy
+                  over f32 pages (E2's traffic), every check of phase 6;
   F. float32    - the JAX package's f32 entry points on the card: F1 the
                   ``parse_args(["--bf16", "False"])`` bundle (CLIP
                   ViT-L/14-448 + conv + Vicuna-7B, 32 layers, f32 weights
@@ -5586,16 +5601,16 @@ def measure_c13(gen):
 
 # the wgmma kernels, the paged kernels and the f32 kernels, by a piece of
 # their (mangled) names: every instantiation must build with no spills (18
-# dense wgmma ones; the paged few-rows and window kernels each at d = 64
-# and 128, bf16 and int8 pages, ALiBi being a run-time branch of each; the
-# f32 forward (3xTF32) at d <= 64/128/256, its dq and dk/dv kernels
+# dense wgmma ones; the paged few-rows and window kernels each at d = 64,
+# 128 and 256, bf16 and int8 pages, ALiBi being a run-time branch of each;
+# the f32 forward (3xTF32) at d <= 64/128/256, its dq and dk/dv kernels
 # likewise; the f32 paged few-rows kernel at its 5 (q, page) modes and the
-# f32 paged window kernel at its 4, d <= 128 each)
+# f32 paged window kernel at its 4, each at d <= 128 and d <= 256)
 SPILL_CHECKED = ("flash_attention_fwd_kernel", "onepass_attention_kernel",
                  "flash_bwd_", "paged_rows_kernel", "paged_window_kernel",
                  "attention_f32_kernel", "paged_rows_f32_kernel",
                  "paged_window_f32_kernel")
-N_SPILL_CHECKED = 44
+N_SPILL_CHECKED = 57
 
 
 def ptxas_report(pieces=SPILL_CHECKED):
@@ -5997,6 +6012,149 @@ def pair_name(pair) -> str:
                     for t in pair)
 
 
+PAGED_FN_NAMES = {"B3": "paged_attention_dma", "B4": "paged_attention",
+                  "B5": "paged_attention_dma_multi",
+                  "B6": "paged_attention_multi_blocked",
+                  "B7": "paged_attention_dma_q8",
+                  "B7w": "paged_attention_dma_multi_q8",
+                  "B8": "paged_attention_multi_blocked_q8",
+                  "B9": "paged_attention_quantized"}
+PAGED_WINDOW_KERNEL = ("B6", "B8")     # the rest run the few-rows kernel
+
+
+def paged_run(name, q, pages, lens, tabs, slopes):
+    """The paged wrapper of B3-B9 ``name`` on (q, pages, lengths, tables);
+    pages (k, v) or (k, k scales, v, v scales)."""
+    from merlin_tpu_torch.ops import paged_attention as pa
+
+    kw = {} if name == "B3" else {"alibi_slopes": slopes}
+    return getattr(pa, PAGED_FN_NAMES[name])(q, *pages, lens, tabs, **kw)
+
+
+def f32_split_keys(name, q, pages, lens, tabs):
+    """The key splits the f32 route's wrapper gives its kernel: the
+    few-rows kernel's pages a split, the window kernel's plan for this
+    card cut per sequence."""
+    from merlin_tpu_torch.ops import paged_attention as pa
+
+    page, pps = pages[0].shape[1], tabs.shape[1]
+    if name not in PAGED_WINDOW_KERNEL:
+        return pa.rows_split_keys(page)
+    b, s_q, h, d = q.shape
+    hkv = pages[0].shape[2] // d
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits = pa.window_plan(b, h // hkv * s_q, hkv, d, page, pps, sms,
+                            f32=True)[0]
+    return pa.f32_window_split_keys(lens.tolist(), splits, page, pps)
+
+
+def f32_plain(name, q, pages, lens, tabs, slopes, split=None):
+    """The plain version of an f32 paged kernel: the TPU kernel's rounding
+    on the kernels' 64-key tiles, walked in ``split`` (None: the TPU
+    kernel's single walk)."""
+    from merlin_tpu_torch.ops import paged_attention as pa
+
+    kw = dict(alibi_slopes=slopes, kernel_rounding=True,
+              block_keys=pa.F32_TILE_KEYS, split_keys=split)
+    if len(pages) == 4:
+        fn = (pa.paged_attention_q8_plain if q.dim() == 3
+              else pa.paged_attention_multi_q8_plain)
+        return fn(q, *pages, lens, tabs,
+                  bf16_operands=name in ("B7", "B7w"), **kw)
+    fn = (pa.paged_attention_plain if q.dim() == 3
+          else pa.paged_attention_multi_plain)
+    return fn(q, *pages, lens, tabs, **kw)
+
+
+def f32_tol(name, q, pages):
+    """An f32 paged kernel's tolerance against its split-aware plain
+    version, and how it is measured."""
+    if name in ("B7", "B7w"):
+        return C49_TOL, "C49, relative L2"
+    if q.dtype == torch.bfloat16 or pages[0].dtype == torch.bfloat16:
+        return OUT_RTOL, "bf16 rows"
+    return F32_RTOL, "f32"
+
+
+def f32_measure(got, want, how) -> float:
+    if how == "bf16 rows":
+        return out_err(got, want)[1]
+    if how.startswith("C49"):
+        return ((got.float() - want.float()).norm()
+                / want.float().norm()).item()
+    return f32_err(got, want)
+
+
+def paged_plain(name, q, pages, lens, tabs, slopes):
+    """The plain version a paged kernel is held to: on the f32 route
+    (``_f32_kernel``) the TPU kernel's rounding walked in the wrapper's key
+    splits (``f32_plain``); on the bf16 route (bf16 q over bf16 or int8
+    pages) JAX's reference, rows with no key 0 (C2)."""
+    from merlin_tpu_torch.ops import paged_attention as pa
+
+    if pa._f32_kernel(q, pages[0]):
+        return f32_plain(name, q, pages, lens, tabs, slopes,
+                         f32_split_keys(name, q, pages, lens, tabs))
+    kw = {} if name == "B3" else {"alibi_slopes": slopes}
+    if len(pages) == 4:
+        fn = (pa.paged_attention_q8_plain if q.dim() == 3
+              else pa.paged_attention_multi_q8_plain)
+    else:
+        fn = (pa.paged_attention_plain if q.dim() == 3
+              else pa.paged_attention_multi_plain)
+    return no_key_rows_zero(fn(q, *pages, lens, tabs, **kw), lens)
+
+
+def paged_timing(name, x, slopes, flops, smi, tag=""):
+    """A paged kernel's time on x = (q, pages, lengths, tables), its plain
+    version's (``paged_plain``) and its bound. The bound is the function's:
+    each page byte read once, q read and out written once, at 3.35 TB/s; its
+    ``flops`` (q.k and P V once each) at 989 TFLOP/s bf16, or on the f32
+    route at the TF32 passes its operands take (``f32_paged_passes``). The
+    window kernel at d > 128 runs q.k once a column half, 3 products where
+    the function needs 2: that bound stands beside it as
+    ``bound_ms_products_run``. ``tag`` heads the log line."""
+    from merlin_tpu_torch.ops import paged_attention as pa
+
+    q, pages, lens, tabs = x
+    f32 = pa._f32_kernel(q, pages[0])
+    ms = time_ms(lambda: paged_run(name, q, pages, lens, tabs, slopes))
+    plain_ms = time_ms(lambda: paged_plain(name, q, pages, lens, tabs,
+                                           slopes), iters=3)
+    host = host_us(lambda: paged_run(name, q, pages, lens, tabs, slopes))
+    hkv_d = pages[0].shape[2]
+    per_key = 2 * hkv_d * pages[0].element_size()
+    if len(pages) == 4:                # one f32 scale a (key, kv head)
+        per_key += 2 * 4 * hkv_d // q.shape[-1]
+    io = int(lens.sum()) * per_key + 2 * nbytes(q)
+    # half the FLOP are q.k, half P V, each at its passes' rate
+    qk, pv = (f32_paged_passes(name, q.dtype, pages[0].dtype) if f32
+              else (1, 1))
+    peak = (2 * PEAK_TF32_FLOPS if f32 else 2 * PEAK_BF16_FLOPS) / (qk + pv)
+    bms, by = bound_ms(flops, io, peak)
+    pair = pair_name((q.dtype, pages[0].dtype))
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               host_us_per_call=host, shape=list(q.shape),
+               lengths=lens.tolist(), pair=pair)
+    how = (f"{qk} + {pv} TF32 passes (q.k + P V) at 495 TFLOP/s a pass"
+           if f32 else "989 TFLOP/s bf16")
+    if f32:
+        out["bound_ms_ffma"], _ = bound_ms(flops, io, PEAK_F32_FLOPS)
+        out["tf32_passes"] = [qk, pv]
+        how += f"; FFMA at 67 TFLOP/s: {out['bound_ms_ffma']:.4f} ms"
+    if name in PAGED_WINDOW_KERNEL and q.shape[-1] > 128:
+        run_ms, run_by = bound_ms(flops * (2 * qk + pv) / (qk + pv), io,
+                                  peak)
+        out.update(products_run=3, bound_ms_products_run=run_ms,
+                   bound_by_products_run=run_by)
+        how += f"; for the 3 products it runs: {run_ms:.4f} ms ({run_by})"
+    log(f"{tag}{name}{' f32' if f32 else ''} {tuple(q.shape)} lengths "
+        f"{lens.tolist()} ({pair}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {bms:.4f} ms ({by}; {how}; bytes at 3.35 TB/s), library "
+        f"none; wrapper {host:.1f} us of host time a call; card {smi}")
+    return out
+
+
 def check_f32_paged(gen, smi):
     """B3-B9 on the f32 kernels (the few-rows kernel: B3, B4, B5, B7 decode
     and windows, B9; the window kernel: B6, B8) at every (q, page) pair but
@@ -6015,73 +6173,19 @@ def check_f32_paged(gen, smi):
     passes each pair's products take (``f32_paged_passes``). Returns the
     rows."""
     from merlin_tpu_torch.models.layers import alibi_slopes
-    from merlin_tpu_torch.ops import paged_attention as pa
 
-    fns = {"B3": pa.paged_attention_dma, "B4": pa.paged_attention,
-           "B5": pa.paged_attention_dma_multi,
-           "B6": pa.paged_attention_multi_blocked,
-           "B7": pa.paged_attention_dma_q8,
-           "B7w": pa.paged_attention_dma_multi_q8,
-           "B8": pa.paged_attention_multi_blocked_q8,
-           "B9": pa.paged_attention_quantized}
-    window_kernel = ("B6", "B8")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs = collections.defaultdict(list)
     single_errs = collections.defaultdict(list)
 
-    def split_keys(name, q, pages, lens, tabs):
-        """The key splits the wrapper gives its kernel: the few-rows
-        kernel's pages a split, the window kernel's plan for this card cut
-        per sequence."""
-        page, pps = pages[0].shape[1], tabs.shape[1]
-        if name not in window_kernel:
-            return pa.rows_split_keys(page)
-        b, s_q, h, d = q.shape
-        hkv = pages[0].shape[2] // d
-        splits = pa.window_plan(b, h // hkv * s_q, hkv, d, page, pps, sms,
-                                f32=True)[0]
-        return pa.f32_window_split_keys(lens.tolist(), splits, page, pps)
-
-    def plain(name, q, pages, lens, tabs, slopes, split=None):
-        kw = dict(alibi_slopes=slopes, kernel_rounding=True,
-                  block_keys=pa.F32_TILE_KEYS, split_keys=split)
-        if len(pages) == 4:
-            fn = (pa.paged_attention_q8_plain if q.dim() == 3
-                  else pa.paged_attention_multi_q8_plain)
-            return fn(q, *pages, lens, tabs,
-                      bf16_operands=name in ("B7", "B7w"), **kw)
-        fn = (pa.paged_attention_plain if q.dim() == 3
-              else pa.paged_attention_multi_plain)
-        return fn(q, *pages, lens, tabs, **kw)
-
-    def run(name, q, pages, lens, tabs, slopes):
-        kw = {} if name == "B3" else {"alibi_slopes": slopes}
-        return fns[name](q, *pages, lens, tabs, **kw)
-
-    def tol_of(name, q, pages):
-        if name in ("B7", "B7w"):
-            return C49_TOL, "C49, relative L2"
-        if q.dtype == torch.bfloat16 or pages[0].dtype == torch.bfloat16:
-            return OUT_RTOL, "bf16 rows"
-        return F32_RTOL, "f32"
-
-    def measure(got, want, how):
-        if how == "bf16 rows":
-            return out_err(got, want)[1]
-        if how.startswith("C49"):
-            return ((got.float() - want.float()).norm()
-                    / want.float().norm()).item()
-        return f32_err(got, want)
-
     def compare(tag, name, inputs, slopes=None, tables=None, fault=None):
         q, pages, lens, tabs = inputs
-        split = split_keys(name, q, pages, lens, tabs)
-        want = plain(name, q, pages, lens, tabs, slopes, split)
-        got = (fault or run)(name, q, pages, lens,
+        split = f32_split_keys(name, q, pages, lens, tabs)
+        want = f32_plain(name, q, pages, lens, tabs, slopes, split)
+        got = (fault or paged_run)(name, q, pages, lens,
                              tabs if tables is None else tables, slopes)
         torch.cuda.synchronize()
-        tol, how = tol_of(name, q, pages)
-        err = measure(got, want, how)
+        tol, how = f32_tol(name, q, pages)
+        err = f32_measure(got, want, how)
         what = ("a live page redirected" if tables is not None
                 else "computed in f32 (B9's rule)" if fault else None)
         full = f"{name} f32 {tag} ({pair_name((q.dtype, pages[0].dtype))})"
@@ -6092,11 +6196,11 @@ def check_f32_paged(gen, smi):
                 raise AssertionError(f"{full}: the check cannot see {what}")
             return
         # the TPU kernel's single walk: p rounded against one running max
-        one = plain(name, q, pages, lens, tabs, slopes)
+        one = f32_plain(name, q, pages, lens, tabs, slopes)
         s_tol, s_how = ((OUT_RTOL, "bf16 rows")
                         if how != "f32" else (F32_RTOL, "f32"))
-        s_err = measure(got, one, s_how)
-        again = run(name, q, pages, lens, tabs, slopes)
+        s_err = f32_measure(got, one, s_how)
+        again = paged_run(name, q, pages, lens, tabs, slopes)
         torch.cuda.synchronize()
         same = torch.equal(again, got)
         log(f"{full}: error {err:.3e} (tol {tol:.0e}, {how}), max_abs_err "
@@ -6129,7 +6233,7 @@ def check_f32_paged(gen, smi):
         if q8:
             compare("decode vicuna", "B9", inp)
             compare("decode vicuna, at f32 q", "B7", inp,
-                    fault=lambda n, *a: run("B9", *a))
+                    fault=lambda n, *a: paged_run("B9", *a))
         compare(f"decode lengths {edges}", dec_alibi,
                 paged_f32_inputs(gen, 4, 32, 32, 128, edges, qd, pd), s32)
         compare("decode baichuan-13b alibi (40 heads)", dec_alibi,
@@ -6182,36 +6286,6 @@ def check_f32_paged(gen, smi):
                     tables=redirect_page(inputs[3], lens, page,
                                          last_split=True, window=True))
 
-    def timing(name, inputs, slopes, flops, pair_tag):
-        q, pages, lens, tabs = inputs
-        ms = time_ms(lambda: run(name, q, pages, lens, tabs, slopes))
-        split = split_keys(name, q, pages, lens, tabs)
-        plain_ms = time_ms(
-            lambda: plain(name, q, pages, lens, tabs, slopes, split),
-            iters=3)
-        host = host_us(lambda: run(name, q, pages, lens, tabs, slopes))
-        hkv_d = pages[0].shape[2]
-        per_key = 2 * hkv_d * pages[0].element_size()
-        if len(pages) == 4:            # one f32 scale a (key, kv head)
-            per_key += 2 * 4 * hkv_d // q.shape[-1]
-        kv_bytes = int(lens.sum()) * per_key
-        # half the FLOP are q.k, half P V, each at its passes' rate
-        qk, pv = f32_paged_passes(name, q.dtype, pages[0].dtype)
-        peak = 2 * PEAK_TF32_FLOPS / (qk + pv)
-        bms, by = bound_ms(flops, kv_bytes + 2 * nbytes(q), peak)
-        ffma, _ = bound_ms(flops, kv_bytes + 2 * nbytes(q), PEAK_F32_FLOPS)
-        log(f"{name} f32 {tuple(q.shape)} lengths {lens.tolist()} "
-            f"({pair_tag}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bms:.4f} ms ({by}; {qk} + {pv} TF32 passes (q.k + P V) "
-            f"at 495 TFLOP/s a pass, bytes at 3.35 TB/s; FFMA at 67 "
-            f"TFLOP/s: {ffma:.4f} ms), library none; wrapper {host:.1f} us "
-            f"of host time a call; card {smi}")
-        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                    bound_ms_ffma=ffma, tf32_passes=[qk, pv],
-                    host_us_per_call=host,
-                    shape=list(q.shape), lengths=lens.tolist(),
-                    pair=pair_tag)
-
     rows = {}
     path = {}
     path_shapes = collections.defaultdict(list)
@@ -6235,23 +6309,17 @@ def check_f32_paged(gen, smi):
                      ("B5", w5, None, window_flops(w5[0], w5[2])),
                      ("B6", w128, None, window_flops(w128[0], w128[2])))
         for name, inputs, slopes, flops in kinds:
-            path.setdefault(name, {})[tag] = timing(name, inputs, slopes,
-                                                    flops, tag)
+            path.setdefault(name, {})[tag] = paged_timing(
+                name, inputs, slopes, flops, smi)
         # the engine's other prefill windows, at the F2 pairs
         if tag in ("f32/bf16", "f32/int8"):
             win = "B8" if pd == torch.int8 else "B6"
             for n in (128, 1536):
                 w = paged_f32_inputs(gen, 1, 32, 32, 128, [n], qd, pd,
                                      s_q=128)
-                path_shapes[win].append(timing(
-                    win, w, None, window_flops(w[0], w[2]), tag))
-    names = {"B3": "paged_attention_dma", "B4": "paged_attention",
-             "B5": "paged_attention_dma_multi",
-             "B6": "paged_attention_multi_blocked",
-             "B7": "paged_attention_dma_q8",
-             "B7w": "paged_attention_dma_multi_q8",
-             "B8": "paged_attention_multi_blocked_q8",
-             "B9": "paged_attention_quantized"}
+                path_shapes[win].append(paged_timing(
+                    win, w, None, window_flops(w[0], w[2]), smi))
+    names = PAGED_FN_NAMES
     main_pair = {n: ("f32/int8" if n in ("B7", "B7w", "B8", "B9")
                      else "f32/bf16") for n in names}
     for name, fn_name in names.items():
@@ -6259,7 +6327,7 @@ def check_f32_paged(gen, smi):
         rows[name] = dict(
             name=f"{name} f32 {fn_name}", route="cuda",
             source=F32_PAGED_SOURCE, replaces=PAGED_REPLACES[name],
-            kernel=("paged_window_f32_kernel" if name in window_kernel
+            kernel=("paged_window_f32_kernel" if name in PAGED_WINDOW_KERNEL
                     else "paged_rows_f32_kernel"),
             counter=name + F32, max_abs_err=max(errs[name] or [0.0]),
             single_walk_err=max(single_errs[name] or [0.0]),
@@ -6267,6 +6335,242 @@ def check_f32_paged(gen, smi):
         if name in path_shapes:
             rows[name]["path_shapes"] = path_shapes[name]
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase H: head dims past 128 (the paged kernels' DP = 256 forms)
+# ---------------------------------------------------------------------------
+
+H_DIMS = (136, 256)          # a d zero-padded to the wide form, and its full
+H_DECODE = [1, 256, 1937, 700]
+H_WINDOW = [5, 256, 1937, 700]
+H_BAICHUAN = [1, 384, 1999, 901]
+H_PATH_LENGTHS = (128, 640, 1536)
+H_SEED = 21                  # the served model's weights
+
+
+def swap_halves(out):
+    """The planted column-half fault: each 128-column half of O written at
+    the other half's offset (d = 256)."""
+    return torch.cat([out[..., 128:], out[..., :128]], -1)
+
+
+def check_paged_wide(gen, smi):
+    """Phase H's kernel checks: all four paged kernels at their DP = 256
+    form, at d = 136 and 256, against their plain versions at the
+    unchanged tolerances: the bf16 few-rows and window kernels over bf16
+    and int8 pages (decode at 4 slots, windows s_q = 5 and 128 at L =
+    128/640/1536, ALiBi at 16 heads, groups 1/4/8, pages of 16 and 128),
+    the f32 ones at the four (q, page) pairs of the f32 route (B7 with its
+    bf16 operands, C49) against the split-aware kernel rule. Every case
+    runs twice (bit-identical). Planted: a page redirected in the last key
+    split, a dropped key tile (the run's lengths one 64-key tile short),
+    C11's lane fault at hkv = 2, and at d = 256 the output's column halves
+    swapped. Times at d = 256 at the d = 128 rows' bytes (16 x 256 heads
+    for 32 x 128). Returns the rows of the kernels line."""
+    from merlin_tpu_torch.models.layers import alibi_slopes
+    from merlin_tpu_torch.ops import paged_attention as pa
+
+    errs = collections.defaultdict(list)
+    n_checked = collections.Counter()
+
+    def compare(tag, name, inputs, slopes=None, tables=None, lens_run=None,
+                pages_run=None, post=None, what=None):
+        q, pages, lens, tabs = inputs
+        f32 = pa._f32_kernel(q, pages[0])
+        want = paged_plain(name, q, pages, lens, tabs, slopes)
+        tol, how = f32_tol(name, q, pages) if f32 else (OUT_RTOL, "bf16 rows")
+
+        def run():
+            out = paged_run(name, q, pages if pages_run is None else pages_run,
+                            lens if lens_run is None else lens_run,
+                            tabs if tables is None else tables, slopes)
+            return out if post is None else post(out)
+
+        got = run()
+        torch.cuda.synchronize()
+        err = f32_measure(got, want, how)
+        key = name + (F32 if f32 else "")
+        full = (f"H {key} {tag} ({pair_name((q.dtype, pages[0].dtype))}, "
+                f"d = {q.shape[-1]})")
+        if what is not None:
+            log(f"{full} planted fault ({what}): error {err:.3e}, must "
+                f"exceed {tol:.0e} ({how})")
+            if not err > tol:
+                raise AssertionError(f"{full}: the check cannot see {what}")
+            return
+        again = run()
+        torch.cuda.synchronize()
+        same = torch.equal(again, got)
+        log(f"{full}: error {err:.3e} (tol {tol:.0e}, {how}), max_abs_err "
+            f"{out_err(got, want)[0]:.3e}; second run bit-identical: {same}")
+        if not (err <= tol and same and torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{full} disagrees: {err} {same}")
+        errs[key].append(out_err(got, want)[0])
+        n_checked[key] += 1
+
+    def inputs(b, h, hkv, d, lengths, pair, s_q=0, page=128):
+        return paged_f32_inputs(gen, b, h, hkv, d, lengths, *pair, s_q=s_q,
+                                page=page)
+
+    def dropped_tile(lens):
+        return (lens - 64).clamp_min(0)
+
+    s16 = alibi_slopes(16, device="cuda")
+    bf16_pairs = ((torch.bfloat16, torch.bfloat16),
+                  (torch.bfloat16, torch.int8))
+    for d in H_DIMS:
+        for pair in bf16_pairs + F32_PAIRS:
+            q8 = pair[1] == torch.int8
+            f32 = pair not in bf16_pairs
+            dec, dec_alibi, win_s, win = (("B7", "B7", "B7w", "B8") if q8
+                                          else ("B3", "B4", "B5", "B6"))
+            # decode at 4 slots, groups 1, 4 and 8, ALiBi, pages of 16
+            x = inputs(4, 16, 16, d, H_DECODE, pair)
+            compare("decode (4 slots, 16/16 heads)", dec, x)
+            if q8:
+                compare("decode (4 slots, 16/16 heads)", "B9", x)
+            compare("decode, last split", dec, x, tables=redirect_page(
+                x[3], H_DECODE, last_split=True),
+                what="a page redirected in the last key split")
+            compare("decode", dec, x, lens_run=dropped_tile(x[2]),
+                    what="the last 64-key tile dropped")
+            for hkv in (4, 2):
+                g = inputs(4, 16, hkv, d, H_DECODE, pair)
+                compare(f"decode group {16 // hkv} alibi (16/{hkv} heads)",
+                        dec_alibi, g, s16)
+                if q8 and hkv == 2:
+                    lanes = (g[1][0], head_lane_scales(g[1][1], 2),
+                             g[1][2], head_lane_scales(g[1][3], 2))
+                    compare("decode group 8 alibi (16/2 heads)", dec_alibi,
+                            g, s16, pages_run=lanes,
+                            what="scales at lane hk, not hk * 64")
+            p16 = inputs(4, 16, 16, d, H_DECODE, pair, page=16)
+            compare("decode page 16 alibi", dec_alibi, p16, s16)
+            # windows of 5 rows (the few-rows kernel) and of 128 (the
+            # window kernel, bf16 route's B5/B7 windows at s_q = 5)
+            w5 = inputs(4, 16, 16, d, H_WINDOW, pair, s_q=5)
+            compare("window s_q=5", win_s, w5, s16 if q8 else None)
+            compare("window s_q=5, last split", win_s, w5,
+                    tables=redirect_page(w5[3], H_WINDOW, last_split=True),
+                    what="a page redirected in the last key split")
+            for n in (H_PATH_LENGTHS if not f32 else (640,)):
+                w = inputs(1, 16, 16, d, [n], pair, s_q=128)
+                compare(f"window (1,128,16,{d}) L={n}", win, w)
+            compare("window L=640 alibi", win,
+                    inputs(1, 16, 16, d, [640], pair, s_q=128), s16)
+            compare("window L=640 group 4 (16/4 heads)", win,
+                    inputs(1, 16, 4, d, [640], pair, s_q=128))
+            w16 = inputs(1, 16, 16, d, [1536], pair, s_q=128, page=16)
+            compare("window L=1536 page 16", win, w16)
+            compare("window L=1536 page 16, last split", win, w16,
+                    tables=redirect_page(w16[3], [1536], 16,
+                                         last_split=True, window=True),
+                    what="a page redirected in the last key split")
+            if d == 256:
+                compare("window L=1536 page 16", win, w16, post=swap_halves,
+                        what="the column halves' outputs swapped")
+
+    rows = {}
+    d = 256
+    for pair in bf16_pairs + ((torch.float32, torch.bfloat16),
+                              (torch.float32, torch.int8)):
+        q8 = pair[1] == torch.int8
+        f32 = pair not in bf16_pairs
+        dec = inputs(4, 16, 16, d, H_DECODE, pair)
+        bc = inputs(4, 20, 20, d, H_BAICHUAN, pair)
+        w5 = inputs(4, 16, 16, d, H_WINDOW, pair, s_q=5)
+        w5_bc = inputs(4, 20, 20, d, [5, 384, 1999, 901], pair, s_q=5)
+        path = {n: inputs(1, 16, 16, d, [n], pair, s_q=128)
+                for n in H_PATH_LENGTHS}
+        dec_flops = 4.0 * 16 * d * int(dec[2].sum())
+        s20 = alibi_slopes(20, device="cuda")
+        if q8:
+            kinds = (("B7", dec, None, dec_flops),
+                     ("B9", dec, None, dec_flops),
+                     ("B7w", w5_bc, s20, window_flops(w5_bc[0], w5_bc[2])))
+            win = "B8"
+        else:
+            kinds = (("B3", dec, None, dec_flops),
+                     ("B4", bc, s20, 4.0 * 20 * d * int(bc[2].sum())),
+                     ("B5", w5, None, window_flops(w5[0], w5[2])))
+            win = "B6"
+        for name, x, slopes, flops in kinds:
+            rows[name + (F32 if f32 else "")] = paged_timing(
+                name, x, slopes, flops, smi, "H ")
+        shapes = [paged_timing(win, x, None, window_flops(x[0], x[2]), smi,
+                               "H ") for x in path.values()]
+        rows[win + (F32 if f32 else "")] = dict(shapes[1],
+                                                path_shapes=shapes)
+    out = {}
+    for key, t in rows.items():
+        name = key.split("_")[0]
+        f32 = key.endswith(F32)
+        out[key] = dict(
+            name=f"{name}{' f32' if f32 else ''} {PAGED_FN_NAMES[name]} "
+                 f"(d = {d})",
+            route="cuda", source=F32_PAGED_SOURCE if f32 else PAGED_SOURCE,
+            replaces=PAGED_REPLACES[name],
+            kernel=(("paged_window_f32_kernel" if f32 else
+                     "paged_window_kernel") if name in PAGED_WINDOW_KERNEL
+                    else ("paged_rows_f32_kernel" if f32 else
+                          "paged_rows_kernel")),
+            counter=key, max_abs_err=max(errs[key] or [0.0]),
+            cases_checked=n_checked[key], library_ms=None, card=smi, **t)
+    return out
+
+
+def build_h_model(dtype=torch.bfloat16):
+    """Phase H's served model: the llama block at Vicuna-7B width (hidden
+    4096, intermediate 11008, vocabulary 32000, RoPE, RMSNorm) regrouped
+    as 16 heads of 256 dims (the parameter count of Vicuna-7B's), depth
+    cut to 4 of 32 layers; random weights from ``H_SEED`` in ``dtype``."""
+    from merlin_tpu_torch.models.bridge import init_params
+    from merlin_tpu_torch.models.decoder import CausalLM
+    from merlin_tpu_torch.models.families import vicuna_7b
+
+    cfg = dataclasses.replace(vicuna_7b(), num_heads=16, head_dim=256,
+                              num_layers=4, dtype=dtype)
+    with torch.device("meta"):
+        model = CausalLM(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(H_SEED)
+    init_params(model, gen, dtype=dtype, device="cuda")
+    return model.eval()
+
+
+def serve_wide(rng):
+    """Phase H's served runs: the 16 x 256 model through ``ServingEngine``
+    with E1's traffic (whole prompts + decode: B2, B3), E2's (chunked C =
+    128 + speculative k = 4: B6, B5) and E4's over an int8 pool (hybrid:
+    B2, B8, B7), then an f32 copy of the model over f32 pages with E2's
+    traffic (the f32 few-rows and window kernels, B5 and B6). Every check
+    of ``run_engine``. Returns {run: (counts, readings)}."""
+    model = build_h_model()
+    served = {}
+    served["H E1"] = run_engine(
+        "H E1 16x256 4 layers (whole-prompt admission, decode)", model,
+        serving_prompts(rng, SERVING_LENGTHS, 32000), ["B2", "B3"],
+        chunk_steps=8, pipeline=1, **SERVING)
+    e2 = serving_prompts(rng, SERVING_LENGTHS, 32000, period=48)
+    served["H E2"] = run_engine(
+        "H E2 16x256 4 layers (chunked prefill C=128, spec k=4)", model, e2,
+        ["B5", "B6"], prefill_chunk=128, prefill_windows_per_step=4,
+        spec_draft=4, chunk_steps=1, **SERVING)
+    served["H E4"] = run_engine(
+        "H E4 16x256 4 layers int8 pages (hybrid C=128 min 256)", model,
+        serving_prompts(rng, SERVING_LENGTHS, 32000), ["B2", "B7", "B8"],
+        cache_dtype=torch.int8, prefill_chunk=128, prefill_chunk_min=256,
+        chunk_steps=8, pipeline=1, **SERVING)
+    del model
+    free_cuda()
+    model = build_h_model(torch.float32)
+    served["H F32"] = run_engine(
+        "H F32 16x256 4 layers f32 over f32 pages (chunked prefill C=128, "
+        "spec k=4)", model, e2, ["B5" + F32, "B6" + F32], suffix=F32,
+        cache_dtype=torch.float32, prefill_chunk=128,
+        prefill_windows_per_step=4, spec_draft=4, chunk_steps=1, **SERVING)
+    del model
+    return served
 
 
 # ---------------------------------------------------------------------------
@@ -6798,6 +7102,11 @@ def main() -> int:
     gen32 = torch.Generator(device="cuda").manual_seed(15)
     f32_rows = check_f32_dense(gen32, smi)
     f32_rows.update(check_f32_paged(gen32, smi))
+    # phase H's kernel checks, on a generator of their own
+    t_h = time.perf_counter()
+    wide_rows = check_paged_wide(
+        torch.Generator(device="cuda").manual_seed(H_SEED), smi)
+    h_seconds = {"kernel checks": time.perf_counter() - t_h}
     check_reference(rng)
     model, cfg = build_full_model()
     fwd_counts, _ = run_forward(model, cfg, rng)
@@ -6826,6 +7135,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     served.update(serve_baichuan(rng))
     scanned["S3"] = serve_scanned_alibi(np.random.default_rng(17))
+    free_cuda()                       # phase H builds its own models
+    t_h = time.perf_counter()
+    wide_served = serve_wide(np.random.default_rng(H_SEED))
+    h_seconds["served"] = time.perf_counter() - t_h
     free_cuda()                       # phase F builds its own f32 model
     t_f = time.perf_counter()
     f1_counts, f1_gen, f_served, f_beam = run_f(np.random.default_rng(15))
@@ -6910,6 +7223,17 @@ def main() -> int:
         row["ptxas"] = {n: i for n, i in f32_ptxas.items()
                         if ("paged" in n) == ("paged" in src)
                         and ("bwd" in n) == ("bwd" in src)}
+    # the d = 256 rows' launches on phase H's served runs (B4, B7w and B9
+    # are on none of them: the model has no ALiBi, and no int8 run takes
+    # speculative windows)
+    h_path = {"B3": "H E1", "B5": "H E2", "B6": "H E2", "B7": "H E4",
+              "B8": "H E4", "B5" + F32: "H F32", "B6" + F32: "H F32"}
+    for key, row in wide_rows.items():
+        run = h_path.get(key)
+        row["launches"] = wide_served[run][0][key] if run else 0
+        row["launches_run"] = run
+        row["ptxas"] = {n: i for n, i in ptxas.items()
+                        if row["kernel"] in n and "Li256E" in n}
     rows = [b1, b2] + [paged[k] for k in ("B3", "B4", "B5", "B6", "B7",
                                           "B7w", "B8", "B9")] + [
         trained[k] for k in ("B10", "B11", "B12", "B13")] + [
@@ -6934,6 +7258,13 @@ def main() -> int:
         row["launches_mesh_serving"] = {e: mesh_served[e][0][key]
                                         for e in mesh_served}
         row["launches_f32_phase"] = {r: c[key] for r, c in f_runs.items()}
+    # a wrapper counts its launches at every d: a d = 256 row's launches
+    # are phase H's (the only runs at d > 128), and the rows above count
+    # none of phase H's
+    for key, row in wide_rows.items():
+        row["launches_head_dim_256"] = {r: c[0][key]
+                                        for r, c in wide_served.items()}
+    rows += list(wide_rows.values())
     log(json.dumps({"serving": {
         e: {k: v for k, v in served[e][1].items() if k != "tokens"}
         for e in served}}))
@@ -6966,6 +7297,11 @@ def main() -> int:
         "F beam": f_beam[1], "F3": front["F3"],
         "F4": {k: v for k, v in f4.items() if k != "counts"},
         "seconds": f_seconds, "card": smi}}))
+    log(json.dumps({"head_dim_256": {
+        e: dict({k: v for k, v in r[1].items() if k != "tokens"},
+                launches={k: n for k, n in r[0].items() if n})
+        for e, r in wide_served.items()}, "seconds": h_seconds,
+        "card": smi}))
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

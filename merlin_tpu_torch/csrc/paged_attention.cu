@@ -22,7 +22,9 @@
 //     _paged_multi_blocked_q8_kernel (paged_attention_multi_blocked_q8,
 //     pallas_call :916).
 // Pages are (P, page_size, hkv * d) bf16 or int8, tables (b, pps) int32,
-// lengths (b,) int32, q/out contiguous (b, [s_q,] h, d) bf16. int8 pages
+// lengths (b,) int32, q/out contiguous (b, [s_q,] h, d) bf16, d a multiple
+// of 8 up to 256 (each kernel in three forms: DP = 64, 128 and 256 head
+// dims a tile, d zero-padded to its form). int8 pages
 // come with f32 scales (P, page_size, S), one per (token, kv head): head hk's
 // at lane hk * max(S / hkv, 1) (the strided layout of _scale_row, stride 4
 // at hkv = 32, 3 at hkv = 40; reading lane hk instead passes any test with
@@ -72,21 +74,26 @@
 //     1.06-1.16x slower over bf16 pages and 1.18-1.33x over int8, a fourth
 //     up to 1.6x (merlin_tpu_torch/utils/ablate_paged.py, PERF.md): more
 //     CTAs in flight beat a deeper ring here, where each CTA walks 4 tiles.
+//     At d = 256 a bf16 stage is 68 KB: over bf16 pages the ring is three
+//     single K or V tiles taken in turn (two CTAs an SM, two barriers a
+//     tile; 15% faster than two stages at one CTA an SM, PERF.md).
 //   * Tensor-core tiles of 16 rows: S = Q K^T and O += P V on
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulate), Q's fragments in
-//     registers for the whole split. Decode at group 1 pads 1 row to 16,
-//     which costs no time while bytes bound it. (wgmma needs 64 rows: 4x to
-//     64x padding here, for no gain.) Each of the 4 warps takes 16 keys of
-//     every tile, so no warp waits on another's keys; they merge their (m,
-//     l, O) once, through shared memory, at the end of the split. V's
-//     fragments come from ldmatrix.trans. int8 K and V are dequantized
-//     from shared memory into the fragments: ldmatrix reads their bytes in
-//     pairs as b16 (so a thread holds 4 consecutive head dims of a key, and
-//     Q's fragments take the same order of the contraction; V's columns
-//     come interleaved, and O is written back in that order), and a byte
-//     permute and one FADD make each int8 an exact float where I2F runs at
-//     a quarter rate. Over byte loads and I2F this took B7's decode from
-//     0.0311 to 0.0269 ms (PERF.md).
+//     mma.sync.m16n8k16 (bf16 in, f32 accumulate), Q's fragments in registers
+//     for the whole split (at d = 256, where O alone takes 128 registers a
+//     thread, read from shared memory each k-step instead; every K and V byte
+//     is still read from device memory once, where splitting O's columns over
+//     two CTAs would read K twice). Decode at group 1 pads 1 row to 16, which
+//     costs no time while bytes bound it. (wgmma needs 64 rows: 4x to 64x
+//     padding here, for no gain.) Each of the 4 warps takes 16 keys of every
+//     tile, so no warp waits on another's keys; they merge their (m, l, O)
+//     once, through shared memory, at the end of the split. V's fragments come
+//     from ldmatrix.trans. int8 K and V are dequantized from shared memory
+//     into the fragments: ldmatrix reads their bytes in pairs as b16 (so a
+//     thread holds 4 consecutive head dims of a key, and Q's fragments take
+//     the same order of the contraction; V's columns come interleaved, and O
+//     is written back in that order), and a byte permute and one FADD make
+//     each int8 an exact float where I2F runs at a quarter rate. Over byte
+//     loads and I2F this took B7's decode from 0.0311 to 0.0269 ms (PERF.md).
 //   * Masks only where they can bite: a warp compares keys with lengths
 //     and query positions only on a tile that reaches past the keys every
 //     row sees (the sequence's last tile, a window's causal edge). ALiBi
@@ -102,18 +109,21 @@
 //     two streams must not share them, and the port runs one.
 //
 // Design of paged_window_kernel (what each choice does about its limits):
-//   * attention_fwd's tiles and schedule: a CTA owns 128 query rows of a
-//     kv head at d = 128 (two consumer warpgroups, 128-key tiles, one CTA
-//     an SM) or 64 at d = 64 (one warpgroup, 64-key tiles, three CTAs an
-//     SM); S = Q K^T on wgmma with Q and K K-major in shared memory (SS),
-//     O += P V with P packed to bf16 from S's accumulators (RS); S_j is
-//     issued with P_{j-1} V_{j-1} and tile j's softmax runs while the
-//     latter is on the tensor cores. A paged copy of that body, not one
-//     body with a loader policy: its rows are a kv head's group * s_q
-//     rows (row g * s_q + t, each with its own position length - s_q + t,
-//     slope and output row), int8 pages add a dequantize stage between
-//     the copy and wgmma, and the split-key merge closes it; attention_fwd
-//     runs at 255 registers at d = 128, where the added state would spill.
+//   * attention_fwd's tiles and schedule: a CTA owns 128 query rows of a kv
+//     head at d = 128 (two consumer warpgroups, 128-key tiles, one CTA an SM)
+//     or 64 at d = 64 (one warpgroup, 64-key tiles, three CTAs an SM); at d =
+//     256 64 rows and one 128-column half of O (a 64 x 256 f32 O would leave
+//     no registers for S): both halves' CTAs compute S whole (1.5x the
+//     products) and each reads its half of V, with its own split workspace and
+//     arrival counter; S = Q K^T on wgmma with Q and K K-major in shared
+//     memory (SS), O += P V with P packed to bf16 from S's accumulators (RS);
+//     S_j is issued with P_{j-1} V_{j-1} and tile j's softmax runs while the
+//     latter is on the tensor cores. A paged copy of that body, not one body
+//     with a loader policy: its rows are a kv head's group * s_q rows (row g *
+//     s_q + t, each with its own position length - s_q + t, slope and output
+//     row), int8 pages add a dequantize stage between the copy and wgmma, and
+//     the split-key merge closes it; attention_fwd runs at 255 registers at d
+//     = 128, where the added state would spill.
 //   * Keys split over CTAs, merged in the same launch, as in the few-rows
 //     kernel: the engine's prefill window is one sequence, so one CTA per
 //     (kv head, row tile) would launch 32 (Vicuna) or 40 (Baichuan) CTAs
@@ -203,6 +213,7 @@ __device__ __forceinline__ int seq_keys(const PagedArgs& a, int bi) {
 constexpr int kRowsThreads = 128;  // 4 warps, 16 keys of every tile each
 constexpr int kRowsKeys = 64;      // keys per ring stage
 constexpr int kRowsStages = 2;
+constexpr int kRowsSlots = 3;      // the K-or-V ring at DP = 256, bf16 pages
 constexpr int kMaxSplits = 256;    // the last CTA's merge weights fit smem
 
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
@@ -231,16 +242,21 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
 // Shared memory of the few-rows kernel: a ring of kRowsStages stages, each
 // a K tile, a V tile (64 keys, rows kLd elements apart) and, over int8
 // pages, the 64 keys' K and V scales; then the Q tile (16 rows) and the
-// split's page ids. At the end of the split the ring holds the warps' (m,
-// l, O) for their merge, then the last CTA's merge weights.
+// split's page ids. At DP = 256 over bf16 pages (kAlt) two such stages
+// would take 135 KB, one CTA an SM; the ring is then kRowsSlots single K
+// or V tiles taken in turn (K_0, V_0, K_1, ...: 101 KB, two CTAs an SM).
+// At the end of the split the ring holds the warps' (m, l, O) for their
+// merge, then the last CTA's merge weights.
 template <int DP, bool Q8>
 struct RowsLayout {
   using T = std::conditional_t<Q8, int8_t, __nv_bfloat16>;
+  static constexpr bool kAlt = DP > 128 && !Q8;
   static constexpr int kLd = Q8 ? DP + 16 : DP + 8;  // staggers the banks
   static constexpr int kTile = kRowsKeys * kLd * (int)sizeof(T);
   static constexpr int kScales = Q8 ? kRowsKeys * 4 : 0;
   static constexpr int kStage = 2 * (kTile + kScales);
-  static constexpr int kRing = kRowsStages * kStage;
+  static constexpr int kRing =
+      kAlt ? kRowsSlots * kTile : kRowsStages * kStage;
   static constexpr int kQLd = DP + 8;
   static constexpr int kQ = 16 * kQLd * 2;
   static constexpr int kOLd = DP + 4;  // the warps' O rows, f32
@@ -329,11 +345,11 @@ __global__ void __launch_bounds__(kRowsThreads)
   const int64_t row_elems = (int64_t)a.hkv * a.d;
   const T* kpool = static_cast<const T*>(a.k);
   const T* vpool = static_cast<const T*>(a.v);
-  // tile j of the split into its stage: each key's d columns (and its scale
-  // lanes), keys past the split's end and columns past d zero-filled
-  auto load_tile = [&](int j) {
-    const uint32_t kdst = smem_addr(ring + (j % kRowsStages) * L::kStage);
-    const uint32_t vdst = kdst + L::kTile;
+  // tile j of the split's K (into kdst, with do_k) and V (into vdst, with
+  // do_v): each key's d columns, keys past the split's end and columns
+  // past d zero-filled
+  auto copy_tiles = [&](int j, uint32_t kdst, uint32_t vdst, auto do_k,
+                        auto do_v) {
     const int k0 = j * kRowsKeys;  // within the split
     // W-byte copies of a key's d columns: 16 bytes (8 bf16, or 16 int8
     // where d % 16 == 0), else 8 (8 int8: a head's int8 slice is only
@@ -355,12 +371,18 @@ __global__ void __launch_bounds__(kRowsThreads)
                  key % a.page_size) * row_elems + hk * a.d + c;
         }
         const uint32_t so = (r * L::kLd + c) * (int)sizeof(T);
-        if constexpr (kW == 16) {
-          cp_async16(kdst + so, kpool + off, ok);
-          cp_async16(vdst + so, vpool + off, ok);
-        } else {
-          cp_async8(kdst + so, kpool + off, ok);
-          cp_async8(vdst + so, vpool + off, ok);
+        auto copy = [&](uint32_t dst, const T* src) {
+          if constexpr (kW == 16) {
+            cp_async16(dst, src, ok);
+          } else {
+            cp_async8(dst, src, ok);
+          }
+        };
+        if constexpr (std::decay_t<decltype(do_k)>::value) {
+          copy(kdst + so, kpool + off);
+        }
+        if constexpr (std::decay_t<decltype(do_v)>::value) {
+          copy(vdst + so, vpool + off);
         }
       }
     };
@@ -369,9 +391,16 @@ __global__ void __launch_bounds__(kRowsThreads)
     } else {
       copy_rows(std::integral_constant<int, 8>());
     }
+  };
+  // tile j of the split into its stage: its K and V (and their scale
+  // lanes)
+  auto load_tile = [&](int j) {
+    const uint32_t kdst = smem_addr(ring + (j % kRowsStages) * L::kStage);
+    const uint32_t vdst = kdst + L::kTile;
+    copy_tiles(j, kdst, vdst, std::true_type(), std::true_type());
     if constexpr (Q8) {
       // thread i < 64: key i's K scale; 64 + i: its V scale
-      const int key = k0 + tid % kRowsKeys;
+      const int key = j * kRowsKeys + tid % kRowsKeys;
       const bool ok = k_begin + key < k_end;
       int64_t off = 0;
       if (ok) {
@@ -382,21 +411,50 @@ __global__ void __launch_bounds__(kRowsThreads)
       cp_async4(vdst + L::kTile + tid * 4, src, ok);
     }
   };
+  // kAlt: slot i of the ring's sequence, K_{i/2} (i even) or V_{i/2}, one
+  // commit group each (empty past the split's tiles)
+  auto issue = [&](int i) {
+    if (i < 2 * n_tiles) {
+      const uint32_t dst = smem_addr(ring + (i % kRowsSlots) * L::kTile);
+      if (i & 1) {
+        copy_tiles(i >> 1, 0u, dst, std::false_type(), std::true_type());
+      } else {
+        copy_tiles(i >> 1, dst, 0u, std::true_type(), std::false_type());
+      }
+    }
+    cp_async_commit();
+  };
 
-  // Q's A fragments, for the whole split. Over int8 pages the K fragments
-  // come from ldmatrix as four consecutive head dims a thread (the int8
-  // pairs of a key row read as b16), so the contraction's k = 2t + e is
-  // head dim 4t + e and k = 2t + 8 + e is 4t + 2 + e, in Q as in K.
-  uint32_t qf[DP / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
+  // Q's A fragment of k-step kk from the Q tile. Over int8 pages the K
+  // fragments come from ldmatrix as four consecutive head dims a thread
+  // (the int8 pairs of a key row read as b16), so the contraction's k = 2t
+  // + e is head dim 4t + e and k = 2t + 8 + e is 4t + 2 + e, in Q as in K.
+  auto load_qf = [&](int kk, uint32_t (&f)[4]) {
     const __nv_bfloat16* qr = qs + g * L::kQLd + kk * 16 + t * (Q8 ? 4 : 2);
     constexpr int kHi = Q8 ? 2 : 8;  // where k = 2t + 8 lies in the row
-    qf[kk][0] = ld32(qr);
-    qf[kk][1] = ld32(qr + 8 * L::kQLd);
-    qf[kk][2] = ld32(qr + kHi);
-    qf[kk][3] = ld32(qr + 8 * L::kQLd + kHi);
+    f[0] = ld32(qr);
+    f[1] = ld32(qr + 8 * L::kQLd);
+    f[2] = ld32(qr + kHi);
+    f[3] = ld32(qr + 8 * L::kQLd + kHi);
+  };
+  // Up to DP = 128 the fragments stay in registers for the whole split. At
+  // DP = 256 they would take 64 registers beside O's 128, so each k-step
+  // reads its fragment from shared memory on every tile (4 LDS.32 a k-step
+  // a warp's 16 keys; no device byte more).
+  constexpr bool kQRegs = DP <= 128;
+  uint32_t qf[kQRegs ? DP / 16 : 1][4];
+  if constexpr (kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) load_qf(kk, qf[kk]);
   }
+  auto q_frag = [&](int kk, uint32_t (&f)[4]) {
+    if constexpr (kQRegs) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[i] = qf[kk][i];
+    } else {
+      load_qf(kk, f);
+    }
+  };
   // this thread's two rows: fragment rows g and g + 8
   int pos[2];
   float slope[2];  // ALiBi slope in the log2 domain, 0 without
@@ -422,10 +480,15 @@ __global__ void __launch_bounds__(kRowsThreads)
     o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
   }
 
+  if constexpr (L::kAlt) {
+    issue(0);
+    issue(1);
+  } else {
 #pragma unroll
-  for (int st = 0; st < kRowsStages - 1; ++st) {
-    if (st < n_tiles) load_tile(st);
-    cp_async_commit();
+    for (int st = 0; st < kRowsStages - 1; ++st) {
+      if (st < n_tiles) load_tile(st);
+      cp_async_commit();
+    }
   }
   const int kw = warp * 16;  // this warp's keys of every tile
   // ldmatrix: lane i addresses row i % 8 of matrix i / 8, the tile's key
@@ -434,12 +497,24 @@ __global__ void __launch_bounds__(kRowsThreads)
       (kw + ((lane >> 3) & 1) * 8 + (lane & 7)) * L::kLd * (int)sizeof(T) +
       (lane >> 4) * 16;
   for (int j = 0; j < n_tiles; ++j) {
-    cp_async_wait<kRowsStages - 2>();
-    __syncthreads();  // tile j landed for all; all are done with tile j - 1
-    if (j + kRowsStages - 1 < n_tiles) load_tile(j + kRowsStages - 1);
-    cp_async_commit();
-    const unsigned char* ks = ring + (j % kRowsStages) * L::kStage;
-    const unsigned char* vs = ks + L::kTile;
+    const unsigned char* ks;
+    const unsigned char* vs;
+    if constexpr (L::kAlt) {
+      // K_j landed for all; every warp is done with V_{j-1}, whose slot
+      // takes K_{j+1}
+      cp_async_wait<1>();
+      __syncthreads();
+      issue(2 * j + 2);
+      ks = ring + (2 * j % kRowsSlots) * L::kTile;
+      vs = ring + ((2 * j + 1) % kRowsSlots) * L::kTile;
+    } else {
+      cp_async_wait<kRowsStages - 2>();
+      __syncthreads();  // tile j landed for all; all are done with tile j-1
+      if (j + kRowsStages - 1 < n_tiles) load_tile(j + kRowsStages - 1);
+      cp_async_commit();
+      ks = ring + (j % kRowsStages) * L::kStage;
+      vs = ks + L::kTile;
+    }
     const float* kscale = reinterpret_cast<const float*>(vs + L::kTile);
     const float* vscale = kscale + kRowsKeys;
     const int k0 = k_begin + j * kRowsKeys + kw;  // the warp's first key
@@ -459,13 +534,15 @@ __global__ void __launch_bounds__(kRowsThreads)
 #pragma unroll
       for (int kk = 0; kk < DP / 16; kk += 2) {
         if (kk * 16 < a.d) {
-          uint32_t x[4];
+          uint32_t x[4], qa[2][4];
           ldmatrix_x4(x, kaddr + kk * 16);
+          q_frag(kk, qa[0]);
+          q_frag(kk + 1, qa[1]);
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const uint32_t xu = x[q] ^ 0x80808080u;
             const float sc = q & 1 ? ks1 : ks0;
-            mma_16816(s[q & 1], qf[kk + q / 2], dequant2<0, 1>(xu, sc, sc),
+            mma_16816(s[q & 1], qa[q / 2], dequant2<0, 1>(xu, sc, sc),
                       dequant2<2, 3>(xu, sc, sc));
           }
         }
@@ -474,13 +551,15 @@ __global__ void __launch_bounds__(kRowsThreads)
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
         if (kk * 16 < a.d) {
+          uint32_t qa[4];
+          q_frag(kk, qa);
 #pragma unroll
           for (int jn = 0; jn < 2; ++jn) {
             const __nv_bfloat16* kr = reinterpret_cast<const __nv_bfloat16*>(
                                           ks) +
                                       (kw + jn * 8 + g) * L::kLd + kk * 16 +
                                       t * 2;
-            mma_16816(s[jn], qf[kk], ld32(kr), ld32(kr + 8));
+            mma_16816(s[jn], qa, ld32(kr), ld32(kr + 8));
           }
         }
       }
@@ -535,6 +614,13 @@ __global__ void __launch_bounds__(kRowsThreads)
       o[dn][1] *= alpha[0];
       o[dn][2] *= alpha[1];
       o[dn][3] *= alpha[1];
+    }
+    if constexpr (L::kAlt) {
+      // V_j landed for all; every warp is done with K_j, whose slot takes
+      // V_{j+1}
+      cp_async_wait<1>();
+      __syncthreads();
+      issue(2 * j + 3);
     }
     // V by ldmatrix, transposed (the addresses of K's), a block of columns
     // a call: matrices 0/1 give b0/b1 of its first 16 bytes' columns, 2/3
@@ -697,8 +783,12 @@ int launch_rows(const PagedArgs& a, cudaStream_t s) {
     return (int)launch_grid(paged_rows_kernel<64, Q8>, grid, kRowsThreads,
                             RowsLayout<64, Q8>::bytes(a.split_pages), a, s);
   }
-  return (int)launch_grid(paged_rows_kernel<128, Q8>, grid, kRowsThreads,
-                          RowsLayout<128, Q8>::bytes(a.split_pages), a, s);
+  if (a.d <= 128) {
+    return (int)launch_grid(paged_rows_kernel<128, Q8>, grid, kRowsThreads,
+                            RowsLayout<128, Q8>::bytes(a.split_pages), a, s);
+  }
+  return (int)launch_grid(paged_rows_kernel<256, Q8>, grid, kRowsThreads,
+                          RowsLayout<256, Q8>::bytes(a.split_pages), a, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -713,13 +803,18 @@ constexpr int kWindowMaxPages = 4096;  // a table row's entries, at most
 constexpr int kWindowStages = 2;
 
 // The tiles of the DP-column window kernel, as attention_fwd.cu's
-// FwdTiles: consumer warpgroups of 64 query rows, keys per K/V tile.
+// FwdTiles: consumer warpgroups of 64 query rows, keys per K/V tile, and
+// the O columns a CTA owns (at DP = 256 a 64 x 256 f32 O would leave no
+// registers for S, so each CTA owns one 128-column half: kHalves CTAs a
+// row tile, each computing S whole and reading its half of V).
 template <int DP>
 struct WindowTiles {
   static constexpr int kWarpGroups = DP == 128 ? 2 : 1;
   static constexpr int kKeys = DP == 128 ? 128 : 64;
   static constexpr int kThreads = kWarpGroups * 128;
   static constexpr int kRows = kWarpGroups * 64;  // query rows of a CTA
+  static constexpr int kCols = DP > 128 ? 128 : DP;
+  static constexpr int kHalves = DP / kCols;
   static_assert(kThreads == 2 * kKeys, "a thread per K or V scale of a tile");
 };
 
@@ -728,24 +823,28 @@ struct WindowTiles {
 // stages of K and of V, the tiles wgmma reads; over int8 pages one bf16 K
 // and one bf16 V tile, which wgmma reads, and the stages of the int8 K and
 // V tiles and their scales, which the copies fill; then the split's page
-// ids.
+// ids. A V tile holds the CTA's kCols columns only.
 template <int DP, bool Q8>
 struct WindowLayout {
   using W = WindowTiles<DP>;
   static constexpr int kQTile = 64 * DP * 2;
-  static constexpr int kTile = W::kKeys * DP * 2;  // a bf16 K or V tile
-  static constexpr int kTile8 = W::kKeys * DP;     // an int8 one
-  static constexpr int kStage8 = 2 * kTile8 + 2 * W::kKeys * 4;
+  static constexpr int kTile = W::kKeys * DP * 2;  // a bf16 K tile
+  static constexpr int kTileV = W::kKeys * W::kCols * 2;  // a bf16 V tile
+  static constexpr int kTile8 = W::kKeys * DP;     // an int8 K tile
+  static constexpr int kTile8V = W::kKeys * W::kCols;  // an int8 V tile
+  static constexpr int kScales8 = kTile8 + kTile8V;    // a stage's scales
+  static constexpr int kStage8 = kScales8 + 2 * W::kKeys * 4;
   static constexpr int kK = W::kWarpGroups * kQTile;
   static constexpr int kV = kK + (Q8 ? 1 : kWindowStages) * kTile;
-  static constexpr int kStaged = kV + (Q8 ? 1 : kWindowStages) * kTile;
+  static constexpr int kStaged = kV + (Q8 ? 1 : kWindowStages) * kTileV;
   static constexpr int kPages = kStaged + (Q8 ? kWindowStages * kStage8 : 0);
   static int bytes(int pps) { return kPages + pps * 4 + 1024; }
 };
 
 // Tiles a key split of a row tile takes: enough that the launch's CTAs
 // fill the card's CTA slots about once (every sequence's key tiles, times
-// the kv heads and row tiles, over the slots), and enough that the row
+// the kv heads and the n_rt CTAs of a kv head's rows at one split (row
+// tiles times column halves), over the slots), and enough that the row
 // tile's `tiles` need at most `splits` CTAs.
 __device__ __forceinline__ int window_split_tiles(const PagedArgs& a,
                                                   int keys, int n_rt,
@@ -769,6 +868,7 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
   constexpr int ROWS = W::kRows;
   constexpr int kS = KEYS / 2;             // S accumulators a thread holds
   constexpr int kKeyBlock = KEYS * 128;    // a tile's 64-column block
+  constexpr int kCols = W::kCols;          // O columns this CTA owns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int last_arrival;
   const uint32_t raw = smem_addr(smem_raw);
@@ -784,11 +884,15 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
   const int t = lane & 3;
 
   // rows: a kv head's group * s_q query rows, row g * s_q + t at position
-  // length - s_q + t, in tiles of ROWS (blockIdx.x = kv head x row tile)
+  // length - s_q + t, in tiles of ROWS (blockIdx.x = (kv head x row tile)
+  // x column half)
   const int group = a.h / a.hkv;
   const int rows = group * a.s_q;
   const int n_rt = (rows + ROWS - 1) / ROWS;
-  const int hk = blockIdx.x / n_rt, rt = blockIdx.x % n_rt;
+  const int unit = blockIdx.x / W::kHalves;
+  const int half = blockIdx.x % W::kHalves;
+  const int hk = unit / n_rt, rt = unit % n_rt;
+  const int col0 = half * kCols;  // first O (and V) column of the CTA
   const int bi = blockIdx.y;
   const int r0 = rt * ROWS;
   const int length = a.lengths[bi];
@@ -803,7 +907,8 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
 
   // this CTA's key split (a row tile with no key still has one, which
   // writes zeros)
-  const int per = window_split_tiles(a, KEYS, n_rt, tiles, gridDim.z);
+  const int per =
+      window_split_tiles(a, KEYS, n_rt * W::kHalves, tiles, gridDim.z);
   const int n_live = max(1, (tiles + per - 1) / per);
   const int split = blockIdx.z;
   if (split >= n_live) return;
@@ -862,48 +967,61 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
            key % a.page_size;
   };
 
-  // tile j's K (value = false) or V rows of the pool: keys past the
-  // split's end and columns past d zero-filled, never read. bf16 pages go
-  // straight into the swizzled tile wgmma reads; int8 pages into a
-  // staging stage, [KEYS][DP] bytes, with each key's scale at lane
-  // hk * s_stride, in 16-byte copies (8-byte ones where d % 16 != 0: a
-  // head's int8 slice is then only 8-byte aligned).
+  // tile j's K (value = false: all DP columns) or V rows (the CTA's
+  // kCols columns from col0) of the pool: keys past the split's end and
+  // columns past d zero-filled, never read. bf16 pages go straight into
+  // the swizzled tile wgmma reads; int8 pages into a staging stage,
+  // [KEYS][NC] bytes, with each key's scale at lane hk * s_stride, in
+  // 16-byte copies (8-byte ones where d % 16 != 0: a head's int8 slice is
+  // then only 8-byte aligned).
   auto load = [&](int j, bool value) {
     const int kt0 = k_begin + j * KEYS;
     const int64_t first = one_page ? slot(kt0) : 0;
     const T* pool = value ? vpool : kpool;
-    auto copy_rows = [&](auto width) {
+    const int c0 = value ? col0 : 0;
+    auto copy_rows = [&](auto width, auto ncols) {
       constexpr int kW = decltype(width)::value;
-      constexpr int kCols = kW / (int)sizeof(T);
-      constexpr int kChunks = DP / kCols;
+      constexpr int NC = decltype(ncols)::value;
+      constexpr int kWCols = kW / (int)sizeof(T);
+      constexpr int kChunks = NC / kWCols;
       static_assert(KEYS * kChunks % NT == 0, "whole passes");
 #pragma unroll
       for (int n = 0; n < KEYS * kChunks / NT; ++n) {
         const int i = tid + n * NT;
-        const int r = i / kChunks, col = (i % kChunks) * kCols;
+        const int r = i / kChunks, col = (i % kChunks) * kWCols;
         const int key = kt0 + r;
-        const bool ok = key < k_end && col < a.d;
+        const bool ok = key < k_end && c0 + col < a.d;
         const int64_t row = !ok ? 0 : one_page ? first + r : slot(key);
-        const T* src = pool + row * row_elems + hk * a.d + col;
+        const T* src = pool + row * row_elems + hk * a.d + c0 + col;
         if constexpr (Q8) {
-          const uint32_t dst = base + L::kStaged + (j % kWindowStages) * L::kStage8 +
-                               (value ? L::kTile8 : 0) + r * DP + col;
+          const uint32_t dst = base + L::kStaged +
+                               (j % kWindowStages) * L::kStage8 +
+                               (value ? L::kTile8 : 0) + r * NC + col;
           if constexpr (kW == 16) {
             cp_async16(dst, src, ok);
           } else {
             cp_async8(dst, src, ok);
           }
         } else {
-          cp_async16(base + (value ? L::kV : L::kK) + (j % kWindowStages) * L::kTile +
+          cp_async16(base +
+                         (value ? L::kV + (j % kWindowStages) * L::kTileV
+                                : L::kK + (j % kWindowStages) * L::kTile) +
                          sw128<KEYS>(r, col),
                      src, ok);
         }
       }
     };
-    if (!Q8 || a.d % 16 == 0) {
-      copy_rows(std::integral_constant<int, 16>());
+    auto copy_width = [&](auto ncols) {
+      if (!Q8 || a.d % 16 == 0) {
+        copy_rows(std::integral_constant<int, 16>(), ncols);
+      } else {
+        copy_rows(std::integral_constant<int, 8>(), ncols);
+      }
+    };
+    if (kCols == DP || !value) {
+      copy_width(std::integral_constant<int, DP>());
     } else {
-      copy_rows(std::integral_constant<int, 8>());
+      copy_width(std::integral_constant<int, kCols>());
     }
     if constexpr (Q8) {
       // threads 0..KEYS-1 copy K's scales, KEYS.. V's
@@ -914,33 +1032,43 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
         const int64_t row = !ok ? 0 : one_page ? first + r : slot(key);
         const float* src = (value ? a.v_scales : a.k_scales) +
                            row * a.s_lanes + (int64_t)hk * a.s_stride;
-        cp_async4(base + L::kStaged + (j % kWindowStages) * L::kStage8 + 2 * L::kTile8 +
-                      (value ? KEYS * 4 : 0) + r * 4,
+        cp_async4(base + L::kStaged + (j % kWindowStages) * L::kStage8 +
+                      L::kScales8 + (value ? KEYS * 4 : 0) + r * 4,
                   src, ok);
       }
     }
   };
 
-  // int8 pages: staged tile j's K or V into the bf16 tile wgmma reads,
-  // each value (float)x * scale rounded to bf16 once, 8 columns a step
-  // (an exact float from a byte permute and one FADD, see i8_float)
-  auto dequant = [&](int j, bool value) {
-    const unsigned char* st =
-        sb + L::kStaged + (j % kWindowStages) * L::kStage8 + (value ? L::kTile8 : 0);
+  // int8 pages: staged tile j's K or V (its NC staged columns) into the
+  // bf16 tile wgmma reads, each value (float)x * scale rounded to bf16
+  // once, 8 columns a step (an exact float from a byte permute and one
+  // FADD, see i8_float)
+  auto dequant_cols = [&](int j, bool value, auto ncols) {
+    constexpr int NC = decltype(ncols)::value;
+    const unsigned char* st = sb + L::kStaged +
+                              (j % kWindowStages) * L::kStage8 +
+                              (value ? L::kTile8 : 0);
     const float* sc = reinterpret_cast<const float*>(
-        sb + L::kStaged + (j % kWindowStages) * L::kStage8 + 2 * L::kTile8 +
+        sb + L::kStaged + (j % kWindowStages) * L::kStage8 + L::kScales8 +
         (value ? KEYS * 4 : 0));
     unsigned char* dst = sb + (value ? L::kV : L::kK);
 #pragma unroll
-    for (int n = 0; n < KEYS * DP / 8 / NT; ++n) {
+    for (int n = 0; n < KEYS * NC / 8 / NT; ++n) {
       const int i = tid + n * NT;
-      const int r = i / (DP / 8), col = (i % (DP / 8)) * 8;
-      const uint2 x = *reinterpret_cast<const uint2*>(st + r * DP + col);
+      const int r = i / (NC / 8), col = (i % (NC / 8)) * 8;
+      const uint2 x = *reinterpret_cast<const uint2*>(st + r * NC + col);
       const float s = sc[r];
       const uint32_t lo = x.x ^ 0x80808080u, hi = x.y ^ 0x80808080u;
       *reinterpret_cast<uint4*>(dst + sw128<KEYS>(r, col)) =
           make_uint4(dequant2<0, 1>(lo, s, s), dequant2<2, 3>(lo, s, s),
                      dequant2<0, 1>(hi, s, s), dequant2<2, 3>(hi, s, s));
+    }
+  };
+  auto dequant = [&](int j, bool value) {
+    if (kCols == DP || !value) {
+      dequant_cols(j, value, std::integral_constant<int, DP>());
+    } else {
+      dequant_cols(j, value, std::integral_constant<int, kCols>());
     }
   };
 
@@ -955,10 +1083,10 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
     cp_async_commit();
   }
 
-  float o[DP / 2], s[kS];
+  float o[kCols / 2], s[kS];
   uint32_t pf[kS / 2];  // P as bf16 A fragments of the k16 steps
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < kS; ++i) s[i] = 0.f;
   float m[2] = {kNegInf, kNegInf};  // running row max, log2 domain
@@ -986,13 +1114,14 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
 
   // O += P_j V_j (RS), keys 16 kk.. being P's chunks 2 kk and 2 kk + 1
   auto issue_pv = [&](int j) {
-    const uint32_t sV = base + L::kV + (Q8 ? 0 : (j % kWindowStages) * L::kTile);
+    const uint32_t sV =
+        base + L::kV + (Q8 ? 0 : (j % kWindowStages) * L::kTileV);
     wgmma_fence();
     pin(o);
     pin(pf);
 #pragma unroll
     for (int kk = 0; kk < KEYS / 16; ++kk) {
-      wgmma_rs<DP>(o, pf + 4 * kk, mnmajor<KEYS>(sV + kk * 2048));
+      wgmma_rs<kCols>(o, pf + 4 * kk, mnmajor<KEYS>(sV + kk * 2048));
     }
     wgmma_commit();
   };
@@ -1069,7 +1198,7 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
     pin(o);
     pin(pf);
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < kCols / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
     l[0] = l[0] * alpha[0] + lsum[0];
     l[1] = l[1] * alpha[1] + lsum[1];
 #pragma unroll
@@ -1156,16 +1285,19 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
   // to run. A split whose rows see no key brings m = NEG_INF, l = 0 and
   // weighs 0.
   const bool direct = n_live == 1;
-  int* counter = a.counters + ((int64_t)bi * a.hkv + hk) * n_rt + rt;
+  // one counter and one run of workspace blobs a (sequence, kv head, row
+  // tile, column half)
+  const int64_t cta0 =
+      (((int64_t)bi * a.hkv + hk) * n_rt + rt) * W::kHalves + half;
+  int* counter = a.counters + cta0;
   if (!direct) {
-    const int64_t blob0 = (((int64_t)bi * a.hkv + hk) * n_rt + rt) *
-                          gridDim.z;  // split 0's
+    const int64_t blob0 = cta0 * gridDim.z;  // split 0's
     float4* ws_o = reinterpret_cast<float4*>(a.ws);
-    float4* ws_ml = ws_o + (int64_t)a.b * a.hkv * n_rt * gridDim.z * NT *
-                               (DP / 8);
+    float4* ws_ml = ws_o + (int64_t)a.b * a.hkv * n_rt * W::kHalves *
+                               gridDim.z * NT * (kCols / 8);
 #pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      ws_o[((blob0 + split) * (DP / 8) + i) * NT + tid] =
+    for (int i = 0; i < kCols / 8; ++i) {
+      ws_o[((blob0 + split) * (kCols / 8) + i) * NT + tid] =
           make_float4(o[4 * i], o[4 * i + 1], o[4 * i + 2], o[4 * i + 3]);
     }
     ws_ml[(blob0 + split) * NT + tid] = make_float4(m[0], m[1], l[0], l[1]);
@@ -1181,13 +1313,13 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
       l[r] = 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < kCols / 2; ++i) o[i] = 0.f;
     for (int sp = 0; sp < n_live; ++sp) {
       const float4 ml = __ldcg(ws_ml + (blob0 + sp) * NT + tid);
-      float4 x[DP / 8];
+      float4 x[kCols / 8];
 #pragma unroll
-      for (int i = 0; i < DP / 8; ++i) {
-        x[i] = __ldcg(ws_o + ((blob0 + sp) * (DP / 8) + i) * NT + tid);
+      for (int i = 0; i < kCols / 8; ++i) {
+        x[i] = __ldcg(ws_o + ((blob0 + sp) * (kCols / 8) + i) * NT + tid);
       }
       const float ms[2] = {ml.x, ml.y}, ls[2] = {ml.z, ml.w};
       float fa[2], fb[2];
@@ -1200,7 +1332,7 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
         m[r] = mx;
       }
 #pragma unroll
-      for (int i = 0; i < DP / 8; ++i) {
+      for (int i = 0; i < kCols / 8; ++i) {
         o[4 * i] = o[4 * i] * fa[0] + x[i].x * fb[0];
         o[4 * i + 1] = o[4 * i + 1] * fa[0] + x[i].y * fb[0];
         o[4 * i + 2] = o[4 * i + 2] * fa[1] + x[i].z * fb[1];
@@ -1217,8 +1349,8 @@ __global__ void __launch_bounds__(WindowTiles<DP>::kThreads,
     __nv_bfloat16* orow = a.out + (((int64_t)bi * a.s_q + rg % a.s_q) * a.h +
                                    hk * group + rg / a.s_q) * a.d;
 #pragma unroll
-    for (int jc = 0; jc < DP / 8; ++jc) {
-      const int col = jc * 8 + t * 2;
+    for (int jc = 0; jc < kCols / 8; ++jc) {
+      const int col = col0 + jc * 8 + t * 2;
       if (col < a.d) {
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(o[jc * 4 + 2 * r] / l_safe,
@@ -1261,16 +1393,17 @@ int launch_window_tiles(PagedArgs a, cudaStream_t s) {
   if (slots <= 0) return (int)cudaErrorInvalidValue;
   a.slots = slots;
   const int rows = a.h / a.hkv * a.s_q;
-  const dim3 grid(a.hkv * ((rows + W::kRows - 1) / W::kRows), a.b,
-                  a.split_pages);
+  const dim3 grid(a.hkv * ((rows + W::kRows - 1) / W::kRows) * W::kHalves,
+                  a.b, a.split_pages);
   kernel<<<grid, W::kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <bool Q8>
 int launch_window(const PagedArgs& a, cudaStream_t s) {
-  return a.d <= 64 ? launch_window_tiles<64, Q8>(a, s)
-                   : launch_window_tiles<128, Q8>(a, s);
+  return a.d <= 64    ? launch_window_tiles<64, Q8>(a, s)
+         : a.d <= 128 ? launch_window_tiles<128, Q8>(a, s)
+                      : launch_window_tiles<256, Q8>(a, s);
 }
 
 // s_lanes = 0: bf16 pages; else int8 pages with (P, page, s_lanes) scales.
@@ -1307,9 +1440,9 @@ PagedArgs make_args(const void* q, const void* k, const void* k_scales,
 }
 
 // The shapes the kernels take: whole query groups, d a multiple of 8 up to
-// 128, and every kv head's scale lane inside the scale row.
+// 256, and every kv head's scale lane inside the scale row.
 bool bad_shape(int h, int hkv, int d, int s_lanes) {
-  return hkv <= 0 || h % hkv || d % 8 || d > 128 ||
+  return hkv <= 0 || h % hkv || d % 8 || d > 256 ||
          (s_lanes > 0 && hkv > s_lanes);
 }
 

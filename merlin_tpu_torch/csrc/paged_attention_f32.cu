@@ -23,7 +23,8 @@
 // permuted page tables. q / out (b, s_q, h, d) contiguous: f32 over bf16,
 // f32 or int8 pages, or bf16 over f32 pages; pages (P, page_size, hkv * d)
 // with, for int8, f32 scale pages (P, page_size, S), head hk's scale at
-// lane hk * max(S / hkv, 1) (trap C11); d % 8 == 0, d <= 128. No table
+// lane hk * max(S / hkv, 1) (trap C11); d % 8 == 0, d <= 256 (each kernel
+// in two forms, DP = 128 and 256 head dims a tile, d zero-padded). No table
 // entry, length or page past a sequence's own keys is read (trap C8), and a
 // row that sees no key writes 0 (trap C2).
 //
@@ -80,7 +81,9 @@
 //     dtype: the ring takes K_0, V_0, K_1, V_1, ... in turn, so two slots
 //     are in flight while one is multiplied. An f32 slot is 33 KB at d =
 //     128, so a CTA takes 111 KB and two fit an SM (a ring of whole K + V
-//     stages would take 135 KB, one CTA an SM); over bf16 pages 62 KB.
+//     stages would take 135 KB, one CTA an SM); over bf16 pages 62 KB. At
+//     d = 256 (O's 128 accumulators a thread) 216 KB over f32 pages and
+//     118 KB over bf16: one CTA an SM.
 //   * Each of the 4 warps takes 16 keys of every tile for the tile's 16
 //     rows. The warps exchange their rows' tile max through shared memory
 //     at the barrier the V tile needs anyway, so all four keep the tile's
@@ -92,6 +95,8 @@
 //     f32 K comes by ldmatrix in natural order. Every operand is split as
 //     its fragment is loaded.
 // Design of the window kernel: attention_f32.cu's tile step over pages.
+//   * At d = 256 a CTA owns one 128-column half of O (two CTAs a row tile):
+//     both compute the same S and P, each reads its half of V.
 //   * A CTA of 4 warps owns 64 query rows of a kv head, a warp 16 (rows g *
 //     s_q + t, each with its own position, slope and output row); K and V of
 //     a 64-key tile pass through one buffer each (K_{j+1} is copied during
@@ -122,11 +127,16 @@ using tf32x3::quad_max;
 using tf32x3::quad_sum;
 using tf32x3::to_pv_rows;
 
-constexpr int kDP = 128;              // head dims a tile holds (d <= 128)
-constexpr int kNM = kDP / 16;         // 16-column groups of O
+// Two forms by head dims a tile holds, DP = 128 (d <= 128) and DP = 256
+// (128 < d <= 256); the window kernel's CTA owns kCols = min(DP, 128) of
+// O's columns (two CTAs a row tile at DP = 256, each computing S whole).
+constexpr int kMaxDP = 256;
+constexpr int kCols = 128;            // O columns of a window CTA, at most
 constexpr int kThreads = 128;         // 4 warps
 constexpr int kKeys = 64;             // keys of a tile: the softmax block
-constexpr int kQLd = kDP + 4;         // the f32 Q tile's row stride
+// the f32 Q tile's row stride
+template <int DP>
+__host__ __device__ constexpr int q_ld() { return DP + 4; }
 constexpr int kRowsTile = 16;         // query rows of a few-rows CTA
 constexpr int kWindowRows = 64;       // query rows of a window CTA
 constexpr int kRingSlots = 3;         // the few-rows kernel's cp.async ring
@@ -162,10 +172,18 @@ struct Rule {
   using T = std::conditional_t<
       kPages == kPagesF32, float,
       std::conditional_t<kPages == kPagesBf16, __nv_bfloat16, int8_t>>;
-  // row strides that keep each fragment load on distinct banks
-  static constexpr int kLd = kPages == kPagesF32    ? kDP + 4
-                             : kPages == kPagesBf16 ? kDP + 8
-                                                    : kDP + 16;
+};
+
+// A 64-key K or V tile of NC columns in the page dtype: its row stride
+// (one that keeps each fragment load on distinct banks), bytes, and its
+// slot (the tile and, over int8 pages, its keys' scales).
+template <int MODE, int NC>
+struct Tile {
+  using T = typename Rule<MODE>::T;
+  static constexpr int kPages = Rule<MODE>::kPages;
+  static constexpr int kLd = kPages == kPagesF32    ? NC + 4
+                             : kPages == kPagesBf16 ? NC + 8
+                                                    : NC + 16;
   static constexpr int kTile = kKeys * kLd * (int)sizeof(T);
   static constexpr int kSlot = kTile + (kPages == kPagesInt8 ? kKeys * 4 : 0);
 };
@@ -260,16 +278,16 @@ __device__ __forceinline__ void mma_passes(float (&c)[4], const FragA& a,
 
 // Rows [r0, r0 + R) of kv head hk's query rows (row g * s_q + t: query
 // head hk * group + g at window slot t) of sequence bi into the f32 tile Qs
-// (row stride kQLd): bf16 q widened, B7's q rounded to bf16, dims permuted
-// within each 8 (0 2 4 6 1 3 5 7) where K comes in pairs; rows past `rows`
-// and dims past d zero.
-template <int MODE, int R>
+// (row stride q_ld<DP>()): bf16 q widened, B7's q rounded to bf16, dims
+// permuted within each 8 (0 2 4 6 1 3 5 7) where K comes in pairs; rows
+// past `rows` and dims past d zero.
+template <int MODE, int R, int DP>
 __device__ __forceinline__ void load_q(float* Qs, const PagedArgs& a, int bi,
                                        int hk, int r0, int rows, int tid) {
   using Ru = Rule<MODE>;
   const int group = a.h / a.hkv;
-  for (int i = tid; i < R * (kDP / 8); i += kThreads) {
-    const int r = i / (kDP / 8), c = (i % (kDP / 8)) * 8;
+  for (int i = tid; i < R * (DP / 8); i += kThreads) {
+    const int r = i / (DP / 8), c = (i % (DP / 8)) * 8;
     const int rg = r0 + r;
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     if (rg < rows && c < a.d) {
@@ -296,7 +314,7 @@ __device__ __forceinline__ void load_q(float* Qs, const PagedArgs& a, int bi,
         }
       }
     }
-    float* dst = Qs + r * kQLd + c;
+    float* dst = Qs + r * q_ld<DP>() + c;
     if constexpr (Ru::kPairs) {
       *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[2], x[4], x[6]);
       *reinterpret_cast<float4*>(dst + 4) =
@@ -309,42 +327,44 @@ __device__ __forceinline__ void load_q(float* Qs, const PagedArgs& a, int bi,
   }
 }
 
-// The 64 keys [k0, k0 + 64) of kv head hk from `pool` (and, over int8
-// pages, each key's scale lane from `scales`) into the tile at dst by
-// cp.async: keys at or past k_end and dims past d zero-filled, never read.
-// The keys' pages come from the shared page ids, entry p0 first. 16-byte
-// copies, neighbouring threads on neighbouring bytes of a key's d-wide
-// slice (8-byte ones for int8 where d % 16 != 0: a head's int8 slice is
-// then only 8-byte aligned).
-template <int MODE>
+// The 64 keys [k0, k0 + 64) of kv head hk, its NC dims from c0, from
+// `pool` (and, over int8 pages, each key's scale lane from `scales`) into
+// the tile at dst (Tile<MODE, NC>) by cp.async: keys at or past k_end and
+// dims past d zero-filled, never read. The keys' pages come from the
+// shared page ids, entry p0 first. 16-byte copies, neighbouring threads on
+// neighbouring bytes of a key's d-wide slice (8-byte ones for int8 where
+// d % 16 != 0: a head's int8 slice is then only 8-byte aligned).
+template <int MODE, int NC>
 __device__ __forceinline__ void copy_tile(uint32_t dst, const void* pool,
                                           const float* scales,
                                           const PagedArgs& a,
                                           const int* pages, int p0, int k0,
-                                          int k_end, int hk, int tid) {
+                                          int k_end, int hk, int tid,
+                                          int c0 = 0) {
   using Ru = Rule<MODE>;
+  using Ti = Tile<MODE, NC>;
   using T = typename Ru::T;
   const int64_t row_elems = (int64_t)a.hkv * a.d;
-  const T* src0 = static_cast<const T*>(pool) + (int64_t)hk * a.d;
+  const T* src0 = static_cast<const T*>(pool) + (int64_t)hk * a.d + c0;
   auto copy_rows = [&](auto width) {
     constexpr int kW = decltype(width)::value;
-    constexpr int kCols = kW / (int)sizeof(T);
-    constexpr int kChunks = kDP / kCols;
+    constexpr int kWCols = kW / (int)sizeof(T);
+    constexpr int kChunks = NC / kWCols;
     static_assert(kKeys * kChunks % kThreads == 0, "whole passes");
     // 4 copies' addresses at a time: the whole 16 of an f32 tile, issued
     // while the window kernel holds S and O, took it past 255 registers
 #pragma unroll 4
     for (int n = 0; n < kKeys * kChunks / kThreads; ++n) {
       const int i = tid + n * kThreads;
-      const int r = i / kChunks, c = (i % kChunks) * kCols;
+      const int r = i / kChunks, c = (i % kChunks) * kWCols;
       const int key = k0 + r;
-      const bool ok = key < k_end && c < a.d;
+      const bool ok = key < k_end && c0 + c < a.d;
       int64_t off = 0;
       if (ok) {
         off = ((int64_t)pages[key / a.page_size - p0] * a.page_size +
                key % a.page_size) * row_elems + c;
       }
-      const uint32_t so = dst + (r * Ru::kLd + c) * (int)sizeof(T);
+      const uint32_t so = dst + (r * Ti::kLd + c) * (int)sizeof(T);
       if constexpr (kW == 16) {
         cp_async16(so, src0 + off, ok);
       } else {
@@ -368,16 +388,16 @@ __device__ __forceinline__ void copy_tile(uint32_t dst, const void* pool,
         off = ((int64_t)pages[key / a.page_size - p0] * a.page_size +
                key % a.page_size) * a.s_lanes + (int64_t)hk * a.s_stride;
       }
-      cp_async4(dst + Ru::kTile + tid * 4, scales + off, ok);
+      cp_async4(dst + Ti::kTile + tid * 4, scales + off, ok);
     }
   }
 }
 
-// K's B fragments of one n-tile (the 8 keys from row0 of tile kt) over the
-// 32-dim chunk c0: b[s] for the chunk's k-step s (k = t, k = t + 4), as f32
-// values; int8 K times its key's scale where K is dequantized (B8, B9),
-// the bare integers for B7.
-template <int MODE>
+// K's B fragments of one n-tile (the 8 keys from row0 of tile kt, rows LD
+// elements apart) over the 32-dim chunk c0: b[s] for the chunk's k-step s
+// (k = t, k = t + 4), as f32 values; int8 K times its key's scale where K
+// is dequantized (B8, B9), the bare integers for B7.
+template <int MODE, int LD>
 __device__ __forceinline__ void k_frags(float (&b)[4][2],
                                         const unsigned char* kt,
                                         const float* ksc, int row0, int c0,
@@ -386,7 +406,7 @@ __device__ __forceinline__ void k_frags(float (&b)[4][2],
   if constexpr (Ru::kPages == kPagesF32) {
     // matrices at columns c0 + 4m: lane 4g + t gets K[g][c0 + 4m + t]
     const uint32_t p = smem_addr(kt) +
-        ((row0 + (lane & 7)) * Ru::kLd + c0 + 4 * (lane >> 3)) * 4;
+        ((row0 + (lane & 7)) * LD + c0 + 4 * (lane >> 3)) * 4;
     float y[4];
     ldsm4(y, p);
     b[0][0] = y[0]; b[0][1] = y[1]; b[1][0] = y[2]; b[1][1] = y[3];
@@ -397,7 +417,7 @@ __device__ __forceinline__ void k_frags(float (&b)[4][2],
     // and the next dim, k-step m's k = t and k = t + 4 in pair order
     float y[4];
     ldsm4(y, smem_addr(kt) +
-                 ((row0 + (lane & 7)) * Ru::kLd + c0 + 8 * (lane >> 3)) * 2);
+                 ((row0 + (lane & 7)) * LD + c0 + 8 * (lane >> 3)) * 2);
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       b[s][0] = bf16_lo(__float_as_uint(y[s]));
@@ -406,7 +426,7 @@ __device__ __forceinline__ void k_frags(float (&b)[4][2],
   } else {
     const int g = lane >> 2, t = lane & 3;
     const int8_t* kr = reinterpret_cast<const int8_t*>(kt) +
-                       (row0 + g) * Ru::kLd + c0 + 2 * t;
+                       (row0 + g) * LD + c0 + 2 * t;
     const float sc = Ru::kSplitKV ? ksc[row0 + g] : 1.f;
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
@@ -419,10 +439,10 @@ __device__ __forceinline__ void k_frags(float (&b)[4][2],
 }
 
 // V^T's A fragment of the 16-column group m over the 8 keys from row0 of
-// tile vt (tf32x3.cuh's pv layout: V[2t][2g], V[2t][2g + 1], V[2t + 1][2g],
-// V[2t + 1][2g + 1] of the group); int8 V times its keys' scales where it
-// is dequantized.
-template <int MODE>
+// tile vt, rows LD elements apart (tf32x3.cuh's pv layout: V[2t][2g],
+// V[2t][2g + 1], V[2t + 1][2g], V[2t + 1][2g + 1] of the group); int8 V
+// times its keys' scales where it is dequantized.
+template <int MODE, int LD>
 __device__ __forceinline__ void v_frag(float (&x)[4],
                                        const unsigned char* vt,
                                        const float* vsc, int row0, int m,
@@ -430,19 +450,19 @@ __device__ __forceinline__ void v_frag(float (&x)[4],
   using Ru = Rule<MODE>;
   const int r = row0 + 2 * (lane & 3), c = 16 * m + 2 * (lane >> 2);
   if constexpr (Ru::kPages == kPagesF32) {
-    const float* v = reinterpret_cast<const float*>(vt) + r * Ru::kLd + c;
-    const float2 a = lds2(v), b = lds2(v + Ru::kLd);
+    const float* v = reinterpret_cast<const float*>(vt) + r * LD + c;
+    const float2 a = lds2(v), b = lds2(v + LD);
     x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
   } else if constexpr (Ru::kPages == kPagesBf16) {
     const __nv_bfloat16* v =
-        reinterpret_cast<const __nv_bfloat16*>(vt) + r * Ru::kLd + c;
-    const uint32_t a = ld32(v), b = ld32(v + Ru::kLd);
+        reinterpret_cast<const __nv_bfloat16*>(vt) + r * LD + c;
+    const uint32_t a = ld32(v), b = ld32(v + LD);
     x[0] = bf16_lo(a); x[1] = bf16_hi(a); x[2] = bf16_lo(b); x[3] = bf16_hi(b);
   } else {
-    const int8_t* v = reinterpret_cast<const int8_t*>(vt) + r * Ru::kLd + c;
+    const int8_t* v = reinterpret_cast<const int8_t*>(vt) + r * LD + c;
     const uint32_t a = *reinterpret_cast<const uint16_t*>(v) ^ 0x80808080u;
     const uint32_t b =
-        *reinterpret_cast<const uint16_t*>(v + Ru::kLd) ^ 0x80808080u;
+        *reinterpret_cast<const uint16_t*>(v + LD) ^ 0x80808080u;
     const float s0 = Ru::kSplitKV ? vsc[r] : 1.f;
     const float s1 = Ru::kSplitKV ? vsc[r + 1] : 1.f;
     x[0] = i8_float<0>(a) * s0; x[1] = i8_float<1>(a) * s0;
@@ -451,9 +471,9 @@ __device__ __forceinline__ void v_frag(float (&x)[4],
 }
 
 // s[j] = Q (the warp's 16 rows, at shared address qa as tf32x3's dots
-// addresses A) . K^T (the 8 keys from row kr0 + 8 j of tile kt), over the
-// d dims: one chain a 32-dim chunk, added in f32.
-template <int MODE, int NJ>
+// addresses A) . K^T (the 8 keys from row kr0 + 8 j of tile kt, rows LD
+// apart), over the d dims: one chain a 32-dim chunk, added in f32.
+template <int MODE, int NJ, int LD>
 __device__ __forceinline__ void qk(float (&s)[NJ][4], uint32_t qa,
                                    const unsigned char* kt, const float* ksc,
                                    int kr0, int d, int lane) {
@@ -474,7 +494,7 @@ __device__ __forceinline__ void qk(float (&s)[NJ][4], uint32_t qa,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       float b[4][2];
-      k_frags<MODE>(b, kt, ksc, kr0 + 8 * j, c0, lane);
+      k_frags<MODE, LD>(b, kt, ksc, kr0 + 8 * j, c0, lane);
       float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int st = 0; st < 4; ++st) {
@@ -488,12 +508,13 @@ __device__ __forceinline__ void qk(float (&s)[NJ][4], uint32_t qa,
   }
 }
 
-// o += P V over the 8 NJ keys from row kr0 of tile vt, p[j] the keys 8 j ..
-// of P in dots' layout, as the product takes them (rounded where the rule
-// rounds): O^T += V^T P^T, two column groups' four chains at a time (pv's
-// layout), a chain a call, added in f32.
-template <int MODE, int NJ>
-__device__ __forceinline__ void pv(float (&o)[kNM][2][4],
+// o += P V over the 8 NJ keys from row kr0 of tile vt (rows LD apart, its
+// first d columns live), p[j] the keys 8 j .. of P in dots' layout, as the
+// product takes them (rounded where the rule rounds): O^T += V^T P^T, two
+// column groups' four chains at a time (pv's layout), a chain a call,
+// added in f32.
+template <int MODE, int NJ, int NM, int LD>
+__device__ __forceinline__ void pv(float (&o)[NM][2][4],
                                    const float (&p)[NJ][4],
                                    const unsigned char* vt, const float* vsc,
                                    int kr0, int d, int lane) {
@@ -505,7 +526,7 @@ __device__ __forceinline__ void pv(float (&o)[kNM][2][4],
     frag_b<Ru::kSplitP>(fb[j][1], p[j][2], p[j][3]);
   }
 #pragma unroll
-  for (int m0 = 0; m0 < kNM; m0 += 2) {
+  for (int m0 = 0; m0 < NM; m0 += 2) {
     if (16 * m0 < d) {
       float part[2][2][4];
 #pragma unroll
@@ -519,7 +540,7 @@ __device__ __forceinline__ void pv(float (&o)[kNM][2][4],
 #pragma unroll
         for (int mm = 0; mm < 2; ++mm) {
           float x[4];
-          v_frag<MODE>(x, vt, vsc, kr0 + 8 * j, m0 + mm, lane);
+          v_frag<MODE, LD>(x, vt, vsc, kr0 + 8 * j, m0 + mm, lane);
           FragA fa;
           frag_a<Ru::kSplitKV>(fa, x);
           mma_passes<Ru::kSplitKV, Ru::kSplitP>(part[mm][0], fa, fb[j][0]);
@@ -536,12 +557,13 @@ __device__ __forceinline__ void pv(float (&o)[kNM][2][4],
 }
 
 // o's rows (pv's layout) times the factors f of dots' rows v[0], v[1]
-__device__ __forceinline__ void scale_rows(float (&o)[kNM][2][4],
+template <int NM>
+__device__ __forceinline__ void scale_rows(float (&o)[NM][2][4],
                                            const float (&v)[2], int lane) {
   float f[2][2];
   to_pv_rows(v, lane, f);
 #pragma unroll
-  for (int m = 0; m < kNM; ++m)
+  for (int m = 0; m < NM; ++m)
 #pragma unroll
     for (int rb = 0; rb < 2; ++rb)
 #pragma unroll
@@ -569,21 +591,27 @@ __device__ __forceinline__ int64_t out_at(const PagedArgs& a, int bi, int hk,
 // K or V tile, with its keys' scales over int8 pages; at the end of the
 // split it holds the warps' (O, l, m), then the last CTA's merge weights),
 // the f32 Q tile, the split's page ids.
-template <int MODE>
+template <int MODE, int DP>
 struct RowsLayout {
+  static constexpr int kQLd = q_ld<DP>();
   static constexpr int kMerge = (4 * kRowsTile * kQLd + 5 * kRowsTile) * 4;
   static constexpr int kWeights = kRowsTile * kMaxSplits * 4;
   static constexpr int kRing =
-      cmax(cmax(kRingSlots * Rule<MODE>::kSlot, kMerge), kWeights);
+      cmax(cmax(kRingSlots * Tile<MODE, DP>::kSlot, kMerge), kWeights);
   static constexpr int kQ = kRowsTile * kQLd * 4;
   static int bytes(int split_pages) { return kRing + kQ + split_pages * 4; }
 };
 
-template <int MODE>
+// At DP = 256 each thread holds O's 128 accumulators, and the 3-slot ring
+// of f32 tiles takes 200 KB: one CTA an SM.
+template <int MODE, int DP>
 __global__ void __launch_bounds__(kThreads, 2)
     paged_rows_f32_kernel(const PagedArgs a) {
   using Ru = Rule<MODE>;
-  using L = RowsLayout<MODE>;
+  using Ti = Tile<MODE, DP>;
+  using L = RowsLayout<MODE, DP>;
+  constexpr int kNM = DP / 16;          // 16-column groups of O
+  constexpr int kQLd = L::kQLd;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float tile_max[4][kRowsTile];
   __shared__ int last_arrival;
@@ -615,7 +643,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int i = tid; i < n_pages; i += kThreads) {
     pages[i] = a.tables[(int64_t)bi * a.pps + p0 + i];
   }
-  load_q<MODE, kRowsTile>(Qs, a, bi, hk, rt * kRowsTile, rows, tid);
+  load_q<MODE, kRowsTile, DP>(Qs, a, bi, hk, rt * kRowsTile, rows, tid);
   __syncthreads();  // the page ids (and Q) for every thread
 
   // this thread's two rows (dots' rows g and g + 8): position (-1 for a
@@ -635,7 +663,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto issue = [&](int i) {
     if (i < 2 * n_tiles) {
       const bool value = i & 1;
-      copy_tile<MODE>(smem_addr(ring + (i % kRingSlots) * Ru::kSlot),
+      copy_tile<MODE, DP>(smem_addr(ring + (i % kRingSlots) * Ti::kSlot),
                       value ? a.v : a.k, value ? a.v_scales : a.k_scales, a,
                       pages, p0, k_begin + (i >> 1) * kKeys, k_end, hk, tid);
     }
@@ -658,10 +686,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<1>();
     __syncthreads();
     issue(2 * j + 2);
-    const unsigned char* kt = ring + ((2 * j) % kRingSlots) * Ru::kSlot;
-    const float* ksc = reinterpret_cast<const float*>(kt + Ru::kTile);
+    const unsigned char* kt = ring + ((2 * j) % kRingSlots) * Ti::kSlot;
+    const float* ksc = reinterpret_cast<const float*>(kt + Ti::kTile);
     float s[2][4];
-    qk<MODE, 2>(s, qa, kt, ksc, kw, a.d, lane);
+    qk<MODE, 2, Ti::kLd>(s, qa, kt, ksc, kw, a.d, lane);
     // scale (B7: times the key's k scale first), ALiBi, the mask, in the
     // log2 domain; the warp's max of each row over its 16 keys
     const int k0 = k_begin + j * kKeys + kw;
@@ -688,8 +716,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<1>();
     __syncthreads();
     issue(2 * j + 3);
-    const unsigned char* vt = ring + ((2 * j + 1) % kRingSlots) * Ru::kSlot;
-    const float* vsc = reinterpret_cast<const float*>(vt + Ru::kTile);
+    const unsigned char* vt = ring + ((2 * j + 1) % kRingSlots) * Ti::kSlot;
+    const float* vsc = reinterpret_cast<const float*>(vt + Ti::kTile);
     float alpha[2], lsum[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -720,7 +748,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + lsum[r];
     scale_rows(o, alpha, lane);
-    pv<MODE, 2>(o, s, vt, vsc, kw, a.d, lane);
+    pv<MODE, 2, kNM, Ti::kLd>(o, s, vt, vsc, kw, a.d, lane);
   }
   cp_async_wait<0>();
 
@@ -840,32 +868,45 @@ __global__ void __launch_bounds__(kThreads, 2)
 // tile step over pages, keys split over CTAs
 // ---------------------------------------------------------------------------
 
-// Shared memory of the window kernel: the f32 Q tile (64 rows), one K and
-// one V tile in the page dtype (with their keys' scales over int8 pages),
-// the split's page ids.
-template <int MODE>
+// Shared memory of the window kernel: the f32 Q tile (64 rows), one K
+// tile (DP columns) and one V tile (the CTA's NC columns) in the page
+// dtype (with their keys' scales over int8 pages), the split's page ids.
+template <int MODE, int DP>
 struct WindowLayout {
+  static constexpr int NC = DP < kCols ? DP : kCols;  // O columns a CTA
+  static constexpr int kHalves = DP / NC;
+  using TK = Tile<MODE, DP>;
+  using TV = Tile<MODE, NC>;
+  static constexpr int kQLd = q_ld<DP>();
   static constexpr int kQ = kWindowRows * kQLd * 4;
   static constexpr int kK = kQ;
-  static constexpr int kV = kK + Rule<MODE>::kSlot;
-  static constexpr int kPages = kV + Rule<MODE>::kSlot;
+  static constexpr int kV = kK + TK::kSlot;
+  static constexpr int kPages = kV + TV::kSlot;
   static int bytes(int pps) { return kPages + pps * 4; }
 };
 
-template <int MODE>
+// At DP = 256 a 64 x 256 f32 O would leave no registers for S and P, so
+// each CTA owns one 128-column half of O (blockIdx.x % 2): both halves
+// compute the same S and P (the same products in the same order, so p
+// rounds alike in both), each reads its half of V.
+template <int MODE, int DP>
 __global__ void __launch_bounds__(kThreads, 2)
     paged_window_f32_kernel(const PagedArgs a) {
   using Ru = Rule<MODE>;
-  using L = WindowLayout<MODE>;
+  using L = WindowLayout<MODE, DP>;
+  using TK = typename L::TK;
+  using TV = typename L::TV;
   static_assert(!Ru::kB7, "B7 windows take the few-rows kernel");
   constexpr int NJ = kKeys / 8;
+  constexpr int kNM = L::NC / 16;       // 16-column groups of the CTA's O
+  constexpr int kQLd = L::kQLd;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int last_arrival;
   float* Qs = reinterpret_cast<float*>(smem);
   unsigned char* kt = smem + L::kK;
   unsigned char* vt = smem + L::kV;
-  const float* ksc = reinterpret_cast<const float*>(kt + Ru::kTile);
-  const float* vsc = reinterpret_cast<const float*>(vt + Ru::kTile);
+  const float* ksc = reinterpret_cast<const float*>(kt + TK::kTile);
+  const float* vsc = reinterpret_cast<const float*>(vt + TV::kTile);
   int* pages = reinterpret_cast<int*>(smem + L::kPages);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -873,7 +914,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int group = a.h / a.hkv;
   const int rows = group * a.s_q;
   const int n_rt = (rows + kWindowRows - 1) / kWindowRows;
-  const int hk = blockIdx.x / n_rt, rt = blockIdx.x % n_rt;
+  // blockIdx.x = (kv head x row tile) x column half
+  const int unit = blockIdx.x / L::kHalves, half = blockIdx.x % L::kHalves;
+  const int hk = unit / n_rt, rt = unit % n_rt;
+  const int col0 = half * L::NC;
   const int bi = blockIdx.y;
   const int split = blockIdx.z;
   const int r0 = rt * kWindowRows;
@@ -902,7 +946,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int i = tid; i < n_pages; i += kThreads) {
     pages[i] = a.tables[(int64_t)bi * a.pps + p0 + i];
   }
-  load_q<MODE, kWindowRows>(Qs, a, bi, hk, r0, rows, tid);
+  load_q<MODE, kWindowRows, DP>(Qs, a, bi, hk, r0, rows, tid);
   __syncthreads();  // the page ids for the copies, Q for the products
 
   // this thread's two rows (dots' rows g and g + 8 of its warp): position
@@ -920,9 +964,13 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int warp_pos = __reduce_min_sync(0xffffffffu, min(pos[0], pos[1]));
 
   auto copy = [&](int j, bool value) {
-    copy_tile<MODE>(smem_addr(value ? vt : kt), value ? a.v : a.k,
-                    value ? a.v_scales : a.k_scales, a, pages, p0,
-                    k_begin + j * kKeys, k_end, hk, tid);
+    if (value) {
+      copy_tile<MODE, L::NC>(smem_addr(vt), a.v, a.v_scales, a, pages, p0,
+                             k_begin + j * kKeys, k_end, hk, tid, col0);
+    } else {
+      copy_tile<MODE, DP>(smem_addr(kt), a.k, a.k_scales, a, pages, p0,
+                          k_begin + j * kKeys, k_end, hk, tid);
+    }
   };
   if (n_tiles > 0) copy(0, false);
   cp_async_commit();
@@ -942,7 +990,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<1>();
     __syncthreads();  // K_j
     float s[NJ][4];
-    qk<MODE, NJ>(s, qa, kt, ksc, 0, a.d, lane);
+    qk<MODE, NJ, TK::kLd>(s, qa, kt, ksc, 0, a.d, lane);
     __syncthreads();  // every warp is done with K_j
     if (j + 1 < n_tiles) copy(j + 1, false);
     cp_async_commit();
@@ -983,7 +1031,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     scale_rows(o, alpha, lane);
     cp_async_wait<1>();
     __syncthreads();  // V_j
-    pv<MODE, NJ>(o, s, vt, vsc, 0, a.d, lane);
+    pv<MODE, NJ, kNM, TV::kLd>(o, s, vt, vsc, 0, a.d - col0, lane);
     __syncthreads();  // every warp is done with V_j
     if (j + 1 < n_tiles) copy(j + 1, true);
     cp_async_commit();
@@ -998,13 +1046,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   // merges every split, its own included, in split order with the LSE
   // rescale. The order must not depend on which split arrives last.
   const bool direct = n_live == 1;
-  int* counter = a.counters + ((int64_t)bi * a.hkv + hk) * n_rt + rt;
+  // one counter and one run of workspace blobs a (sequence, kv head, row
+  // tile, column half)
+  const int64_t cta0 =
+      (((int64_t)bi * a.hkv + hk) * n_rt + rt) * L::kHalves + half;
+  int* counter = a.counters + cta0;
   if (!direct) {
-    const int64_t blob0 =
-        (((int64_t)bi * a.hkv + hk) * n_rt + rt) * gridDim.z;  // split 0's
+    const int64_t blob0 = cta0 * gridDim.z;  // split 0's
     float4* ws_o = reinterpret_cast<float4*>(a.ws);
-    float4* ws_ml = ws_o + (int64_t)a.b * a.hkv * n_rt * gridDim.z *
-                               kThreads * (2 * kNM);
+    float4* ws_ml = ws_o + (int64_t)a.b * a.hkv * n_rt * L::kHalves *
+                               gridDim.z * kThreads * (2 * kNM);
 #pragma unroll
     for (int mm = 0; mm < kNM; ++mm)
 #pragma unroll
@@ -1071,7 +1122,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int64_t at = out_at(a, bi, hk, rg);
 #pragma unroll
       for (int mm = 0; mm < kNM; ++mm) {
-        const int col = 16 * mm + 2 * g;
+        const int col = col0 + 16 * mm + 2 * g;
         if (col < a.d) {
           const float x0 = o[mm][rb][u] * inv, x1 = o[mm][rb][u + 2] * inv;
           if constexpr (Ru::kQBf16) {
@@ -1088,37 +1139,48 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (!direct && tid == 0) *counter = 0;
 }
 
-template <int MODE>
+template <int MODE, int DP>
 cudaError_t launch_rows(const PagedArgs& a, cudaStream_t s) {
   const int rows = a.h / a.hkv * a.s_q;
   const dim3 grid((a.pps + a.split - 1) / a.split,
                   a.hkv * ((rows + kRowsTile - 1) / kRowsTile), a.b);
-  return launch_grid(paged_rows_f32_kernel<MODE>, grid, kThreads,
-                     RowsLayout<MODE>::bytes(a.split), a, s);
+  return launch_grid(paged_rows_f32_kernel<MODE, DP>, grid, kThreads,
+                     RowsLayout<MODE, DP>::bytes(a.split), a, s);
 }
 
-// Grid (kv heads x row tiles, sequences, key splits): the splits vary
-// slowest, so the CTAs of the first split, all live, are dispatched first.
-template <int MODE>
+// Grid ((kv heads x row tiles) x column halves, sequences, key splits):
+// the splits vary slowest, so the CTAs of the first split, all live, are
+// dispatched first.
+template <int MODE, int DP>
 cudaError_t launch_window(const PagedArgs& a, cudaStream_t s) {
+  using L = WindowLayout<MODE, DP>;
   const int rows = a.h / a.hkv * a.s_q;
-  const dim3 grid(a.hkv * ((rows + kWindowRows - 1) / kWindowRows), a.b,
-                  a.split);
-  return launch_grid(paged_window_f32_kernel<MODE>, grid, kThreads,
-                     WindowLayout<MODE>::bytes(a.pps), a, s);
+  const dim3 grid(
+      a.hkv * ((rows + kWindowRows - 1) / kWindowRows) * L::kHalves, a.b,
+      a.split);
+  return launch_grid(paged_window_f32_kernel<MODE, DP>, grid, kThreads,
+                     L::bytes(a.pps), a, s);
 }
 
-template <int MODE>
-cudaError_t launch(const PagedArgs& a, bool few_rows, cudaStream_t s) {
+template <int MODE, int DP>
+cudaError_t launch_dp(const PagedArgs& a, bool few_rows, cudaStream_t s) {
   if constexpr (Rule<MODE>::kB7) {
-    return few_rows ? launch_rows<MODE>(a, s) : cudaErrorInvalidValue;
+    return few_rows ? launch_rows<MODE, DP>(a, s) : cudaErrorInvalidValue;
   } else {
-    return few_rows ? launch_rows<MODE>(a, s) : launch_window<MODE>(a, s);
+    return few_rows ? launch_rows<MODE, DP>(a, s)
+                    : launch_window<MODE, DP>(a, s);
   }
 }
 
+// the DP = 128 form up to d = 128, the DP = 256 one past it
+template <int MODE>
+cudaError_t launch(const PagedArgs& a, bool few_rows, cudaStream_t s) {
+  return a.d <= 128 ? launch_dp<MODE, 128>(a, few_rows, s)
+                    : launch_dp<MODE, 256>(a, few_rows, s);
+}
+
 // The launch's shape and splits: whole query groups, d a multiple of 8 up
-// to 128, every kv head's scale lane inside the scale row; the few-rows
+// to 256, every kv head's scale lane inside the scale row; the few-rows
 // kernel's splits at least one page each, at most kMaxSplits, the window
 // kernel's 1 to kWindowMaxSplits with a table row whose page ids fit
 // shared memory; a workspace and counters where there may be more than
@@ -1126,7 +1188,7 @@ cudaError_t launch(const PagedArgs& a, bool few_rows, cudaStream_t s) {
 bool bad_launch(int b, int s_q, int h, int hkv, int d, int page_size,
                 int pps, int s_lanes, bool q8, int split, bool few_rows,
                 const void* ws, const void* counters) {
-  if (b < 1 || s_q < 1 || hkv < 1 || h % hkv || d % 8 || d > kDP ||
+  if (b < 1 || s_q < 1 || hkv < 1 || h % hkv || d % 8 || d > kMaxDP ||
       page_size < 1 || pps < 1 || split < 1 || (q8 && s_lanes < hkv)) {
     return true;
   }

@@ -10,16 +10,19 @@ contiguous row, so a token's write is one row and a head's keys are a
 
 Four TPU kernels sit on the serving path; two CUDA kernels
 (``csrc/paged_attention.cu``) stand in for them, and both split each
-sequence's keys over CTAs and take any query group:
+sequence's keys over CTAs and take any query group and any head dim that
+is a multiple of 8 up to :data:`MAX_HEAD_DIM` (256; two forms each, up to
+128 and past it):
 
   * the few-rows kernel: paged decode, one query token per sequence,
     :func:`paged_attention_dma` (B3, no ALiBi) and :func:`paged_attention`
     (B4, ALiBi); and paged windows of up to :data:`WINDOW_SMALL_ROWS` query
     rows per kv head (speculative verify), :func:`paged_attention_dma_multi`
     (B5);
-  * the window kernel (wgmma, 128 query rows of a kv head a CTA at d >
-    64): paged windows, ``s_q`` queries per sequence, causal from their
-    true positions, for chunked prefill:
+  * the window kernel (wgmma, 128 query rows of a kv head a CTA at 64 <
+    d <= 128; 64 rows and one 128-column half of O a CTA at d > 128):
+    paged windows, ``s_q`` queries per sequence, causal from their true
+    positions, for chunked prefill:
     :func:`paged_attention_multi_blocked` (B6).
     :func:`paged_window_attention` picks B5 or B6 from the window's shape.
 
@@ -91,10 +94,15 @@ WINDOW_MAX_SPLITS = 16
 # keys of the f32 kernels' tiles, the block on which they round p
 F32_TILE_KEYS = 64
 # the window kernels' tiles: (query rows and keys a tile, CTAs an SM,
-# threads, O accumulators a thread); the bf16 kernel's at d > 64 and at
-# d <= 64, the f32 kernel's at every d
-BF16_WINDOW_TILES = ((128, 1, 256, 64), (64, 1, 128, 32))
-F32_WINDOW_TILES = (64, 2, 128, 64)
+# threads, O accumulators a thread, column halves a row tile); the bf16
+# kernel's at 64 < d <= 128, at d <= 64 and at d > 128, the f32 kernel's at
+# d <= 128 and at d > 128 (a CTA a 128-column half of O)
+BF16_WINDOW_TILES = ((128, 1, 256, 64, 1), (64, 1, 128, 32, 1),
+                     (64, 1, 128, 64, 2))
+F32_WINDOW_TILES = (64, 2, 128, 64, 1)
+F32_WINDOW_TILES_WIDE = (64, 1, 128, 64, 2)
+# head dims the paged kernels take: multiples of 8 up to this
+MAX_HEAD_DIM = 256
 _COUNTERS = {}    # device -> both kernels' int32 arrival counters
 _SMS = {}         # device -> its SM count
 
@@ -581,7 +589,7 @@ def _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
     """Raise unless the inputs are what the paged kernels read; returns
     hkv. q (b, [s_q,] h, d) bf16 or f32 and the (P, page, hkv*d) pages,
     bf16 or f32 or, with scales, int8, contiguous and 16-byte aligned on
-    one CUDA device, with d % 8 == 0 and d <= 128; int8 pages' scales (P,
+    one CUDA device, with d % 8 == 0 and d <= 256; int8 pages' scales (P,
     page, S) contiguous f32 with hkv <= S; lengths (b,) and page_tables
     (b, pps) contiguous int32; slopes (h,) contiguous f32."""
     q8 = k_scales is not None
@@ -600,6 +608,10 @@ def _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
             if t.dtype != torch.float32:
                 raise ValueError(f"{name}: {tn} must be float32, got "
                                  f"{t.dtype}")
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} must be a multiple of 8 "
+                         f"and at most {MAX_HEAD_DIM}")
     for t, tn in tensors:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name}: {tn} must be on q's CUDA device, "
@@ -607,10 +619,6 @@ def _check_paged(name, q, k_pages, v_pages, lengths, page_tables,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: {tn} must be contiguous and 16-byte "
                              "aligned")
-    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
-    if d % 8 or d > 128:
-        raise ValueError(f"{name}: head dim {d} must be a multiple of 8 "
-                         "and at most 128")
     if k_pages.dim() != 3 or k_pages.shape != v_pages.shape \
             or k_pages.shape[2] % d or h % (k_pages.shape[2] // d):
         raise ValueError(f"{name}: pages {tuple(k_pages.shape)} / "
@@ -726,17 +734,28 @@ def _split_workspace(q, b, rows, hkv, d, page_size, pps):
 def _window_tiles(d, f32):
     """The window kernel's tiles at head dim ``d``: the f32 one's with
     ``f32``, else the bf16 one's."""
-    return F32_WINDOW_TILES if f32 else BF16_WINDOW_TILES[d <= 64]
+    if f32:
+        return F32_WINDOW_TILES if d <= 128 else F32_WINDOW_TILES_WIDE
+    return BF16_WINDOW_TILES[0 if 64 < d <= 128 else 1 if d <= 64 else 2]
+
+
+def _window_units(b, rows, hkv, d, f32):
+    """The window kernel's CTAs at one key split: (sequence, kv head, row
+    tile, column half)s."""
+    tile, _, _, _, halves = _window_tiles(d, f32)
+    return b * hkv * -(-rows // tile) * halves
 
 
 def window_workspace_floats(b, rows, hkv, d, splits, f32=False):
     """A window kernel's f32 workspace for ``splits`` key splits a row
-    tile: each split of each (sequence, kv head, row tile) keeps its
-    CTA's O accumulators and its rows' (m, l), 4 floats a thread, in
-    fragment order (the kernel's tiles, :data:`BF16_WINDOW_TILES` or
-    :data:`F32_WINDOW_TILES` with ``f32``)."""
-    tile, _, threads, acc = _window_tiles(d, f32)
-    return b * hkv * -(-rows // tile) * splits * threads * (acc + 4)
+    tile: each split of each (sequence, kv head, row tile, column half)
+    keeps its CTA's O accumulators and its rows' (m, l), 4 floats a
+    thread, in fragment order (the kernel's tiles,
+    :data:`BF16_WINDOW_TILES` or, with ``f32``, :data:`F32_WINDOW_TILES`
+    and :data:`F32_WINDOW_TILES_WIDE`)."""
+    _, _, threads, acc, _ = _window_tiles(d, f32)
+    return (_window_units(b, rows, hkv, d, f32) * splits * threads
+            * (acc + 4))
 
 
 def window_plan(b, rows, hkv, d, page_size, pps, sms, f32=False):
@@ -744,20 +763,21 @@ def window_plan(b, rows, hkv, d, page_size, pps, sms, f32=False):
     of a row tile, workspace floats, counters); the bf16 kernel's, or the
     f32 one's with ``f32``. The grid holds about one CTA for each of the
     kernel's CTA slots on the card (the bf16 kernel runs one CTA an SM,
-    the f32 one two; each CTA sizes its split from the lengths so that the
-    live ones fill the card about once, and this caps the grid and the
-    workspace), at most ``WINDOW_MAX_SPLITS`` and one a key tile of the
-    table row for each (sequence, kv head, row tile); one split takes no
-    workspace. The counters are sized for 16-row tiles, the few-rows
-    kernels', which covers the window kernels' too: all share them."""
-    tile, per_sm, _, _ = _window_tiles(d, f32)
-    units = b * hkv * -(-rows // tile)
+    the f32 one two, one at d > 128; each CTA sizes its split from the
+    lengths so that the live ones fill the card about once, and this caps
+    the grid and the workspace), at most ``WINDOW_MAX_SPLITS`` and one a
+    key tile of the table row for each (sequence, kv head, row tile,
+    column half); one split takes no workspace. The counters cover the few-rows kernels'
+    16-row tiles and the window kernel's CTAs at one split: all share
+    them."""
+    tile, per_sm, _, _, _ = _window_tiles(d, f32)
+    units = _window_units(b, rows, hkv, d, f32)
     splits = max(1, min(WINDOW_MAX_SPLITS, -(-pps * page_size // tile),
                         -(-per_sm * sms // units)))
     if splits == 1:
         return 1, 0, 0
     return (splits, window_workspace_floats(b, rows, hkv, d, splits, f32),
-            b * hkv * -(-rows // 16))
+            max(units, b * hkv * -(-rows // 16)))
 
 
 def _sm_count(device) -> int:
@@ -784,10 +804,11 @@ def _window_workspace(q, b, rows, hkv, d, page_size, pps, f32=False):
 def f32_window_split_keys(lengths, splits, page_size, pps):
     """The keys of each sequence's key splits in the f32 window kernel at
     ``splits`` (:func:`window_plan` with ``f32``): its keys (its length,
-    cut to the table) in tiles of ``F32_WINDOW_TILES[0]`` keys, cut into
-    at most ``splits`` runs of whole tiles. The plain versions take this
+    cut to the table) in tiles of ``F32_TILE_KEYS`` keys, cut into
+    at most ``splits`` runs of whole tiles (at every d: at d > 128 both
+    column halves walk the same splits). The plain versions take this
     list as ``split_keys``."""
-    tile = F32_WINDOW_TILES[0]
+    tile = F32_TILE_KEYS
     out = []
     for n in lengths:
         tiles = -(-min(max(int(n), 0), pps * page_size) // tile)
@@ -933,7 +954,8 @@ def paged_attention_multi_blocked(q, k_pages, v_pages, lengths, page_tables,
                                   *, alibi_slopes=None,
                                   scale: Optional[float] = None):
     """B6: B5's contract on the window kernel, for large windows (chunked
-    prefill): tiles of 128 query rows of a kv head (64 at d <= 64), each
+    prefill): tiles of 128 query rows of a kv head (64 at d <= 64, and at
+    d > 128 64 rows a CTA for each 128-column half of the output), each
     sequence's keys split over CTAs. Returns (b, s_q, h, d).
     Dtypes: bf16 or f32 q over bf16 or f32 pages; on the card, the TPU
     kernel's rule (f32 sums, q.k at the promoted dtype, p rounded to the

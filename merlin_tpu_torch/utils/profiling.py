@@ -1,6 +1,8 @@
-"""Step timing and throughput (counterpart of
+"""Tracing, step timing and throughput (counterpart of
 ``merlin_tpu/utils/profiling.py``).
 
+* :func:`trace` - a context manager around ``torch.profiler`` that writes
+  a TensorBoard-loadable trace directory;
 * :class:`StepTimer` - rolling wall-clock per step with tokens/s and the
   model-flops utilization against one H100's dense bf16 peak;
 * :func:`train_step_flops` - the 6ND (8ND with remat) estimate;
@@ -9,12 +11,34 @@
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, *, device="cuda") -> Iterator[torch.profiler.profile]:
+    """Profile the block into ``log_dir`` (``tensorboard_trace_handler``:
+    one ``*.pt.trace.json`` a run, which TensorBoard's profiler plugin and
+    Perfetto load). On the card (the default) it records the device's
+    kernels and copies beside the host's operators and :func:`annotate`
+    spans, and raises when there is no card rather than trace the host
+    alone; ``device="cpu"`` records the host only. Yields the profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("trace: no CUDA device to trace; pass "
+                               "device='cpu' to trace the host alone")
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir))
+    with prof:
+        yield prof
 
 
 def annotate(name: str):

@@ -524,7 +524,7 @@ def test_f32_window_plan_fills_the_card_and_covers_its_splits(b, rows, hkv,
             assert ws == counters == 0
             continue
         units = b * hkv * -(-rows // pa.F32_WINDOW_TILES[0])
-        assert ws == units * splits * c["kThreads"] * (c["kDP"] // 2 + 4)
+        assert ws == units * splits * c["kThreads"] * (c["kCols"] // 2 + 4)
         assert counters >= b * hkv * -(-rows // 16)
         lengths = [0, 1, 63, 64, 65, pps * page, pps * page + 9][:b + 3]
         for n, keys in zip(lengths, pa.f32_window_split_keys(

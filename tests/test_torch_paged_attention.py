@@ -375,7 +375,7 @@ def test_kernels_take_every_query_group_jax_takes():
                 assert not bad_shape(group * hkv, hkv, d, s_lanes), (
                     group, hkv, d, s_lanes)
     # the guard still refuses what the kernels cannot take
-    assert bad_shape(5, 2, 128, 0) and bad_shape(8, 2, 136, 0)
+    assert bad_shape(5, 2, 128, 0) and bad_shape(8, 2, 264, 0)
     assert bad_shape(8, 2, 60, 0) and bad_shape(256, 256, 64, 128)
 
 
