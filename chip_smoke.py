@@ -4029,9 +4029,12 @@ def tower_time(tag, fn, smi):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # the device's rows also mirror the program's spans (``annotate``):
+    # not operations
     rows = [ev for ev in prof.key_averages()
             if ev.device_type == torch.autograd.DeviceType.CUDA
-            and ev.self_device_time_total > 0]
+            and ev.self_device_time_total > 0
+            and not getattr(ev, "is_user_annotation", False)]
     busy = sum(ev.self_device_time_total for ev in rows) / 1e3
     n = sum(ev.count for ev in rows)
     if busy <= 0:
@@ -4546,9 +4549,11 @@ def profile_step(tag, trainer, batch, plain_step_ms):
         if ev.key in MATMUL_OPS:
             mm_flops += ev.flops
         # kernel and copy rows only: a CPU op's row repeats the device time
-        # of the kernels it launched
+        # of the kernels it launched, and a span's device row (``annotate``)
+        # the time of those inside it
         ms = ev.self_device_time_total / 1e3
-        if ev.device_type != torch.autograd.DeviceType.CUDA or ms <= 0:
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ms <= 0 \
+                or getattr(ev, "is_user_annotation", False):
             continue
         n_device += ev.count
         fam = next((name for name, keys in FAMILIES

@@ -55,6 +55,7 @@ from merlin_tpu_torch.models.layers import (
 from merlin_tpu_torch.ops import paged_attention as paged
 from merlin_tpu_torch.ops.attention import attention as dispatch_attention
 from merlin_tpu_torch.ops.attention import mha_reference
+from merlin_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -560,19 +561,24 @@ class CausalLM(nn.Module):
                          "index": idx}
 
         remat = cfg.remat and kv_cache is None and torch.is_grad_enabled()
-        if cfg.scan_layers:
-            x = self.layers(x, positions, segment_ids, kv_cache, cache_aux,
-                            remat)
-        for i, blk in enumerate(self.blocks):
-            layer_cache = kv_cache["layers"][i] if kv_cache is not None else None
-            if remat:
-                x = _run_block(blk, dict(blk.named_parameters()), x,
-                               (positions, segment_ids, None, None), True)
-            else:
-                x = blk(x, positions, segment_ids, layer_cache, cache_aux)
-        if cfg.final_norm:
-            x = self.final_norm(x)
-        logits = self.compute_logits(x)
+        # one span over the layer stack, not one a layer: every layer is
+        # the same, and its share is the span over num_layers
+        with annotate("merlin.decoder.layers"):
+            if cfg.scan_layers:
+                x = self.layers(x, positions, segment_ids, kv_cache,
+                                cache_aux, remat)
+            for i, blk in enumerate(self.blocks):
+                layer_cache = (kv_cache["layers"][i] if kv_cache is not None
+                               else None)
+                if remat:
+                    x = _run_block(blk, dict(blk.named_parameters()), x,
+                                   (positions, segment_ids, None, None), True)
+                else:
+                    x = blk(x, positions, segment_ids, layer_cache, cache_aux)
+        with annotate("merlin.decoder.head"):
+            if cfg.final_norm:
+                x = self.final_norm(x)
+            logits = self.compute_logits(x)
 
         new_cache = None
         if kv_cache is not None:

@@ -60,7 +60,7 @@ import dataclasses
 import gc
 import itertools
 import threading
-from typing import Callable, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -72,6 +72,7 @@ from merlin_tpu_torch.core.parallel import apply_tensor_parallel
 from merlin_tpu_torch.generate.speculative import _scatter_rows
 from merlin_tpu_torch.models.decoder import DecoderConfig, init_kv_cache
 from merlin_tpu_torch.ops.paged_attention import PagePool
+from merlin_tpu_torch.utils.profiling import annotate
 
 _TRASH = "__trash__"   # PagePool seq-id pinning physical page 0
 
@@ -219,6 +220,10 @@ class ServingEngine:
                        else layers[0]["k_pages"].shape[0])
         self.pool = PagePool(total_pages, page_size, self.pages_per_slot)
         self.pool.allocate(_TRASH, 1)   # pins physical page 0
+        self._pages_reserved = self.pool.free_pages
+        # counters of stats(): requests taken into a slot (again after a
+        # preemption), finished, failed, and preemptions
+        self._admitted = self._finished = self._failed = self._preempted = 0
         # host mirror of the device page tables; rows of zeros alias the
         # trash page (idle slots write there, never read)
         self._tables = np.zeros((num_slots, self.pages_per_slot), np.int32)
@@ -410,8 +415,26 @@ class ServingEngine:
                           max_new_tokens=max_new_tokens,
                           temperature=temperature, emit=emit)
             self._next_id += 1
-            self._queue.append(req)
+            with annotate("merlin.engine.submit", req.req_id):
+                self._queue.append(req)
         return req
+
+    def stats(self) -> Dict[str, int]:
+        """The engine's counters, safe to read from any thread: requests
+        queued, decoding (``active``) and in chunked prefill; requests
+        taken into a slot (``admitted``; a preempted one counts again when
+        it re-admits), finished, failed, and preemptions since start; the
+        pool's pages held by requests and those requests may hold."""
+        with self._lock:
+            queued = len(self._queue)
+        prefilling = len(self._prefilling)
+        occupied = sum(r is not None for r in self.slots)
+        return {"queued": queued, "active": occupied - prefilling,
+                "prefilling": prefilling, "admitted": self._admitted,
+                "finished": self._finished, "failed": self._failed,
+                "preempted": self._preempted,
+                "pages_used": self._pages_reserved - self.pool.free_pages,
+                "pages_reserved": self._pages_reserved}
 
     def _route_chunked(self, ids: np.ndarray) -> bool:
         """Hybrid admission policy: chunk only prompts strictly longer
@@ -461,9 +484,11 @@ class ServingEngine:
                     # this request and retry the slot with the next one
                     req.done = True
                     req.error = str(e)
+                    self._failed += 1
                     if req.emit:
                         req.emit(-1, True)  # error sentinel (see Request)
             plen = min(len(req.input_ids), ids.shape[1])
+            self._admitted += 1
             if chunked:
                 # the GLOBAL tables row stays on the trash page until the
                 # prompt is fully written: concurrent decode chunks still
@@ -482,22 +507,24 @@ class ServingEngine:
                 }
                 self._active_np = None
                 continue
-            mask = self._upload(np.arange(ids.shape[1])[None] < plen)
-            small = init_kv_cache(
-                self.lm_cfg, 1, max_len=ids.shape[1], layout="paged",
-                page_size=self.page_size, dtype=self._cache_dtype,
-                tensor_parallel=self.tp, device=self.device)
-            next_logits, small, length = self._prefill(
-                self._upload(ids), mask, small)
-            self._insert(small["layers"],
-                         self._upload(np.asarray(table, np.int64)), slot,
-                         length)
-            self._tables[slot] = 0
-            self._tables[slot, :len(table)] = table
-            self._tables_dirty = True
-            tok_dev = self._first_token(next_logits, req.temperature)
-            self.slots[slot] = req
-            self._finish_admission(slot, req, plen, tok_dev, staged)
+            with annotate("merlin.engine.prefill", req.req_id):
+                mask = self._upload(np.arange(ids.shape[1])[None] < plen)
+                small = init_kv_cache(
+                    self.lm_cfg, 1, max_len=ids.shape[1], layout="paged",
+                    page_size=self.page_size, dtype=self._cache_dtype,
+                    tensor_parallel=self.tp, device=self.device)
+                next_logits, small, length = self._prefill(
+                    self._upload(ids), mask, small)
+                tok_dev = self._first_token(next_logits, req.temperature)
+            with annotate("merlin.engine.insert", req.req_id):
+                self._insert(small["layers"],
+                             self._upload(np.asarray(table, np.int64)), slot,
+                             length)
+                self._tables[slot] = 0
+                self._tables[slot, :len(table)] = table
+                self._tables_dirty = True
+                self.slots[slot] = req
+                self._finish_admission(slot, req, plen, tok_dev, staged)
         self._resolve_admissions(staged)
 
     def _finish_admission(self, slot, req, plen, tok_dev, staged):
@@ -525,23 +552,26 @@ class ServingEngine:
         st = self._prefilling[slot]
         ci, C = st["done"], self.prefill_chunk
         last_row = (st["plen"] - 1) - (st["n"] - 1) * C
-        tok_dev = self._prefill_window(
-            self._upload(st["ids"][:, ci * C:(ci + 1) * C]),
-            st["tables_row"], ci * C,
-            last_row if ci == st["n"] - 1 else 0, st["temp"])
+        req_id = st["req"].req_id
+        with annotate("merlin.engine.window", req_id):
+            tok_dev = self._prefill_window(
+                self._upload(st["ids"][:, ci * C:(ci + 1) * C]),
+                st["tables_row"], ci * C,
+                last_row if ci == st["n"] - 1 else 0, st["temp"])
         st["done"] = ci + 1
         if st["done"] == st["n"]:
             # ragged tail: snap the slot's length to the REAL prompt end
             # (garbage rows past plen are never attended; decode
             # overwrites them in order), and only now reveal the real
             # tables row globally
-            self.cache["lengths"] = _with(self.cache["lengths"], slot,
-                                          st["plen"])
-            self._tables[slot] = st["row"]
-            self._tables_dirty = True
-            del self._prefilling[slot]
-            self._finish_admission(slot, st["req"], st["plen"], tok_dev,
-                                   staged)
+            with annotate("merlin.engine.insert", req_id):
+                self.cache["lengths"] = _with(self.cache["lengths"], slot,
+                                              st["plen"])
+                self._tables[slot] = st["row"]
+                self._tables_dirty = True
+                del self._prefilling[slot]
+                self._finish_admission(slot, st["req"], st["plen"], tok_dev,
+                                       staged)
 
     def _advance_prefill(self):
         """Run up to `prefill_windows_per_step` pending prefill windows,
@@ -572,7 +602,8 @@ class ServingEngine:
         the host bookkeeping (token history, emit callbacks, EOS)."""
         if not staged:
             return
-        toks = torch.stack([t for _, _, _, t in staged]).cpu().numpy()
+        with annotate("merlin.engine.first_token"):
+            toks = torch.stack([t for _, _, _, t in staged]).cpu().numpy()
         for (slot, req, plen, _), tok in zip(staged, toks):
             tok = int(tok)
             self._slot_tokens[slot] = tok
@@ -598,6 +629,7 @@ class ServingEngine:
             req.emit(int(token), done)
         if done:
             req.done = True
+            self._finished += 1
             self.slots[slot] = None
             self.pool.release(req.req_id)
             self._tables[slot] = 0
@@ -614,6 +646,7 @@ class ServingEngine:
             return False
         _, slot = max(victims)
         req = self.slots[slot]
+        self._preempted += 1
         self.pool.release(req.req_id)
         self.slots[slot] = None
         self._tables[slot] = 0
@@ -681,36 +714,55 @@ class ServingEngine:
             batch.append(self._inflight.popleft())
         if not batch:
             return
-        stacked = torch.stack([dev for dev, _ in batch]).cpu().numpy()
-        for chunk, (_, reqs) in zip(stacked, batch):
-            for slot in range(self.num_slots):
-                if reqs[slot] is None or self.slots[slot] is not reqs[slot]:
-                    continue
-                for tok in chunk[slot]:
-                    if tok < 0:
-                        continue  # speculative window hole (not emitted)
-                    self._record(slot, tok)
-                    if self.slots[slot] is None:
-                        break  # finished mid-chunk; rest is void
+        with annotate("merlin.engine.drain"):
+            with annotate("merlin.engine.readback"):
+                stacked = torch.stack([dev for dev, _ in batch]).cpu().numpy()
+            for chunk, (_, reqs) in zip(stacked, batch):
+                for slot in range(self.num_slots):
+                    if reqs[slot] is None \
+                            or self.slots[slot] is not reqs[slot]:
+                        continue
+                    for tok in chunk[slot]:
+                        if tok < 0:
+                            continue  # speculative window hole (not emitted)
+                        self._record(slot, tok)
+                        if self.slots[slot] is None:
+                            break  # finished mid-chunk; rest is void
 
     @torch.no_grad()
     def step(self) -> int:
         """Admit waiting requests, decode `chunk_steps` tokens for all
         active slots, and record results `pipeline` chunks behind.
         Returns the number of active slots processed."""
-        self._admit()
-        self._advance_prefill()
+        with annotate("merlin.engine.step"):
+            return self._step()
+
+    def _step(self) -> int:
+        with annotate("merlin.engine.admit"):
+            self._admit()
+            self._advance_prefill()
         if not any(r is not None for r in self.slots):
             self._drain(force=True)
             return 0
         # grow BEFORE taking the active mask: growth may preempt a slot,
         # and a preempted slot must not be decoded or recorded this chunk
-        self._grow_pages()
+        with annotate("merlin.engine.grow_pages"):
+            self._grow_pages()
+        with annotate("merlin.engine.decode"):
+            active_mask = self._issue_chunk()
+        if active_mask is None:
+            return 0
+        self._drain()
+        return int(active_mask.sum())
+
+    def _issue_chunk(self) -> Optional[np.ndarray]:
+        """Queue one chunk for the active slots on the device; their mask,
+        or None when every occupied slot is still in chunked prefill."""
         active_mask = np.asarray(
             [r is not None and s not in self._prefilling
              for s, r in enumerate(self.slots)], bool)
         if not active_mask.any():
-            return 0
+            return None
         temps = np.asarray(
             [r.temperature if r else 0.0 for r in self.slots], np.float32)
         # upload tokens/active/temps only when they changed, and feed the
@@ -738,8 +790,7 @@ class ServingEngine:
         self._inflight.append((chunk_dev, [
             None if s in self._prefilling else r
             for s, r in enumerate(self.slots)]))
-        self._drain()
-        return int(active_mask.sum())
+        return active_mask
 
     def fail_all(self, reason: str):
         """Fail every active and queued request (error set, error sentinel
@@ -752,6 +803,7 @@ class ServingEngine:
         for req in [r for r in self.slots if r is not None] + pending:
             req.done = True
             req.error = reason
+            self._failed += 1
             if req.emit:
                 try:
                     req.emit(-1, True)  # error sentinel (see Request)

@@ -4,7 +4,8 @@
 Holds one model bundle, registers with the controller, heartbeats every
 15 s (registering again if the controller forgot it), and serves:
 
-  POST /worker_get_status       -> {model_names, speed, queue_length}
+  POST /worker_get_status       -> {model_names, speed, queue_length,
+                                    engine}
   POST /worker_generate_stream  {prompt, images (base64 list), temperature,
                                  max_new_tokens, stop} -> \\0-delimited
                                  {text, error_code} chunks
@@ -16,7 +17,11 @@ image requests, and every request without the engine, take
 ``Generator.stream`` (one chunk per token) or, greedy with
 ``speculative=k``, the ``SpeculativeGenerator`` (one final chunk). A
 semaphore caps the requests in flight; the queue length is what the
-controller's shortest-queue dispatch reads.
+controller's shortest-queue dispatch reads. ``engine`` holds the engine's
+counters (``ServingEngine.stats``: requests queued, decoding, in chunked
+prefill, admitted, finished, failed, preemptions, pages held and pages the
+pool reserves for requests) for an operator, or is None without the
+engine.
 
 What differs from the JAX worker: the bundle's model holds its weights;
 a speculative request builds its generator for its own token budget (there
@@ -137,7 +142,8 @@ class ModelWorker:
     # ------------------------------------------------------------------
     def status(self) -> Dict:
         return {"model_names": self.model_names, "speed": 1.0,
-                "queue_length": self._queue}
+                "queue_length": self._queue,
+                "engine": self.engine.stats() if self.engine else None}
 
     def register(self):
         try:

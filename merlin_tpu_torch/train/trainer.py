@@ -125,10 +125,14 @@ class Trainer:
         world = dist.get_world_size() if self.mesh is not None else 1
         tokens_per_step = (args.per_device_train_batch_size * accum
                            * world * args.model_max_length)
+        # the timer ticks once a logging interval: its "step" is the
+        # interval's steps
+        interval = max(args.logging_steps, 1)
         timer = StepTimer(
-            tokens_per_step=tokens_per_step,
+            tokens_per_step=tokens_per_step * interval,
             flops_per_step=train_step_flops(
-                n_params, tokens_per_step, args.gradient_checkpointing))
+                n_params, tokens_per_step * interval,
+                args.gradient_checkpointing))
 
         feed = self._device_prefetch(batches, accum)
         t0 = time.perf_counter()
@@ -140,8 +144,8 @@ class Trainer:
                 dt = time.perf_counter() - t0
                 t0 = time.perf_counter()
                 metrics["lr"] = float(np.float32(self.schedule(step)))
-                metrics["step_time_s"] = dt / args.logging_steps
                 metrics.update(timer.tick())
+                metrics["step_time_s"] = dt / args.logging_steps
                 last_metrics = metrics
                 logger.info("step %d: %s", step + 1, " ".join(
                     f"{k}={v:.4g}" for k, v in metrics.items()))
