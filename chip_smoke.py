@@ -1945,10 +1945,33 @@ def token_gap(model, prompt_ids, tokens) -> float:
     return gap.max().item()
 
 
+class ReplayCounter:
+    """Counts the decode steps an engine replays from its captured step
+    into ``calls["decode"]`` (a replay calls no module, so no forward hook
+    sees it); ``remove()`` stops counting, as a hook's handle does."""
+
+    def __init__(self, engine, calls):
+        self.engine = engine
+        replay = engine._replay_chunk
+
+        def counted():
+            chunk, last, replayed = replay()
+            if replayed:
+                calls["decode"] += engine.chunk_steps
+            return chunk, last, replayed
+        engine._replay_chunk = counted
+
+    def remove(self):
+        del self.engine._replay_chunk
+
+
 def run_engine(tag, model, prompts, reached, suffix="", **engine_kw):
     """Serve ``prompts`` (32 new tokens each, no early stop) through a
     ``ServingEngine`` on the card. Each kernel's launches must equal the
-    layers times the model calls of its kind (counted by forward hooks),
+    layers times the model calls of its kind (counted by forward hooks;
+    a replay of the engine's captured decode step calls no module, so the
+    decode calls add the replayed steps, and the capture's own call, which
+    runs nothing, is not counted),
     the kernels in ``reached`` must launch and no other kernel may, every
     emitted token must hold against a no-cache forward of its request, and
     a planted prompt swap must fail that check. An int8 pool
@@ -1976,6 +1999,8 @@ def run_engine(tag, model, prompts, reached, suffix="", **engine_kw):
 
     def counter(window):
         def hook(module, args, kwargs, output):
+            if torch.cuda.is_current_stream_capturing():
+                return
             s = args[0].shape[1]
             if window:
                 small = group * s <= WINDOW_SMALL_ROWS
@@ -1985,7 +2010,8 @@ def run_engine(tag, model, prompts, reached, suffix="", **engine_kw):
         return hook
 
     hooks = [engine.model.register_forward_hook(counter(False),
-                                                with_kwargs=True)]
+                                                with_kwargs=True),
+             ReplayCounter(engine, calls)]
     if engine.multi_model is not None:
         hooks.append(engine.multi_model.register_forward_hook(
             counter(True), with_kwargs=True))
@@ -2004,6 +2030,7 @@ def run_engine(tag, model, prompts, reached, suffix="", **engine_kw):
     for h in hooks:
         h.remove()
     free_end = engine.pool.free_pages
+    stats = engine.stats()
     engine.close()
     if free_end != free_start:
         raise AssertionError(f"{tag}: {free_end} free pages after the run, "
@@ -2028,7 +2055,8 @@ def run_engine(tag, model, prompts, reached, suffix="", **engine_kw):
         f"{n_tok / wall:.2f} tok/s aggregate; TTFT ms per request {ttft} "
         f"(host clock, from the emit callback); model calls {dict(calls)}; "
         f"KV pool {pool} bytes ({pool_bf16} as bf16 pages); "
-        f"launches {counts}")
+        f"decode chunks replayed {stats['graph_replays']}, eager "
+        f"{stats['eager_chunks']}; launches {counts}")
     if counts != want or any((n > 0) != (k in reached)
                              for k, n in counts.items()):
         raise AssertionError(f"{tag}: launches {counts}, expected {want} "
@@ -2054,6 +2082,8 @@ def run_engine(tag, model, prompts, reached, suffix="", **engine_kw):
         raise AssertionError(f"{tag}: the token check cannot see a "
                              "swapped prompt")
     return counts, dict(tok_s=n_tok / wall, ttft_ms=ttft, calls=dict(calls),
+                        graph_replays=stats["graph_replays"],
+                        eager_chunks=stats["eager_chunks"],
                         wall_s=wall, max_gap=max(gaps), pool_bytes=pool,
                         pool_bytes_bf16=pool_bf16, free_pages=free_end,
                         tokens=[r.generated for r in reqs])
@@ -2071,6 +2101,78 @@ def serving_prompts(rng, lengths, vocab, period=0):
             out.append(rng.integers(10, vocab - 1000, size=n).astype(
                 np.int32))
     return out
+
+
+def check_graph_replay(rng):
+    """Phase G: the full-width Baichuan2-7B (RoPE, NormHead; f32 leaves,
+    bf16 compute, as the worker serves them) in a 32-slot engine, bf16
+    pages, ``chunk_steps`` 1, ``pipeline`` 8: 32 requests of 32 greedy
+    tokens. The engine that replays its captured decode step must emit the
+    tokens of the same engine kept eager by its test hook, token for
+    token; B3 and B2 must count 32 layers times the decode steps (replayed
+    or not) and the prefills. Returns the readings of both engines."""
+    from merlin_tpu_torch.models.bridge import init_params
+    from merlin_tpu_torch.models.decoder import CausalLM
+    from merlin_tpu_torch.models.families import baichuan2_7b
+    from merlin_tpu_torch.serve.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = CausalLM(baichuan2_7b())
+    init_params(model, torch.Generator(device="cuda").manual_seed(21),
+                dtype=torch.float32, device="cuda")
+    model.eval()
+    log(f"G: Baichuan2-7B, f32 leaves, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n, slots, max_new = model.cfg.num_layers, 32, 32
+    prompts = serving_prompts(rng, rng.integers(100, 700, slots),
+                              model.cfg.vocab_size)
+    out = {}
+    for eager in (False, True):
+        engine = ServingEngine(model, eos_id=-1, device="cuda",
+                               num_slots=slots, max_len=2048, page_size=128,
+                               prompt_bucket=128, chunk_steps=1, pipeline=8)
+        engine._eager_only = eager
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, stats = read_counts(), engine.stats()
+        peak = torch.cuda.max_memory_allocated()
+        engine.close()
+        free_cuda()
+        steps = stats["graph_replays"] + stats["eager_chunks"]
+        tag = "eager" if eager else "replayed"
+        want = launches(B2=n * stats["admitted"], B3=n * steps)
+        log(f"G {tag}: {sum(len(r.generated) for r in reqs)} tokens in "
+            f"{wall:.3f} s (capture included); decode chunks replayed "
+            f"{stats['graph_replays']}, eager {stats['eager_chunks']}; "
+            f"launches {counts}; peak {peak} bytes")
+        if counts != want:
+            raise AssertionError(f"G {tag}: launches {counts}, expected "
+                                 f"{want}")
+        if any(r.error or len(r.generated) != max_new for r in reqs):
+            raise AssertionError(f"G {tag}: a request failed or ended early")
+        out[tag] = dict(tokens=[r.generated for r in reqs], wall_s=wall,
+                        graph_replays=stats["graph_replays"],
+                        eager_chunks=stats["eager_chunks"], peak_bytes=peak)
+    del model
+    free_cuda()
+    same = out["replayed"]["tokens"] == out["eager"]["tokens"]
+    differ = [i for i, (a, b) in enumerate(zip(out["replayed"]["tokens"],
+                                                out["eager"]["tokens"]))
+              if a != b]
+    log(f"G: replayed tokens equal the eager engine's: {same} (requests "
+        f"that differ: {differ})")
+    if not same or out["replayed"]["graph_replays"] == 0 \
+            or out["eager"]["graph_replays"] != 0:
+        raise AssertionError("G: the replayed engine's tokens or counts "
+                             "disagree with the eager engine's")
+    return {tag: {k: v for k, v in r.items() if k != "tokens"}
+            for tag, r in out.items()}
 
 
 def build_baichuan():
@@ -2580,8 +2682,9 @@ def stop_stack(servers, workers):
 
 def engine_counter(worker, calls):
     """Forward hooks counting a worker's engine model calls by kind, as
-    ``run_engine`` counts them; dense-cache calls (the per-request
-    generators) are counted apart by their token count."""
+    ``run_engine`` counts them (the engine's replayed decode steps too, and
+    not the capture's call, which runs nothing); dense-cache calls (the
+    per-request generators) are counted apart by their token count."""
     from merlin_tpu_torch.ops.paged_attention import WINDOW_SMALL_ROWS
 
     cfg = worker.bundle.config.lm
@@ -2589,6 +2692,8 @@ def engine_counter(worker, calls):
 
     def hook(window):
         def count(module, args, kwargs, output):
+            if torch.cuda.is_current_stream_capturing():
+                return
             s = args[0].shape[1]
             cache = kwargs.get("kv_cache")
             if cache is None:
@@ -2604,6 +2709,8 @@ def engine_counter(worker, calls):
 
     hooks = [worker.bundle.model.register_forward_hook(hook(False),
                                                        with_kwargs=True)]
+    if worker.engine is not None:
+        hooks.append(ReplayCounter(worker.engine, calls))
     if worker.engine is not None and worker.engine.multi_model is not None:
         hooks.append(worker.engine.multi_model.register_forward_hook(
             hook(True), with_kwargs=True))
@@ -7140,6 +7247,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     served.update(serve_baichuan(rng))
     scanned["S3"] = serve_scanned_alibi(np.random.default_rng(17))
+    free_cuda()                       # phase G builds its own model
+    graph_replay = check_graph_replay(np.random.default_rng(21))
     free_cuda()                       # phase H builds its own models
     t_h = time.perf_counter()
     wide_served = serve_wide(np.random.default_rng(H_SEED))
@@ -7273,6 +7382,7 @@ def main() -> int:
     log(json.dumps({"serving": {
         e: {k: v for k, v in served[e][1].items() if k != "tokens"}
         for e in served}}))
+    log(json.dumps({"graph_replay": graph_replay, "card": smi}))
     log(json.dumps({"front_end": front, "card": smi}))
     log(json.dumps({"checkpoint": {k: v for k, v in k1.items()
                                    if k != "counts"},

@@ -51,7 +51,7 @@ from merlin_tpu_torch.core.parallel import copy_to_group, gather_from_group
 from merlin_tpu_torch.core.partitioning import set_param_axes
 from merlin_tpu_torch.models.layers import (
     DenseGeneral, Embed, GatedMLP, LayerNorm, RMSNorm, SimpleMLP,
-    alibi_slopes, apply_rope, normal_param)
+    apply_rope, cached_alibi_slopes, normal_param)
 from merlin_tpu_torch.ops import paged_attention as paged
 from merlin_tpu_torch.ops.attention import attention as dispatch_attention
 from merlin_tpu_torch.ops.attention import mha_reference
@@ -221,7 +221,7 @@ class Attention(nn.Module):
             k = apply_rope(k, positions, **rope)
         slopes = None
         if cfg.positional == "alibi":
-            slopes = alibi_slopes(cfg.num_heads, device=x.device)
+            slopes = cached_alibi_slopes(cfg.num_heads, x.device)
             h_local = q.shape[2]
             if h_local < cfg.num_heads:
                 # this rank's heads under tensor parallelism

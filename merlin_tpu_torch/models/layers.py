@@ -320,6 +320,20 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
     return torch.tensor(slopes, dtype=torch.float32, device=device)
 
 
+_SLOPES = {}   # (heads, device) -> slopes
+
+
+def cached_alibi_slopes(num_heads: int, device) -> torch.Tensor:
+    """:func:`alibi_slopes` made once for each (heads, device) and shared,
+    never written: a model step reads them without a copy from the host,
+    which a CUDA graph's capture could not hold."""
+    key = (num_heads, torch.device(device))
+    slopes = _SLOPES.get(key)
+    if slopes is None:
+        slopes = _SLOPES[key] = alibi_slopes(num_heads, device=device)
+    return slopes
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

@@ -11,11 +11,16 @@ kernel's registers, shared memory and spills (``-Xptxas -v``); the report
 is kept beside the library (:func:`ptxas_log`).
 
 Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+``cudaGetLastError()``; :func:`check` raises on a non-zero code. Each
+wrapper counts its launches (:func:`count_launch`); a CUDA graph's replay
+calls no wrapper, so whoever replays one adds the launches its capture
+counted (:func:`recorded_launches`, :func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +28,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Iterator, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -172,13 +177,34 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
-def count_launch(wrapper, f32: bool) -> None:
-    """One launch of ``wrapper``'s kernel: the bf16 kernel counts in
+_recorders: List[collections.Counter] = []
+
+
+def count_launch(wrapper, f32: bool, n: int = 1) -> None:
+    """``n`` launches of ``wrapper``'s kernel: the bf16 kernel counts in
     ``wrapper.launches``, the f32 kernel in ``wrapper.launches_f32``."""
-    if f32:
-        wrapper.launches_f32 += 1
-    else:
-        wrapper.launches += 1
+    attr = "launches_f32" if f32 else "launches"
+    setattr(wrapper, attr, getattr(wrapper, attr) + n)
+    for counts in _recorders:
+        counts[wrapper, f32] += n
+
+
+@contextlib.contextmanager
+def recorded_launches() -> Iterator[collections.Counter]:
+    """The launches counted inside the block, (wrapper, f32) -> count."""
+    counts = collections.Counter()
+    _recorders.append(counts)
+    try:
+        yield counts
+    finally:
+        _recorders.remove(counts)
+
+
+def add_launches(counts: collections.Counter, times: int = 1) -> None:
+    """Count each launch of ``counts`` (from :func:`recorded_launches`)
+    ``times`` times more."""
+    for (wrapper, f32), n in counts.items():
+        count_launch(wrapper, f32, n * times)
 
 
 def stream_handle(device) -> int:

@@ -104,6 +104,9 @@ F32_WINDOW_TILES_WIDE = (64, 1, 128, 64, 2)
 # head dims the paged kernels take: multiples of 8 up to this
 MAX_HEAD_DIM = 256
 _COUNTERS = {}    # device -> both kernels' int32 arrival counters
+# counters replaced by larger ones: a captured CUDA graph's launches still
+# point at them, so they are never freed
+_RETIRED_COUNTERS = []
 _SMS = {}         # device -> its SM count
 
 
@@ -693,6 +696,8 @@ def _counters(device, need: int) -> int:
     streams must not share them. Returns their pointer."""
     counters = _COUNTERS.get(device)
     if counters is None or counters.numel() < need:
+        if counters is not None:
+            _RETIRED_COUNTERS.append(counters)
         counters = torch.zeros(need, dtype=torch.int32, device=device)
         _COUNTERS[device] = counters
     return counters.data_ptr()

@@ -23,6 +23,15 @@ B6), interleaved with decode under a per-step window budget.
 Decode steps attend through the paged decode kernel (B3, or B4 with
 ALiBi); ``spec_draft=k`` replaces them with prompt-lookup verify windows
 of k + 1 tokens (paged window kernel B5) that commit the accepted prefix.
+On the card a plain greedy decode step (one rank, no speculation, no row
+sampling) is captured once as a CUDA graph and replayed for every later
+such step: the host issues one replay instead of every launch of the
+layer stack. The graph reads and updates fixed device buffers, which the
+engine's tokens, active mask, lengths and tables are copied into when
+they change; everything else stays on the eager path. A step ends once
+the card has finished all but the newest chunk, so a host that issues
+faster than the card runs never queues an admission behind more than one
+chunk.
 A ``scan_layers`` model serves from one stacked pool, (L, P, page,
 hkv*d) tensors that the decoder views flat, each layer offsetting the page
 tables by ``layer * P``; the page ids the pool hands out are per layer, so
@@ -71,6 +80,7 @@ from merlin_tpu_torch.core.mesh import (
 from merlin_tpu_torch.core.parallel import apply_tensor_parallel
 from merlin_tpu_torch.generate.speculative import _scatter_rows
 from merlin_tpu_torch.models.decoder import DecoderConfig, init_kv_cache
+from merlin_tpu_torch.ops import _build
 from merlin_tpu_torch.ops.paged_attention import PagePool
 from merlin_tpu_torch.utils.profiling import annotate
 
@@ -98,6 +108,27 @@ def _multi_query_model(model: nn.Module) -> nn.Module:
             module.cfg = dataclasses.replace(cfg, lm=dataclasses.replace(
                 cfg.lm, paged_multi_query=True))
     return clone
+
+
+def _capture(fn: Callable[[], None],
+             device: torch.device) -> Optional[Callable[[], None]]:
+    """``fn``'s work captured once as a CUDA graph on ``device``: its
+    replay, or None on a device without graphs. The capture runs nothing;
+    each replay runs the captured work and counts the kernel launches the
+    capture counted. A host sync or a copy from the host inside ``fn``
+    makes the capture raise."""
+    if device.type != "cuda":
+        return None
+    graph = torch.cuda.CUDAGraph()
+    with _build.recorded_launches() as launched, \
+            torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        fn()
+    _build.add_launches(launched, -1)     # recorded, not run
+
+    def replay():
+        graph.replay()
+        _build.add_launches(launched)
+    return replay
 
 
 def _with(t: torch.Tensor, index, value) -> torch.Tensor:
@@ -224,6 +255,15 @@ class ServingEngine:
         # counters of stats(): requests taken into a slot (again after a
         # preemption), finished, failed, and preemptions
         self._admitted = self._finished = self._failed = self._preempted = 0
+        # decode chunks replayed from the captured step, and issued eagerly
+        self._graph_replays = self._eager_chunks = 0
+        # the captured decode step's replay (None until the first chunk
+        # that can replay) and the buffers it reads and updates in place
+        self._graph: Optional[Callable[[], None]] = None
+        self._static: Optional[Dict[str, torch.Tensor]] = None
+        # set when the device cannot capture; tests set it to keep the
+        # engine eager
+        self._eager_only = False
         # host mirror of the device page tables; rows of zeros alias the
         # trash page (idle slots write there, never read)
         self._tables = np.zeros((num_slots, self.pages_per_slot), np.int32)
@@ -328,6 +368,64 @@ class ServingEngine:
             outs.append(tokens)
         return torch.stack(outs, dim=1), tokens
 
+    def _static_inputs(self) -> Dict[str, torch.Tensor]:
+        """The graph's buffers, holding the engine's current tokens, active
+        mask, lengths and tables: each engine tensor that is not already
+        the buffer (an admission, a table upload or ``fail_all`` made a new
+        one) is copied in on the stream. The engine's names then point at
+        the buffers, which each step updates in place."""
+        s = self._static
+        sources = {"tokens": self._tokens_dev, "active": self._active_dev,
+                   "lengths": self.cache["lengths"],
+                   "tables": self.cache["page_tables"]}
+        if s is None:
+            s = self._static = {k: t.clone() for k, t in sources.items()}
+        else:
+            for key, src in sources.items():
+                if src is not s[key]:
+                    s[key].copy_(src)
+        self._tokens_dev, self._active_dev = s["tokens"], s["active"]
+        self.cache["lengths"] = s["lengths"]
+        self.cache["page_tables"] = s["tables"]
+        return s
+
+    def _static_step(self):
+        """One greedy decode step over the graph's buffers, updating tokens
+        and lengths in place: the step the graph holds, and its eager run
+        before the capture."""
+        s = self._static
+        out = self._decode_one(s["tokens"], s["active"], None, False)
+        s["lengths"].copy_(self.cache["lengths"])
+        s["tokens"].copy_(out)
+        self.cache["lengths"] = s["lengths"]
+
+    def _replay_chunk(self):
+        """`chunk_steps` greedy decode steps as replays of the captured
+        step, as :meth:`_decode_chunk` returns them; the engine's first such
+        chunk runs the step eagerly on the same buffers, then captures it.
+        Each step's tokens are copied out of the buffers, which later
+        steps overwrite before the chunk is read back. Where the device
+        cannot capture, the engine stays eager from then on. Returns the
+        chunk, the last step's tokens and whether the chunk replayed."""
+        s = self._static_inputs()
+        chunk = torch.empty((self.num_slots, self.chunk_steps),
+                            dtype=torch.int32, device=self.device)
+        first = self._graph is None
+        for i in range(self.chunk_steps):
+            if first:
+                self._static_step()
+            else:
+                with annotate("merlin.decoder.layers"), \
+                        annotate("merlin.engine.graph_replay"):
+                    self._graph()
+            chunk[:, i] = s["tokens"]
+        if first:
+            # the kernels are built, cuBLAS loaded and the paged kernels'
+            # counters allocated by the eager run
+            self._graph = _capture(self._static_step, self.device)
+            self._eager_only = self._graph is None
+        return chunk, s["tokens"], not first
+
     def _prefill_window(self, ids, tables_row, start: int, row: int,
                         temperature: float):
         """One (1, C) prompt window straight into pool pages: it appends
@@ -424,7 +522,9 @@ class ServingEngine:
         queued, decoding (``active``) and in chunked prefill; requests
         taken into a slot (``admitted``; a preempted one counts again when
         it re-admits), finished, failed, and preemptions since start; the
-        pool's pages held by requests and those requests may hold."""
+        pool's pages held by requests and those requests may hold; decode
+        chunks replayed from the captured step (``graph_replays``) and
+        issued eagerly (``eager_chunks``)."""
         with self._lock:
             queued = len(self._queue)
         prefilling = len(self._prefilling)
@@ -434,7 +534,9 @@ class ServingEngine:
                 "finished": self._finished, "failed": self._failed,
                 "preempted": self._preempted,
                 "pages_used": self._pages_reserved - self.pool.free_pages,
-                "pages_reserved": self._pages_reserved}
+                "pages_reserved": self._pages_reserved,
+                "graph_replays": self._graph_replays,
+                "eager_chunks": self._eager_chunks}
 
     def _route_chunked(self, ids: np.ndarray) -> bool:
         """Hybrid admission policy: chunk only prompts strictly longer
@@ -705,8 +807,17 @@ class ServingEngine:
         """Read back and record in-flight chunks beyond the pipeline depth
         (all of them when ``force``), in ONE transfer. Each chunk is
         recorded against the REQUESTS captured when it was queued: a slot
-        freed and re-admitted meanwhile must not get stale tokens."""
+        freed and re-admitted meanwhile must not get stale tokens.
+        Otherwise wait until the card has finished all but the newest
+        chunk: once replays let the host run ahead of the card, the next
+        step's admissions then queue behind one chunk, not ``pipeline`` of
+        them, while tokens are still read back ``pipeline`` chunks late."""
         if not force and len(self._inflight) <= self.pipeline:
+            done = self._inflight[-2][2] if len(self._inflight) > 1 else None
+            if done is not None:
+                with annotate("merlin.engine.drain"), \
+                        annotate("merlin.engine.readback"):
+                    done.synchronize()
             return
         keep = 0 if (force or self.pipeline == 0) else 1
         batch = []
@@ -716,8 +827,9 @@ class ServingEngine:
             return
         with annotate("merlin.engine.drain"):
             with annotate("merlin.engine.readback"):
-                stacked = torch.stack([dev for dev, _ in batch]).cpu().numpy()
-            for chunk, (_, reqs) in zip(stacked, batch):
+                stacked = torch.stack(
+                    [dev for dev, _, _ in batch]).cpu().numpy()
+            for chunk, (_, reqs, _) in zip(stacked, batch):
                 for slot in range(self.num_slots):
                     if reqs[slot] is None \
                             or self.slots[slot] is not reqs[slot]:
@@ -775,21 +887,38 @@ class ServingEngine:
             self._active_dev = self._upload(active_mask)
             self._temps_dev = self._upload(temps)
         sample = float(temps.max()) > 1e-4
+        replayed = False
         if self.spec_draft:
             if self._hist_dev is None:
                 self._hist_dev = self._upload(self._hist_np)
                 self._hist_len_dev = self._upload(self._hist_len_np)
             chunk_dev, last = self._spec_chunk(
                 self._tokens_dev, self._active_dev, self._temps_dev, sample)
-        else:
+        elif sample or self.tp > 1 or self._eager_only:
+            # a sampled row draws from the generator, and a tensor group's
+            # collectives are not captured
             chunk_dev, last = self._decode_chunk(
                 self._tokens_dev, self._active_dev, self._temps_dev, sample)
+        else:
+            chunk_dev, last, replayed = self._replay_chunk()
+        if replayed:
+            self._graph_replays += 1
+        else:
+            self._eager_chunks += 1
+            # an empty span marks the step's decode issue as eager
+            with annotate("merlin.engine.eager_chunk"):
+                pass
         self._tokens_dev = last
+        # the event completes once the card has finished this chunk
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
         # a prefilling slot is occupied but NOT in this chunk: its rows
         # are pad and must never be recorded against the new occupant
         self._inflight.append((chunk_dev, [
             None if s in self._prefilling else r
-            for s, r in enumerate(self.slots)]))
+            for s, r in enumerate(self.slots)], done))
         return active_mask
 
     def fail_all(self, reason: str):
@@ -836,6 +965,8 @@ class ServingEngine:
             set_global_mesh(self._prev_mesh)
         self.cache = None
         self.model = self.multi_model = None
+        # the graph's private memory pool goes with it
+        self._graph = self._static = None
         self._prefilling.clear()
         self._inflight.clear()
         self._tokens_dev = self._active_dev = self._temps_dev = None

@@ -80,13 +80,17 @@ def test_engine_span_tree(model, kw, route):
     assert not snap.wrapped
     spans = snap.records
     names = {s.name for s in spans}
+    # a CPU engine issues every decode chunk eagerly, each marked by an
+    # empty eager-chunk span
     assert {STEP, route, "merlin.engine.insert", "merlin.engine.first_token",
             "merlin.engine.readback", "merlin.decoder.layers",
-            "merlin.decoder.head"} | UNDER_STEP <= names
+            "merlin.decoder.head", "merlin.engine.eager_chunk"} \
+        | UNDER_STEP <= names
     parents = {
         STEP: {None}, "merlin.engine.submit": {None},
         "merlin.engine.admit": {STEP}, "merlin.engine.grow_pages": {STEP},
         "merlin.engine.decode": {STEP},
+        "merlin.engine.eager_chunk": {"merlin.engine.decode"},
         # a forced drain settles the pipeline from page growth too
         "merlin.engine.drain": {STEP, "merlin.engine.grow_pages"},
         "merlin.engine.readback": {"merlin.engine.drain"},
@@ -236,7 +240,8 @@ def test_counters_follow_a_scripted_run_with_a_preemption(model):
     engine = ServingEngine(model, **dict(BASE, chunk_steps=4))
     reserved = engine.pool.free_pages
     zero = dict(queued=0, active=0, prefilling=0, admitted=0, finished=0,
-                failed=0, preempted=0, pages_used=0, pages_reserved=reserved)
+                failed=0, preempted=0, pages_used=0, pages_reserved=reserved,
+                graph_replays=0, eager_chunks=0)
     assert engine.stats() == zero
     too_long = engine.submit(list(range(3, 80)), max_new_tokens=2)
     reqs = [engine.submit(p, max_new_tokens=8)
@@ -247,19 +252,23 @@ def test_counters_follow_a_scripted_run_with_a_preemption(model):
     # growing the first to 4 pages preempts the second back to the queue
     assert too_long.error is not None
     assert engine.stats() == dict(zero, queued=1, active=1, admitted=2,
-                                  failed=1, preempted=1, pages_used=4)
+                                  failed=1, preempted=1, pages_used=4,
+                                  eager_chunks=1)
     assert engine.pool.free_pages == reserved - 4
     engine.run_until_idle()
     s = engine.stats()
     assert all(r.done and r.error is None for r in reqs)
-    assert s["preempted"] >= 1
+    assert s["preempted"] >= 1 and s["eager_chunks"] > 1
+    # a CPU engine never replays: every decode chunk is eager
     assert s == dict(zero, admitted=2 + s["preempted"], finished=2,
-                     failed=1, preempted=s["preempted"])
+                     failed=1, preempted=s["preempted"],
+                     eager_chunks=s["eager_chunks"])
     # a request left in flight counts as failed by fail_all
     engine.submit([5, 6, 7], max_new_tokens=8)
     engine.step()
     engine.fail_all("test")
-    assert engine.stats() == dict(s, admitted=s["admitted"] + 1, failed=2)
+    assert engine.stats() == dict(s, admitted=s["admitted"] + 1, failed=2,
+                                  eager_chunks=s["eager_chunks"] + 1)
 
 
 def test_counters_count_chunked_prefill(model):
@@ -298,7 +307,8 @@ def test_worker_status_carries_the_engine_counters():
         assert {"model_names", "speed", "queue_length"} < set(status)
         assert set(status["engine"]) == {
             "queued", "active", "prefilling", "admitted", "finished",
-            "failed", "preempted", "pages_used", "pages_reserved"}
+            "failed", "preempted", "pages_used", "pages_reserved",
+            "graph_replays", "eager_chunks"}
         chunks = list(worker.generate_stream(
             {"prompt": "hello there", "temperature": 0.0,
              "max_new_tokens": 2}))
