@@ -2,12 +2,12 @@
 
 Once the window has closed and the program's state is freed, a sample of
 the finished requests, drawn from the seed and holding the one that served
-the most tokens, goes through the plain reference once each: its prompt
-and served tokens. A served token's gap is how far the reference's logit
-for it lies below the reference's best at that position; the widest gap
-over the sample is held against the configuration's limit. The control
-(``portbench/controls.py``) reads the same gap for the tokens a lower
-precision would put first.
+the most tokens, goes through the plain reference of the configuration's
+decoder family once each: its prompt and served tokens. A served token's
+gap is how far the reference's logit for it lies below the reference's best
+at that position; the widest gap over the sample is held against the
+configuration's limit. The control (``portbench/controls.py``) reads the
+same gap for the tokens a lower precision would put first.
 """
 
 from __future__ import annotations
@@ -20,26 +20,6 @@ import torch
 
 from portbench import weights
 from portbench.record import Req
-from portbench.reference.model import served_logits
-
-
-def lm_widths(config: Dict) -> Dict:
-    """The decoder's widths from a configuration file (published keys at
-    the top; the multimodal tokens the entry adds to the vocabulary)."""
-    heads = config["num_attention_heads"]
-    return {
-        "hidden_size": config["hidden_size"],
-        "intermediate_size": config["intermediate_size"],
-        "num_hidden_layers": config["num_hidden_layers"],
-        "num_heads": heads,
-        "num_kv_heads": config.get("num_key_value_heads", heads),
-        "head_dim": config["hidden_size"] // heads,
-        "vocab_size": config["vocab_size"] + config["mm_tokens"],
-        "rms_norm_eps": config["rms_norm_eps"],
-        "positional": config["positional"],
-        "rope_theta": config.get("rope_theta", 10000.0),
-        "normhead": config["normhead"],
-    }
 
 
 def judge(config: Dict, traffic: Dict, gap: float, failed: int,
@@ -73,22 +53,27 @@ def sample(requests: Sequence[Req], k: int, seed: int) -> List[Req]:
     return [done[longest]] + [done[rest[i]] for i in sorted(picked)]
 
 
-def widest_gaps(config: Dict, seed: int, reqs: Sequence[Req],
+def widest_gaps(family, config: Dict, seed: int, reqs: Sequence[Req],
                 precisions: Sequence[str], device) -> List[float]:
     """For the first precision: the widest gap of the served tokens. For
     each further one: the widest gap, in the first precision's logits, of
-    the tokens that precision puts first at the same positions."""
-    lm = lm_widths(config)
-    groups = weights.lm_groups(lm)
+    the tokens that precision puts first at the same positions. The
+    reference is the configuration's decoder ``family``'s; it computes in
+    f32 from the leaves the program was handed (bf16 leaves: their
+    values)."""
+    lm = family.widths(config)
+    groups = family.groups(lm)
+    dtype = weights.leaf_dtype(config)
 
     def group(name):
-        return weights.make_group(seed, name, groups[name], device)
+        return {leaf: t.float() for leaf, t in weights.make_group(
+            seed, name, groups[name], device, dtype).items()}
 
     seqs = [{"ids": np.concatenate([r.ids, np.asarray(r.tokens[:-1],
                                                       np.int64)]),
              "prompt_len": r.prompt_len} for r in reqs]
-    logits = served_logits(lm, group, seqs, precisions,
-                           config["pages"] == "int8", device)
+    logits = family.served_logits(lm, group, seqs, precisions,
+                                  config["pages"] == "int8", device)
     ref = logits[0]
     out = []
     for pi in range(len(precisions)):

@@ -40,11 +40,11 @@ def requests(traffic, seed: int, vocab: int):
 
 
 def run(cell, seed: int, seconds: float, trace: bool, device, t_start):
-    config, traffic = cell["config"], cell["traffic"]
-    model = serving.build_model(config, seed, device)
+    config, traffic, family = cell["config"], cell["traffic"], cell["family"]
+    model = serving.build_model(family, config, seed, device)
     engine = serving.make_engine(model, config, traffic["engine"], device)
     del model
-    rec = Record(lm=serving.lm_widths(config),
+    rec = Record(lm=family.widths(config), family=family,
                  page_bytes=serving.value_bytes(config), window=(0.0, 0.0),
                  requests=[], steps=[],
                  pages_reserved=engine.pool.free_pages)

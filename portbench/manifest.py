@@ -4,7 +4,9 @@ the files it names.
 Everything that belongs to one configuration, traffic mix or metric sits in
 a file of its own, found by the name the manifest gives it:
 
-  * a configuration: ``configs/<name>.json`` (the ``file`` of its entry);
+  * a configuration: ``configs/<name>.json`` (the ``file`` of its entry),
+    whose ``family`` (``dense`` where it names none) names
+    ``families/<family>.py``, the decoder family;
   * a traffic mix: ``traffic/<traffic>.json``, whose ``driver`` names
     ``drivers/<driver>.py``;
   * a metric (end-to-end or per-layer): ``metrics/<name>.py`` or, where no
@@ -106,7 +108,8 @@ def _applies(metric: Dict[str, Any], cell: str) -> bool:
 def cell(m: Dict[str, Any], name: str, root: Path = CHECKOUT
          ) -> Dict[str, Any]:
     """Everything one cell runs with: its manifest entry, its configuration
-    and traffic files, its driver's path and its metrics of each kind."""
+    and traffic files, its decoder family's module, its driver's path and
+    its metrics of each kind."""
     work = next((w for w in m["workloads"] if w["name"] == name), None)
     if work is None:
         raise ManifestError(f"no workload {name!r} in the manifest")
@@ -116,8 +119,11 @@ def cell(m: Dict[str, Any], name: str, root: Path = CHECKOUT
     with open(root / "portbench" / "traffic" / f"{work['traffic']}.json") as f:
         traffic = json.load(f)
     driver = root / "portbench" / "drivers" / f"{_name(traffic['driver'], 'driver')}.py"
+    family = _name(config.get("family", "dense"), f"{centry['name']}.family")
     return {
         "workload": work, "config": config, "traffic": traffic,
+        "family": load_module(root / "portbench" / "families"
+                              / f"{family}.py"),
         "driver": driver,
         "end_to_end": [x for x in m["end_to_end"] if _applies(x, name)],
         "per_layer": [x for x in m["per_layer"] if _applies(x, name)],

@@ -43,6 +43,9 @@ class Record:
     requests: List[Req]
     steps: List[Tuple[float, float, int]]   # step() spans and its return
     setup_s: float = 0.0
+    # the configuration's decoder family (``portbench/families``): the
+    # work-count readers count with it
+    family: Any = None
     trace: Optional[Trace] = None
     memory_peak_bytes: int = 0
     # the part of the window a traced run's profiler perturbs

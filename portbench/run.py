@@ -5,11 +5,12 @@ cell of ``BENCHMARK.json``.
         --trace <0|1>
 
 From the root of a checkout, on a machine with the cards the cell asks for.
-The cell's configuration, traffic mix, driver and metric readers are found
-by name (``portbench/manifest.py``). The run builds the model with weights
-made from the seed on the card, warms every shape its traffic uses (set-up),
-measures for ``--seconds``, frees the program's state, and checks a sample
-of what the timed path served against the plain reference. The last line of
+The cell's configuration, decoder family, traffic mix, driver and metric
+readers are found by name (``portbench/manifest.py``). The run builds the
+model with weights made from the seed on the card, warms every shape its
+traffic uses (set-up), measures for ``--seconds``, frees the program's
+state, and checks a sample of what the timed path served against the plain
+reference. The last line of
 standard output is one JSON object: ``correct``, ``attempted``, ``failed``,
 ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
 per-layer metrics from a profiled stretch of the window), ``device``,
@@ -109,7 +110,8 @@ def outcome(cell, rec, seed, device, controls=()):
     sample = check.sample(rec.requests, traffic["check_sample"], seed)
     served = sum(len(r.tokens) for r in sample)
     precisions = [config["precision"], *controls]
-    gaps = (check.widest_gaps(config, seed, sample, precisions, device)
+    gaps = (check.widest_gaps(cell["family"], config, seed, sample,
+                              precisions, device)
             if sample else [math.nan] * len(precisions))
     verdicts = [check.judge(config, traffic, gap, len(failed), served)
                 for gap in gaps]

@@ -1,12 +1,12 @@
 """The system under test, as the serving cells drive it: the port's MMGPT
-(CLIP ViT-L/14-448 -> conv projector -> a Baichuan decoder) built by the
-port's own entry points, with the benchmark's weights, behind the port's
-``ServingEngine``; and the client side of the traffic.
+(CLIP ViT-L/14-448 -> conv projector -> the configuration's decoder) built
+by the port's own entry points, with the benchmark's weights, behind the
+port's ``ServingEngine``; and the client side of the traffic.
 
-The model is built on the ``meta`` device from the configuration file
-(``config_from_name`` as the worker's entry calls it, the vocabulary grown
-by the three multimodal tokens as ``build_model_tokenizer`` grows it), its
-f32 leaves made on the card from the seed (``portbench.weights``) and
+The model is built on the ``meta`` device from the configuration file (the
+decoder's configuration from its family's ``build_lm``, see
+``portbench/families``), its leaves made on the card from the seed
+(``portbench.weights``: f32, or bf16 where the configuration says so) and
 handed over with ``load_state_dict(assign=True)``. An int8 configuration is
 then quantised by ``quantize_bundle_lm_int8``, as the worker's
 ``--int8-weights`` does.
@@ -14,7 +14,6 @@ then quantised by ``quantize_bundle_lm_int8``, as the worker's
 
 from __future__ import annotations
 
-import dataclasses
 import gc
 import math
 import time
@@ -24,7 +23,6 @@ import numpy as np
 import torch
 
 from portbench import weights
-from portbench.check import lm_widths
 from portbench.record import Req
 
 PAGE_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8,
@@ -36,30 +34,19 @@ def value_bytes(config: Dict) -> int:
     return PAGE_DTYPES[config["pages"]].itemsize
 
 
-def build_model(config: Dict, seed: int, device):
-    """The served MMGPT with the seed's weights (f32 leaves, bf16 compute;
-    the LM int8 where the configuration says so)."""
+def build_model(family, config: Dict, seed: int, device):
+    """The served MMGPT with the seed's weights (f32 leaves, or bf16 where
+    the configuration says so; bf16 compute; the LM int8 where the
+    configuration says so). ``family`` is the configuration's decoder
+    family (``portbench/families``)."""
     from merlin_tpu_torch.models.builder import (
         ModelBundle, quantize_bundle_lm_int8)
-    from merlin_tpu_torch.models.families import config_from_name
     from merlin_tpu_torch.models.mmgpt import MMGPT, MMGPTConfig
     from merlin_tpu_torch.models.vision_builder import default_vision_config
 
     build = config["build"]
-    widths = lm_widths(config)
-    lm = config_from_name(build["model_name_or_path"],
-                          model_max_length=build["model_max_length"],
-                          dtype=torch.bfloat16)
-    lm = dataclasses.replace(lm, vocab_size=widths["vocab_size"])
-    mine = {"hidden_size": lm.hidden_size, "num_heads": lm.num_heads,
-            "num_kv_heads": lm.kv_heads, "head_dim": lm.head_size,
-            "intermediate_size": lm.intermediate_size,
-            "num_hidden_layers": lm.num_layers, "normhead": lm.normhead,
-            "positional": lm.positional, "rms_norm_eps": lm.norm_eps}
-    for key, value in mine.items():
-        if widths[key] != value:
-            raise ValueError(f"the port's {key} is {value}, the "
-                             f"configuration's {widths[key]}")
+    widths = family.widths(config)
+    lm = family.build_lm(config, widths, torch.bfloat16)
     vit = default_vision_config(build["vision_kind"], build["image_size"],
                                 dtype=torch.bfloat16)
     v0 = config["vocab_size"]
@@ -70,14 +57,15 @@ def build_model(config: Dict, seed: int, device):
                       image_patch_id=v0, im_start_id=v0 + 1, im_end_id=v0 + 2)
     with torch.device("meta"):
         model = MMGPT(cfg)
-    groups = weights.lm_groups(widths)
+    groups = family.groups(widths)
     groups["tower"] = [
         (name, tuple(p.shape), weights.init_of(name, p.shape))
         for name, p in model.named_parameters()
         if name.startswith(("vision_tower.", "projector."))]
+    dtype = weights.leaf_dtype(config)
     state = {}
     for group, leaves in groups.items():
-        state.update(weights.make_group(seed, group, leaves, device))
+        state.update(weights.make_group(seed, group, leaves, device, dtype))
     model.load_state_dict(state, strict=True, assign=True)
     del state
     if config["weights"] == "int8":

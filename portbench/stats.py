@@ -6,7 +6,6 @@ from typing import Iterable, List, Optional, Tuple
 
 import numpy as np
 
-from portbench import yardstick
 from portbench.record import Record
 
 
@@ -41,11 +40,12 @@ def admitted(rec: Record, span: Tuple[float, float]):
 
 def model_flops(rec: Record, span: Tuple[float, float]) -> float:
     """What the work seen in ``span`` needs: each admission's prefill and
-    each later token's decode step over its context."""
-    lm = rec.lm
-    work = sum(yardstick.prefill_flops(lm, r.prompt_len)
+    each later token's decode step over its context, as the record's
+    decoder family counts them."""
+    lm, family = rec.lm, rec.family
+    work = sum(family.prefill_flops(lm, r.prompt_len)
                for r in admitted(rec, span))
-    work += sum(yardstick.decode_flops(lm, r.prompt_len + j)
+    work += sum(family.decode_flops(lm, r.prompt_len + j)
                 for r, j in emitted(rec, span) if j >= 1)
     return work
 

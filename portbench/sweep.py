@@ -54,8 +54,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=1)
     args = p.parse_args(argv)
     cell = manifest.cell(manifest.load(), args.workload)
-    config, traffic = cell["config"], cell["traffic"]
-    model = serving.build_model(config, args.seed, "cuda")
+    config, traffic, family = cell["config"], cell["traffic"], cell["family"]
+    model = serving.build_model(family, config, args.seed, "cuda")
     engine = serving.make_engine(model, config, traffic["engine"], "cuda")
     del model
     for rate in (float(r) for r in args.rates.split(",")):
@@ -63,7 +63,7 @@ def main(argv=None) -> int:
                                   config["vocab_size"], rate=rate)
         serving.warm_up(engine, [r.prompt_len for r in reqs],
                         config["vocab_size"])
-        rec = Record(lm=serving.lm_widths(config), page_bytes=0.0,
+        rec = Record(lm=family.widths(config), family=family, page_bytes=0.0,
                      window=(0.0, 0.0), requests=[], steps=[])
         open_loop.serve(engine, rec, reqs, args.seconds, traffic, False)
         engine.run_until_idle()

@@ -1,17 +1,21 @@
 """The plain reference against the port at narrow widths on the CPU: a
 no-cache f32 forward of the port's decoder (RoPE + NormHead, ALiBi, int8
-weights) on the same weights; the int8 pages' quantiser; and the lower
-precisions reading farther from the f32 reference than the port does."""
+weights) on the same weights; the int8 pages' quantiser; the lower
+precisions reading farther from the f32 reference than the port does; and
+bf16 leaves, the rounding of the f32 draw, as the check hands them to the
+reference."""
 
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
 from portbench import weights
+from portbench.families import dense
 from portbench.reference import model as ref
 
 WIDTHS = {"hidden_size": 48, "intermediate_size": 96, "num_hidden_layers": 2,
@@ -42,7 +46,7 @@ def port_model(lm, weight_dtype="bf16"):
 
 
 def seed_state(lm, seed):
-    groups = weights.lm_groups(lm)
+    groups = dense.groups(lm)
     state = {}
     for g, leaves in groups.items():
         state.update(weights.make_group(seed, g, leaves, "cpu"))
@@ -114,3 +118,40 @@ def test_lower_precisions_read_farther_than_f32():
     err = {p: (ref_rows(lm, groups, 13, ids, 8, p) - f32).abs().max()
            for p in ("int8", "fp8", "int4")}
     assert 0 < err["int8"] < err["fp8"] and err["int8"] < err["int4"]
+
+
+def test_bf16_leaves_are_the_rounding_of_the_f32_draw():
+    """``"weights": "bf16"``: every leaf of every group is the bf16 rounding
+    of what ``"f32"`` gives for the same seed; the check's reference reads
+    those values back in f32."""
+    from portbench import check
+
+    assert weights.leaf_dtype({"weights": "bf16"}) == torch.bfloat16
+    assert weights.leaf_dtype({"weights": "f32"}) == torch.float32
+    assert weights.leaf_dtype({"weights": "int8"}) == torch.float32
+    lm = widths(4, "rope", True)
+    for g, leaves in dense.groups(lm).items():
+        f32 = weights.make_group(21, g, leaves, "cpu")
+        bf16 = weights.make_group(21, g, leaves, "cpu", torch.bfloat16)
+        assert list(bf16) == list(f32)
+        for name, t in f32.items():
+            assert t.dtype == torch.float32
+            assert bf16[name].dtype == torch.bfloat16
+            assert torch.equal(bf16[name], t.to(torch.bfloat16)), name
+    # the check hands the reference the leaves the program was handed
+    seen = []
+
+    def served_logits(lm, group, seqs, precisions, int8_pages, device):
+        seen.append(group("lm.layer0"))
+        return [[] for _ in precisions]
+
+    family = SimpleNamespace(widths=lambda config: lm, groups=dense.groups,
+                             served_logits=served_logits)
+    for kind in ("f32", "bf16"):
+        check.widest_gaps(family, {"weights": kind, "pages": "bf16"}, 21,
+                          [], ["f32"], "cpu")
+    f32, bf16 = seen
+    for name, t in f32.items():
+        assert bf16[name].dtype == torch.float32
+        assert torch.equal(bf16[name], t.to(torch.bfloat16).float()), name
+    assert any(not torch.equal(bf16[n], f32[n]) for n in f32)

@@ -1,11 +1,12 @@
-"""The yardstick's arithmetic on hand-worked shapes, and the readers on
-records and traces built by hand."""
+"""The yardstick's arithmetic and the dense family's work counts on
+hand-worked shapes, and the readers on records and traces built by hand."""
 
 from __future__ import annotations
 
 import pytest
 
 from portbench import manifest, trace, yardstick
+from portbench.families import dense
 from portbench.record import Record, Req, Trace
 
 LM = {"hidden_size": 8, "num_heads": 2, "num_kv_heads": 2, "head_dim": 4,
@@ -19,25 +20,29 @@ def reader(name):
 
 def test_operation_and_byte_counts():
     # q, k, v, o: 4 x 8 x 8; gate, up, down: 3 x 8 x 16
-    assert yardstick.layer_matmul_params(LM) == 4 * 64 + 3 * 128
+    assert dense.layer_matmul_params(LM) == 4 * 64 + 3 * 128
     # 5 tokens through 3 layers, the head on 1 of them
-    assert yardstick.token_flops(LM, 5, 1) == 2 * (3 * 640 * 5 + 800)
+    assert dense.token_flops(LM, 5, 1) == 2 * (3 * 640 * 5 + 800)
     assert yardstick.causal_pairs(4) == 10
     # q.k and p.v: 2 heads x 4 dims x 2 products x 2 FLOPs, 3 layers
-    assert yardstick.attention_flops(LM, 10) == 4 * 2 * 4 * 3 * 10
-    assert yardstick.prefill_flops(LM, 4) == \
-        yardstick.token_flops(LM, 4, 1) + yardstick.attention_flops(LM, 10)
-    assert yardstick.decode_flops(LM, 7) == \
-        yardstick.token_flops(LM, 1, 1) + yardstick.attention_flops(LM, 7)
+    assert dense.pair_flops(LM, 10) == 4 * 2 * 4 * 3 * 10
+    # a prompt of 4 tokens: 10 causal pairs
+    assert dense.attention_flops(LM, 4) == dense.pair_flops(LM, 10)
+    assert dense.prefill_flops(LM, 4) == \
+        dense.token_flops(LM, 4, 1) + dense.pair_flops(LM, 10)
+    assert dense.decode_flops(LM, 7) == \
+        dense.token_flops(LM, 1, 1) + dense.pair_flops(LM, 7)
     # K and V, 3 layers, 2 heads of 4 values: bf16, and int8 + f32 scale
-    assert yardstick.kv_bytes(LM, 10, 2) == 2 * 3 * 2 * 8 * 10
-    assert yardstick.kv_bytes(LM, 10, 1) == 2 * 3 * 2 * (4 + 4) * 10
+    assert dense.kv_bytes(LM, 10, 2) == 2 * 3 * 2 * 8 * 10
+    assert dense.kv_bytes(LM, 10, 1) == 2 * 3 * 2 * (4 + 4) * 10
+    # q and output rows of one decode token, bf16, 3 layers
+    assert dense.decode_rows_bytes(LM) == 2 * 2 * 4 * 2 * 3
     assert yardstick.bound_s(989e12, 0) == pytest.approx(1.0)
     assert yardstick.bound_s(0, 3.35e12) == pytest.approx(1.0)
 
 
 def record(**kw):
-    base = dict(lm=LM, page_bytes=2, window=(0.0, 10.0),
+    base = dict(lm=LM, family=dense, page_bytes=2, window=(0.0, 10.0),
                 requests=[], steps=[])
     base.update(kw)
     return Record(**base)
@@ -63,13 +68,13 @@ def test_mfu_counts_prefills_and_decode_steps():
     req = Req(prompt_len=4, max_new=3, first=1.0, done=True,
               tokens=[1, 2, 3], token_times=[1.0, 2.0, 3.0])
     rec = record(requests=[req])
-    work = yardstick.prefill_flops(LM, 4) + yardstick.decode_flops(LM, 5) \
-        + yardstick.decode_flops(LM, 6)
+    work = dense.prefill_flops(LM, 4) + dense.decode_flops(LM, 5) \
+        + dense.decode_flops(LM, 6)
     assert reader("mfu.decode")(rec) == pytest.approx(
         100 * work / (10 * 989e12))
     # a traced run: only the part the profiler left alone counts
     rec.perturbed = (1.5, 2.5)
-    work = yardstick.prefill_flops(LM, 4) + yardstick.decode_flops(LM, 6)
+    work = dense.prefill_flops(LM, 4) + dense.decode_flops(LM, 6)
     assert reader("mfu.decode")(rec) == pytest.approx(
         100 * work / (9 * 989e12))
 
@@ -155,7 +160,7 @@ def test_paged_roofline_from_the_traffic_record():
                  steps=[(1.5, 1.6, 1), (2.5, 2.6, 1)])
     # two decode tokens over 11 and 12 keys, two steps: one step's need
     rows = 2 * 2 * 4 * 2
-    need = (yardstick.kv_bytes(lm, 11, 2) + yardstick.kv_bytes(lm, 12, 2)
+    need = (dense.kv_bytes(lm, 11, 2) + dense.kv_bytes(lm, 12, 2)
             + 2 * rows) / 2
     # B3: 2 launches of 10 us, a launch a step (one layer)
     assert reader("paged_decode_roofline.decode")(rec) == pytest.approx(

@@ -3,11 +3,13 @@
 The benchmark makes every weight itself and hands the same values to the
 program (``load_state_dict(assign=True)`` under the program's parameter
 names) and to the plain reference, which makes them again, group by group,
-once the program's state is freed. A group is one decoder layer, the
-embedding, the head, or the vision tower with its projector; each is ONE
-draw of a normal buffer from a generator seeded from (seed, group), then
-cut into its leaves and scaled. So the same seed gives the same weights,
-and the reference can remake one layer without the rest.
+once the program's state is freed. A group (the decoder's are its
+family's: ``portbench/families``) is one decoder layer, the embedding, the
+head, or the vision tower with its projector; each is ONE draw of a normal
+f32 buffer from a generator seeded from (seed, group), then cut into its
+leaves and scaled, and cast where the configuration states bf16 leaves.
+So the same seed gives the same weights, and the reference can remake one
+layer without the rest.
 
 Norm scales are ones and biases zeros (never drawn); embeddings and
 position tables N(0, 0.02); kernels N(0, 1 / fan_in), fan_in the
@@ -18,7 +20,7 @@ from __future__ import annotations
 
 import hashlib
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -49,39 +51,19 @@ def init_of(name: str, shape: Sequence[int]) -> str:
     return f"normal:{1.0 / math.sqrt(fan_in)!r}"
 
 
-def lm_groups(lm: Dict[str, int]) -> Dict[str, List[Leaf]]:
-    """The decoder's groups under the program's names (``lm.`` prefix):
-    ``lm.embed``, ``lm.layer<i>``, ``lm.head`` (with the final norm)."""
-    e, h, d = lm["hidden_size"], lm["num_heads"], lm["head_dim"]
-    hkv, inter, v = lm["num_kv_heads"], lm["intermediate_size"], lm["vocab_size"]
-
-    def leaves(names_shapes):
-        return [(n, tuple(s), init_of(n, s)) for n, s in names_shapes]
-
-    groups = {"lm.embed": leaves([("lm.embed_tokens.embedding", (v, e))])}
-    for i in range(lm["num_hidden_layers"]):
-        p = f"lm.layers_{i}."
-        groups[f"lm.layer{i}"] = leaves([
-            (p + "input_norm.scale", (e,)),
-            (p + "attn.q_proj.kernel", (e, h, d)),
-            (p + "attn.k_proj.kernel", (e, hkv, d)),
-            (p + "attn.v_proj.kernel", (e, hkv, d)),
-            (p + "attn.o_proj.kernel", (h, d, e)),
-            (p + "post_attn_norm.scale", (e,)),
-            (p + "mlp.gate_proj.kernel", (e, inter)),
-            (p + "mlp.up_proj.kernel", (e, inter)),
-            (p + "mlp.down_proj.kernel", (inter, e)),
-        ])
-    head = ("lm.lm_head_kernel" if lm["normhead"] else "lm.lm_head.kernel")
-    groups["lm.head"] = leaves([("lm.final_norm.scale", (e,)),
-                                (head, (e, v))])
-    return groups
+def leaf_dtype(config: Dict) -> torch.dtype:
+    """The dtype of the leaves handed to the program: bf16 where the
+    configuration states ``"weights": "bf16"``; f32 otherwise (``int8``
+    weights are quantised by the port from its f32 leaves)."""
+    return torch.bfloat16 if config["weights"] == "bf16" else torch.float32
 
 
-def make_group(seed: int, group: str, leaves: Sequence[Leaf],
-               device) -> Dict[str, torch.Tensor]:
-    """One group's f32 leaves: one normal draw for all its drawn leaves,
-    cut into views and scaled in place; ones and zeros made apart."""
+def make_group(seed: int, group: str, leaves: Sequence[Leaf], device,
+               dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """One group's leaves: one f32 normal draw for all its drawn leaves,
+    cut into views and scaled in place; ones and zeros made apart; then
+    each cast to ``dtype`` on ``device`` (bf16 leaves are the rounding of
+    the f32 draw, which is freed)."""
     drawn = [(n, s, float(i.split(":")[1])) for n, s, i in leaves
              if i.startswith("normal:")]
     total = sum(math.prod(s) for _, s, _ in drawn)
@@ -101,4 +83,6 @@ def make_group(seed: int, group: str, leaves: Sequence[Leaf],
             out[name] = torch.ones(shape, device=device)
         elif init == "zeros":
             out[name] = torch.zeros(shape, device=device)
+    if dtype != torch.float32:
+        out = {name: t.to(dtype) for name, t in out.items()}
     return out
